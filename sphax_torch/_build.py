@@ -1,8 +1,9 @@
-"""Build and load the CUDA window kernels (``csrc/window_kernels.cu``).
+"""Build and load the CUDA kernels (``csrc/*.cu``).
 
-``nvcc`` compiles the repository's own source into a shared library with a
-plain C interface, ``build/sphax_torch/libsphax_kernels_<sha>.so`` under
-the checkout (the name carries the source's hash, so an edited source
+``nvcc`` compiles each of the repository's sources to an object, all of
+them at once in parallel processes, and links them into one shared library
+with a plain C interface, ``build/sphax_torch/libsphax_kernels_<sha>.so``
+under the checkout (the name carries the sources' hash, so an edited source
 rebuilds), at the first call that needs it; ``ctypes`` loads it. Importing
 this module builds nothing, so the package imports on a machine without
 ``nvcc``.
@@ -17,10 +18,12 @@ import subprocess
 import time
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "window_kernels.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (CSRC / "window_kernels.cu", CSRC / "gravity_kernel.cu")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "sphax_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v"]
 
 _lib = None
 # filled by the build that made the library in this process
@@ -36,6 +39,12 @@ _ARGTYPES = {
     # fast, acc, du, stream
     "sphax_forces": [_P, _P, _P, _I, _I, _I, _D, _D, _D, _I, _I, _P, _P,
                      _P],
+    # the same with the P3M split scalars (device), G and cutoff^2 before
+    # acc, du, stream
+    "sphax_forces_grav": [_P, _P, _P, _I, _I, _I, _D, _D, _D, _I, _I, _P,
+                          _D, _D, _P, _P, _P],
+    # src [4, n], n, eps^2, G, acc, stream
+    "sphax_gravity": [_P, _I, _D, _D, _P, _P],
 }
 
 
@@ -48,32 +57,54 @@ def _nvcc() -> str:
         if c and os.path.exists(c):
             return c
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
-                       "the CUDA window kernels cannot be built")
+                       "the CUDA kernels cannot be built")
 
 
 def library_path() -> Path:
-    sha = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libsphax_kernels_{sha}.so"
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libsphax_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run(cmd):
+    """Start ``cmd``; the caller collects it with ``_wait``."""
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
+def _wait(job) -> str:
+    cmd, proc = job
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{out}{err}")
+    return err
 
 
 def load() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library."""
+    """Build (once per sources' hash) and load the kernel library."""
     global _lib
     if _lib is not None:
         return _lib
     out = library_path()
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+        stem = f"{out.stem}.{os.getpid()}"
+        objs = [out.with_name(f"{stem}.{src.stem}.o") for src in SOURCES]
+        tmp = out.with_name(f"{stem}.tmp.so")
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
+        jobs = [_run([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)])
+                for src, o in zip(SOURCES, objs)]
+        ptxas = "".join([_wait(j) for j in jobs])
+        _wait(_run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                    *map(str, objs)]))
         os.replace(tmp, out)  # atomic: concurrent builders never load halves
-        BUILD_INFO.update(seconds=time.perf_counter() - t0,
-                          ptxas=proc.stderr)
+        for o in objs:
+            o.unlink()
+        BUILD_INFO.update(seconds=time.perf_counter() - t0, ptxas=ptxas)
     lib = ctypes.CDLL(str(out))
     for base, argtypes in _ARGTYPES.items():
         for suffix in ("f32", "f64"):

@@ -43,7 +43,8 @@ class SPHConfig:
     mm_alpha_max: float = 1.5
     mm_sigma: float = 0.2             # decay rate coefficient (tau = h/(sigma c))
 
-    # Self-gravity (Plummer softening); not ported yet (gravity slice).
+    # Self-gravity (Plummer softening): "p3m" (FFT mesh + screened short
+    # range) or direct sum (any other solver name).
     gravity: bool = False
     G: float = 1.0
     grav_eps: float = 0.01

@@ -2,8 +2,8 @@
 //
 // Replaces (TPU Pallas kernels):
 //   kernel A  sphax/physics/pallas_kernels.py:315  solve_h_density
-//   kernel C  sphax/physics/pallas_kernels.py:563  forces (without the fused
-//             P3M `grav` branch, which comes with the gravity slice)
+//   kernel C  sphax/physics/pallas_kernels.py:563  forces, with its fused P3M
+//             `grav=(rs, eps)` branch (:592-599, :747-769) as the GRAV mode
 //
 // Contract (sphax_torch/physics/window_kernels.py): one thread owns one
 // sorted row i; a block covers one tile of `tile` rows, i.e. tile/group
@@ -26,6 +26,17 @@
 // This is the correctness-first version; trimming the candidate set (finer
 // groups, compaction) and staging windows in shared memory are later work.
 //
+// Kernel C's GRAV mode adds the screened P3M short range
+// G m_j S(r) (r^2 + eps^2)^-3/2 dx for every candidate with 0 < r^2 <=
+// cutoff^2, ahead of the SPH support exit: the screened force reaches to
+// 4.5 r_s <= cutoff, well past 2h, so most of its pairs lie outside both
+// supports. It uses the native erfc (the TPU needed a polynomial) and one
+// exp shared with the derivative term, and it always divides exactly. The
+// three split scalars (0.5/rs, 1/(rs sqrt(pi)), eps^2) come from a device
+// pointer, because rs is a device tensor; G and cutoff^2 are static. The
+// mode adds an erfc, an exp and an rsqrt to every candidate within the
+// cutoff, not only to those within the support.
+//
 // Every launcher returns cudaGetLastError() right after its launch.
 
 #include <cuda_runtime.h>
@@ -42,6 +53,8 @@ template <> struct Num<float> {
   static constexpr float tiny = 1e-30f;
   static __device__ __forceinline__ float rsqrt(float x) { return rsqrtf(x); }
   static __device__ __forceinline__ float sqrt(float x) { return sqrtf(x); }
+  static __device__ __forceinline__ float exp(float x) { return expf(x); }
+  static __device__ __forceinline__ float erfc(float x) { return erfcf(x); }
   template <bool FAST>
   static __device__ __forceinline__ float div(float a, float b) {
     return FAST ? __fdividef(a, b) : a / b;
@@ -52,6 +65,8 @@ template <> struct Num<double> {
   static constexpr double tiny = 1e-300;
   static __device__ __forceinline__ double rsqrt(double x) { return ::rsqrt(x); }
   static __device__ __forceinline__ double sqrt(double x) { return ::sqrt(x); }
+  static __device__ __forceinline__ double exp(double x) { return ::exp(x); }
+  static __device__ __forceinline__ double erfc(double x) { return ::erfc(x); }
   template <bool FAST>
   static __device__ __forceinline__ double div(double a, double b) {
     return a / b;
@@ -235,11 +250,28 @@ struct Own {
   T x, y, z, vx, vy, vz, h, invh, rho, cs, ci, gc1, gc2, bf;
 };
 
-template <typename T, bool BF, bool FAST, int S>
+// The P3M split scalars and constants of the GRAV mode.
+template <typename T>
+struct Grav {
+  T x_scale, sp, eps2, G, rcut2;  // 0.5/rs, 1/(rs sqrt(pi)), eps^2
+};
+
+// G S(r) (r^2 + eps^2)^-3/2 inside the hard cut 0 < r^2 <= cutoff^2, else 0.
+template <typename T>
+__device__ __forceinline__ T grav_coef(T r2, T r, const Grav<T>& g) {
+  if (!(r2 > T(0) && r2 <= g.rcut2)) return T(0);
+  const T x = r * g.x_scale;
+  const T e = Num<T>::exp(-x * x);
+  const T screen = Num<T>::erfc(x) + r * g.sp * e;
+  const T tg = Num<T>::rsqrt(r2 + g.eps2);
+  return g.G * screen * (tg * tg * tg);
+}
+
+template <typename T, bool BF, bool FAST, bool GRAV, int S>
 __device__ __forceinline__ void force_segment(
     const T* __restrict__ win, int Ns, const int (&lo)[NSEG],
     const int (&hi)[NSEG], const Own<T>& o, T alpha, T beta, T epsv,
-    ForceSums<T>& acc) {
+    const Grav<T>& g, ForceSums<T>& acc) {
   auto F = [&](int f, int k) { return win[(size_t)f * Ns + k]; };
   for (int k = lo[S]; k < hi[S]; ++k) {
     if (seen_before<S>(k, lo, hi)) continue;
@@ -247,9 +279,18 @@ __device__ __forceinline__ void force_segment(
     const T r2 = dx * dx + dy * dy + dz * dz;
     const T invr = Num<T>::rsqrt(r2 + Num<T>::tiny);
     const T r = r2 * invr;
+    const T gco = GRAV ? grav_coef(r2, r, g) : T(0);
     const T qi = r * o.invh;
     const T qj = r * F(FINVH, k);
-    if (qi >= T(2) && qj >= T(2)) continue;  // both gradients vanish
+    if (qi >= T(2) && qj >= T(2)) {  // both gradients vanish
+      if (GRAV) {
+        const T fcoef = F(FM, k) * gco;
+        acc.ax -= fcoef * dx;
+        acc.ay -= fcoef * dy;
+        acc.az -= fcoef * dz;
+      }
+      continue;
+    }
     const T ti = T(2) - qi, tj = T(2) - qj;
     T gi = qi < T(1) ? o.gc2 * (T(2.25) * qi - T(3))
                      : T(-0.75) * o.gc1 * (ti * ti) * invr;
@@ -275,7 +316,9 @@ __device__ __forceinline__ void force_segment(
     const T m = F(FM, k);
     const T cigi = o.ci * gi;
     const T pigb = Pi * gbar;
-    const T fcoef = m * (cigi + F(FCI, k) * gj + pigb);
+    T fsum = cigi + F(FCI, k) * gj + pigb;
+    if (GRAV) fsum += gco;
+    const T fcoef = m * fsum;
     acc.ax -= fcoef * dx;
     acc.ay -= fcoef * dy;
     acc.az -= fcoef * dz;
@@ -283,11 +326,12 @@ __device__ __forceinline__ void force_segment(
   }
 }
 
-template <typename T, bool BF, bool FAST>
+template <typename T, bool BF, bool FAST, bool GRAV>
 __global__ void forces_kernel(const T* __restrict__ win,
                               const int* __restrict__ w_lo,
                               const int* __restrict__ w_nact, int Ns,
                               int group, T alpha, T beta, T epsv,
+                              const T* __restrict__ gsc, T G, T rcut2,
                               T* __restrict__ acc_out,
                               T* __restrict__ du_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -300,8 +344,15 @@ __global__ void forces_kernel(const T* __restrict__ win,
     const Own<T> o{F(FX),   F(FY),   F(FZ),  F(FVX), F(FVY),
                    F(FVZ),  F(FH),   F(FINVH), F(FRHO), F(FCS),
                    F(FCI),  F(FGC1), F(FGC2), BF ? F(FBF) : T(0)};
-#define SPHAX_SEG(S) \
-  force_segment<T, BF, FAST, S>(win, Ns, lo, hi, o, alpha, beta, epsv, a)
+    Grav<T> g{T(0), T(0), T(0), G, rcut2};
+    if (GRAV) {
+      g.x_scale = gsc[0];
+      g.sp = gsc[1];
+      g.eps2 = gsc[2];
+    }
+#define SPHAX_SEG(S)                                                        \
+  force_segment<T, BF, FAST, GRAV, S>(win, Ns, lo, hi, o, alpha, beta, epsv, \
+                                      g, a)
     SPHAX_SEG(0); SPHAX_SEG(1); SPHAX_SEG(2); SPHAX_SEG(3); SPHAX_SEG(4);
     SPHAX_SEG(5); SPHAX_SEG(6); SPHAX_SEG(7); SPHAX_SEG(8);
 #undef SPHAX_SEG
@@ -336,23 +387,25 @@ cudaError_t launch_solve_h_density(const void* win, const void* h0,
   return cudaGetLastError();
 }
 
-template <typename T, bool FAST>
+template <typename T, bool FAST, bool GRAV>
 cudaError_t launch_forces(const void* win, const void* w_lo,
                           const void* w_nact, int Ns, int tile, int group,
                           double alpha, double beta, double epsv, int use_bf,
-                          void* acc, void* du, void* stream) {
+                          const void* gsc, double G, double rcut2, void* acc,
+                          void* du, void* stream) {
   const dim3 grid(Ns / tile), block(tile);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto args = [&](auto kernel) {
     kernel<<<grid, block, 0, st>>>(
         static_cast<const T*>(win), static_cast<const int*>(w_lo),
         static_cast<const int*>(w_nact), Ns, group, T(alpha), T(beta),
-        T(epsv), static_cast<T*>(acc), static_cast<T*>(du));
+        T(epsv), static_cast<const T*>(gsc), T(G), T(rcut2),
+        static_cast<T*>(acc), static_cast<T*>(du));
   };
   if (use_bf)
-    args(forces_kernel<T, true, FAST>);
+    args(forces_kernel<T, true, FAST, GRAV>);
   else
-    args(forces_kernel<T, false, FAST>);
+    args(forces_kernel<T, false, FAST, GRAV>);
   return cudaGetLastError();
 }
 
@@ -391,12 +444,14 @@ cudaError_t sphax_forces_f32(const void* win, const void* w_lo,
                              int use_bf, int fast, void* acc, void* du,
                              void* stream) {
   if (fast)
-    return launch_forces<float, true>(win, w_lo, w_nact, Ns, tile, group,
-                                      alpha, beta, epsv, use_bf, acc, du,
-                                      stream);
-  return launch_forces<float, false>(win, w_lo, w_nact, Ns, tile, group,
-                                     alpha, beta, epsv, use_bf, acc, du,
-                                     stream);
+    return launch_forces<float, true, false>(win, w_lo, w_nact, Ns, tile,
+                                             group, alpha, beta, epsv, use_bf,
+                                             nullptr, 0.0, 0.0, acc, du,
+                                             stream);
+  return launch_forces<float, false, false>(win, w_lo, w_nact, Ns, tile,
+                                            group, alpha, beta, epsv, use_bf,
+                                            nullptr, 0.0, 0.0, acc, du,
+                                            stream);
 }
 
 cudaError_t sphax_forces_f64(const void* win, const void* w_lo,
@@ -405,9 +460,39 @@ cudaError_t sphax_forces_f64(const void* win, const void* w_lo,
                              int use_bf, int fast, void* acc, void* du,
                              void* stream) {
   (void)fast;
-  return launch_forces<double, false>(win, w_lo, w_nact, Ns, tile, group,
-                                      alpha, beta, epsv, use_bf, acc, du,
-                                      stream);
+  return launch_forces<double, false, false>(win, w_lo, w_nact, Ns, tile,
+                                             group, alpha, beta, epsv, use_bf,
+                                             nullptr, 0.0, 0.0, acc, du,
+                                             stream);
+}
+
+// Kernel C with the fused P3M short range: gsc -> the three split scalars
+// on the device.
+cudaError_t sphax_forces_grav_f32(const void* win, const void* w_lo,
+                                  const void* w_nact, int Ns, int tile,
+                                  int group, double alpha, double beta,
+                                  double epsv, int use_bf, int fast,
+                                  const void* gsc, double G, double rcut2,
+                                  void* acc, void* du, void* stream) {
+  if (fast)
+    return launch_forces<float, true, true>(win, w_lo, w_nact, Ns, tile,
+                                            group, alpha, beta, epsv, use_bf,
+                                            gsc, G, rcut2, acc, du, stream);
+  return launch_forces<float, false, true>(win, w_lo, w_nact, Ns, tile,
+                                           group, alpha, beta, epsv, use_bf,
+                                           gsc, G, rcut2, acc, du, stream);
+}
+
+cudaError_t sphax_forces_grav_f64(const void* win, const void* w_lo,
+                                  const void* w_nact, int Ns, int tile,
+                                  int group, double alpha, double beta,
+                                  double epsv, int use_bf, int fast,
+                                  const void* gsc, double G, double rcut2,
+                                  void* acc, void* du, void* stream) {
+  (void)fast;
+  return launch_forces<double, false, true>(win, w_lo, w_nact, Ns, tile,
+                                            group, alpha, beta, epsv, use_bf,
+                                            gsc, G, rcut2, acc, du, stream);
 }
 
 const char* sphax_error_string(int err) {

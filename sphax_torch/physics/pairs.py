@@ -94,3 +94,9 @@ def mm_alpha_update(alpha, divv, h, cs, dt, cfg: SPHConfig):
                                           / torch.clamp_min(h, 1e-30))
     return torch.clamp(alpha + dt * (src - decay), cfg.mm_alpha_min,
                        cfg.mm_alpha_max)
+
+
+def gravity_terms(dx, r, m_j, cfg: SPHConfig):
+    """Per-pair softened gravity: acc_i = -G sum_j gcoef * dx."""
+    inv = (r * r + cfg.grav_eps**2) ** (-1.5)
+    return cfg.G * m_j * inv

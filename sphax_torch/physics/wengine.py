@@ -9,6 +9,12 @@ support or zero-mass.
 The two pair walks of a step go through ``window_kernels``: the CUDA
 kernels A and C for CUDA tensors, their plain torch versions (built on
 ``_tile_pass`` below) for CPU tensors.
+
+Self-gravity (``cfg.gravity``) takes the JAX package's three branches:
+P3M fuses the screened short range into kernel C and adds the FFT mesh
+(``pm.mesh_accel``); the direct solver runs kernel G
+(``direct_gravity.gravity``) on an open box and the min-image direct sum
+(``clist.gravity_dense``) on a periodic one.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from sphax_torch.integrate import leapfrog
 from sphax_torch.integrate.timestep import local_dt
 from sphax_torch.neighbors import window as win
 from sphax_torch.neighbors.window import WindowData, WindowSpec
+from sphax_torch.physics import clist, direct_gravity, pm
 from sphax_torch.physics import driving as drv
 from sphax_torch.physics import pairs
 from sphax_torch.physics import window_kernels as wk
@@ -73,6 +80,32 @@ def _tile_pass(kernel_fn, wd: WindowData, spec: WindowSpec, own_fields,
         outs.append(kernel_fn(own, tuple(winf)))
     return tuple(torch.cat([o[k] for o in outs]).reshape(
         (nt * T,) + outs[0][k].shape[2:]) for k in range(len(outs[0])))
+
+
+def gravity_short_pass(wd, spec: WindowSpec, pos_s, mass_s, cfg: SPHConfig,
+                       rs, eps):
+    """Screened P3M short-range gravity over the window candidates, the
+    plain walk that kernel C's gravity mode fuses (``rs`` from
+    ``pm.rs_traced`` with the structure's cutoff, so the 4.5 r_s tail fits
+    inside spec.cutoff). Returns acc [Ns, D] in sorted order."""
+    G = float(cfg.G)
+
+    def kfn(own, winf):
+        (pos_i, m_i), (pos_j, m_j) = own, winf
+        shape = tuple(m_i.shape)
+        # the screened force reaches to the cutoff, past the SPH support
+        reach = torch.full_like(m_i, spec.cutoff)
+        lp = wk._LivePairs(pos_i, m_i, pos_j, m_j, reach)
+        f = pm.short_range_factor(lp.r, rs, eps)
+        # hard cut at the structure's coverage radius: the screening is not
+        # exactly zero there, and window rows beyond the true range must
+        # contribute nothing
+        f = torch.where((lp.r > 0.0) & (lp.r <= spec.cutoff), f, 0.0)
+        f = f * lp.win(m_j)
+        return (-G * lp.sum(f[:, None] * lp.dx, shape),)
+
+    return _tile_pass(kfn, wd, spec, (pos_s, mass_s), (pos_s, mass_s),
+                      mass_axis=1)[0]
 
 
 def stage_density(wd, spec: WindowSpec, cfg: SPHConfig, pos_s, vel_s, mass_s,
@@ -127,11 +160,12 @@ def stage_density(wd, spec: WindowSpec, cfg: SPHConfig, pos_s, vel_s, mass_s,
 
 
 def stage_forces(wd, spec: WindowSpec, cfg: SPHConfig, pos_s, vel_s, mass_s,
-                 h_s, rho_s, P_s, cs_s, om_s, bf_s):
-    """Force stage: symmetrized pressure + viscosity + du/dt (sorted order).
-    All j-side inputs must already be owner-correct on every sorted row."""
+                 h_s, rho_s, P_s, cs_s, om_s, bf_s, grav=None):
+    """Force stage: symmetrized pressure + viscosity + du/dt (sorted order),
+    with ``grav=(rs, eps)`` the fused screened P3M short range. All j-side
+    inputs must already be owner-correct on every sorted row."""
     return wk.forces(wd, spec, pos_s, vel_s, mass_s, h_s, rho_s, P_s, cs_s,
-                     om_s, bf_s, cfg)
+                     om_s, bf_s, cfg, grav=grav)
 
 
 def derived_with(state: ParticleState, wd, cfg: SPHConfig, domain: Domain,
@@ -141,8 +175,6 @@ def derived_with(state: ParticleState, wd, cfg: SPHConfig, domain: Domain,
     build."""
     if state.dim != cfg.dim:
         raise ValueError(f"state dim {state.dim} != cfg.dim {cfg.dim}")
-    if cfg.gravity:
-        raise NotImplementedError("self-gravity is not ported yet")
     dim = state.dim
     # ONE packed input gather; pos gets the image shifts added back
     cols = [state.pos, state.vel, state.mass[:, None], state.u[:, None],
@@ -164,15 +196,32 @@ def derived_with(state: ParticleState, wd, cfg: SPHConfig, domain: Domain,
     mirrored = torch.stack([h_s, rho_s, om_s, bf_s], dim=-1)[wd.src]
     h_s, rho_s, om_s, bf_s = mirrored.unbind(-1)
     P_s, cs_s = eos(rho_s, u_s, cfg)
+    p3m = cfg.gravity and cfg.grav_solver == "p3m"
+    grav = None
+    if p3m:
+        # the screened short range rides kernel C's walk; rs stays a device
+        # tensor (it depends on domain.extent)
+        rs = pm.rs_traced(cfg, domain, pos_s.dtype, cutoff=spec.cutoff)
+        grav = (rs, float(cfg.grav_eps))
     acc_s, du_s = stage_forces(wd, spec, cfg, pos_s, vel_s, mass_s, h_s,
-                               rho_s, P_s, cs_s, om_s, bf_s)
+                               rho_s, P_s, cs_s, om_s, bf_s, grav=grav)
     # one packed unsort gather for all outputs
     out = torch.stack([h_s, rho_s, P_s, cs_s, om_s, du_s, divv_s]
                       + list(acc_s.unbind(-1)), dim=-1)[wd.inv]
+    acc = out[:, 7:7 + dim]
+    if p3m:
+        # O(N log N) FFT mesh long range on the unsorted state (Ewald on a
+        # periodic box, Hockney free space on an open one)
+        acc = acc + pm.mesh_accel(state.pos, state.mass, cfg, domain, rs=rs)
+    elif cfg.gravity and not any(domain.periodic_axes(dim)):
+        # direct sum, kernel G (open-boundary convention)
+        acc = acc + direct_gravity.gravity(state.pos, state.mass, cfg)
+    elif cfg.gravity:
+        # direct sum with the min-image convention on a periodic box
+        acc = acc + clist.gravity_dense(state.pos, state.mass, cfg, domain)
     return state._replace(h=out[:, 0], rho=out[:, 1], P=out[:, 2],
-                          cs=out[:, 3], omega=out[:, 4],
-                          acc=out[:, 7:7 + dim], du_dt=out[:, 5],
-                          divv=out[:, 6])
+                          cs=out[:, 3], omega=out[:, 4], acc=acc,
+                          du_dt=out[:, 5], divv=out[:, 6])
 
 
 def update_derived(state: ParticleState, cfg: SPHConfig, domain: Domain,

@@ -2,7 +2,8 @@
 
 ``solve_h_density`` (kernel A: Newton-h fused with the density, d rho/d h
 and Balsara div/curl sums) and ``forces`` (kernel C: symmetrized pressure
-force, Monaghan viscosity and du/dt) replace the Pallas TPU kernels
+force, Monaghan viscosity and du/dt, plus the fused screened P3M short-range
+gravity with ``grav=(rs, eps)``) replace the Pallas TPU kernels
 ``sphax.physics.pallas_kernels.solve_h_density`` and ``.forces``.
 
 Each wrapper chooses by the device of its input tensors: a CUDA tensor
@@ -22,6 +23,7 @@ row is all zero writes h = h0 and zeros for every other output.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -31,7 +33,10 @@ from sphax_torch.physics import kernels as K
 from sphax_torch.physics import pairs
 
 # Launches of each CUDA kernel; a wrapper adds one where it launches.
-LAUNCHES = {"solve_h_density": 0, "forces": 0}
+# "forces_grav" counts kernel C's gravity mode, "forces" its plain SPH mode,
+# "gravity" kernel G (physics/direct_gravity.py).
+LAUNCHES = {"solve_h_density": 0, "forces": 0, "forces_grav": 0,
+            "gravity": 0}
 
 
 def _newton_iters(cfg: SPHConfig) -> int:
@@ -164,10 +169,11 @@ def solve_h_density_plain(wd: WindowData, spec: WindowSpec, pos_s, mass_s,
 
 
 def forces_plain(wd: WindowData, spec: WindowSpec, pos_s, vel_s, mass_s, h_s,
-                 rho_s, P_s, cs_s, om_s, bf_s, cfg: SPHConfig):
+                 rho_s, P_s, cs_s, om_s, bf_s, cfg: SPHConfig, grav=None):
     """Returns (acc_s [Ns, D], du_s [Ns]) — pairs.force_terms summed over
-    the window candidates. Always divides exactly (no fast_math)."""
-    from sphax_torch.physics.wengine import _tile_pass
+    the window candidates, plus ``wengine.gravity_short_pass`` with
+    ``grav=(rs, eps)``. Always divides exactly (no fast_math)."""
+    from sphax_torch.physics.wengine import _tile_pass, gravity_short_pass
 
     use_bf = bool(cfg.visc_factor_on)
 
@@ -192,6 +198,8 @@ def forces_plain(wd: WindowData, spec: WindowSpec, pos_s, vel_s, mass_s, h_s,
         own.append(bf_s)
         winf.append(bf_s)
     acc, du = _tile_pass(kfn, wd, spec, own, winf, mass_axis=2)
+    if grav is not None:
+        acc = acc + gravity_short_pass(wd, spec, pos_s, mass_s, cfg, *grav)
     act = _group_active(wd).repeat_interleave(spec.group)
     return torch.where(act[:, None], acc, 0.0), torch.where(act, du, 0.0)
 
@@ -281,12 +289,14 @@ def solve_h_density(wd: WindowData, spec: WindowSpec, pos_s, mass_s, h0_s,
 
 
 def forces(wd: WindowData, spec: WindowSpec, pos_s, vel_s, mass_s, h_s,
-           rho_s, P_s, cs_s, om_s, bf_s, cfg: SPHConfig):
+           rho_s, P_s, cs_s, om_s, bf_s, cfg: SPHConfig, grav=None):
     """Kernel C. Returns (acc_s [Ns, D], du_s [Ns]); ``bf_s`` is read only
-    when cfg.visc_factor_on."""
+    when cfg.visc_factor_on. ``grav=(rs, eps)`` adds the screened P3M short
+    range over the same candidates, hard-cut at spec.cutoff; ``rs`` is a
+    0-d tensor on the inputs' device, so no step waits on the host."""
     if pos_s.device.type == "cpu":
         return forces_plain(wd, spec, pos_s, vel_s, mass_s, h_s, rho_s, P_s,
-                            cs_s, om_s, bf_s, cfg)
+                            cs_s, om_s, bf_s, cfg, grav=grav)
     if pos_s.device.type != "cuda":
         raise ValueError(f"no kernel for device {pos_s.device}")
     use_bf = bool(cfg.visc_factor_on)
@@ -308,10 +318,23 @@ def forces(wd: WindowData, spec: WindowSpec, pos_s, vel_s, mass_s, h_s,
     acc = torch.empty_like(pos_s, memory_format=torch.contiguous_format)
     du = torch.empty_like(h_s, memory_format=torch.contiguous_format)
     fast = bool(cfg.fast_math) and pos_s.dtype == torch.float32
-    _launch("forces", pos_s.dtype,
-            _ptr(win), _ptr(wd.w_lo), _ptr(wd.w_nact),
+    args = [_ptr(win), _ptr(wd.w_lo), _ptr(wd.w_nact),
             spec.n_sorted, spec.tile, spec.group,
             float(cfg.alpha_visc), float(cfg.beta_visc),
-            float(cfg.eps_visc), int(use_bf), int(fast),
-            _ptr(acc), _ptr(du))
+            float(cfg.eps_visc), int(use_bf), int(fast)]
+    if grav is None:
+        _launch("forces", pos_s.dtype, *args, _ptr(acc), _ptr(du))
+        return acc, du
+    rs, eps = grav
+    if (not isinstance(rs, torch.Tensor) or rs.device != pos_s.device
+            or rs.numel() != 1):
+        raise ValueError(f"grav rs must be a one-element tensor on "
+                         f"{pos_s.device}")
+    rs = rs.reshape(()).to(pos_s.dtype)
+    e = torch.full_like(rs, float(eps))
+    # the per-pair form needs only these: x = r * sc0,
+    # screen = erfc(x) + r * sc1 * exp(-x^2), soft = rsqrt(r^2 + sc2)^3
+    gsc = torch.stack([0.5 / rs, 1.0 / (rs * math.sqrt(math.pi)), e * e])
+    _launch("forces_grav", pos_s.dtype, *args, _ptr(gsc), float(cfg.G),
+            float(spec.cutoff) ** 2, _ptr(acc), _ptr(du))
     return acc, du

@@ -185,6 +185,32 @@ def test_domain_agrees(periodic):
     _close(td.displacement(_t(dx)), jd.displacement(jnp.asarray(dx)))
 
 
+@pytest.mark.parametrize("solver,periodic", [("p3m", True),
+                                             ("direct", False),
+                                             ("direct", True)])
+def test_wengine_runs_every_gravity_branch(solver, periodic):
+    """update_derived and simulate (and so derived_with) take cfg.gravity in
+    the JAX package's three branches: P3M, direct in an open box, direct
+    in a periodic box."""
+    from sphax_torch import make_state
+    from sphax_torch.neighbors import window as t_win
+    from sphax_torch.physics import wengine as t_eng
+
+    ic = t_turb.build(n_side=8)
+    st = make_state(*(_t(ic[k]) for k in ("pos", "vel", "mass", "u", "h")))
+    dom = convert.domain_from_numpy(np.zeros(3), np.ones(3), periodic, "cpu",
+                                    torch.float64)
+    cfg = t_configs.SPHConfig(newton_iters=2, gravity=True,
+                              grav_solver=solver, grav_mesh=16)
+    spec = t_win.plan_windows(dom, h_max=float(st.h.max()) * 1.25, n=st.n,
+                              dim=3)
+    st = t_eng.update_derived(st, cfg, dom, spec)
+    st, _, dts, ovf = t_eng.simulate(st, cfg, dom, spec, 2)
+    assert int(ovf) == 0 and bool((dts > 0).all())
+    for k in ("pos", "vel", "rho", "acc"):
+        assert bool(torch.isfinite(getattr(st, k)).all()), k
+
+
 def test_package_imports_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"

@@ -1,4 +1,5 @@
-"""The CUDA kernels A and C against their plain torch versions, on a card.
+"""The CUDA kernels A, C (with and without its P3M gravity mode) and G
+against their plain torch versions, on a card.
 
 These tests import no JAX (the machine with the card has none) and skip
 where no CUDA device is visible. Run them on the card without the suite's
@@ -10,7 +11,8 @@ Rows that are not particles (ghost images, padding) are don't-care by
 contract, so every comparison is on ``is_real`` rows. Tolerances: fp32
 3e-5 (rtol, and atol 3e-5 of the largest value: the sums are taken in
 another order), fp64 1e-10, and 2e-3 for fp32 ``fast_math`` against the
-exact plain version.
+exact plain version. Kernel G's fp32 tolerance is 1e-4 (rtol, and atol 1e-4
+of the largest value): each row sums N terms in another order.
 """
 import dataclasses
 
@@ -21,7 +23,8 @@ from sphax_torch import configs, make_state
 from sphax_torch.core.state import box
 from sphax_torch.ics import turbulence
 from sphax_torch.neighbors import window as win
-from sphax_torch.physics import wengine
+from sphax_torch.physics import direct_gravity as dg
+from sphax_torch.physics import pm, wengine
 from sphax_torch.physics import window_kernels as wk
 
 TOL = {torch.float32: 3e-5, torch.float64: 1e-10}
@@ -32,6 +35,8 @@ A_CASES = {
     "balsara_off": configs.SPHConfig(dim=3, adaptive_h=True, newton_iters=2),
 }
 KNOBS = dict(cutoff_scale=1.05, ghost_safety=1.4, fast_sub=3, rgroups=2)
+P3M = dataclasses.replace(configs.TURB, newton_iters=1, gravity=True,
+                          grav_solver="p3m", grav_mesh=32)
 
 
 @pytest.fixture
@@ -41,14 +46,14 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(device, dtype, n_side=16, seed=0):
+def _inputs(device, dtype, n_side=16, seed=0, periodic=True):
     """Sorted inputs at the production window geometry, owner-consistent on
     ghost rows, from the turbulence ICs and a seeded generator."""
     ic = turbulence.build(n_side=n_side)
     st = make_state(*(torch.as_tensor(ic[k], dtype=dtype, device=device)
                       for k in ("pos", "vel", "mass", "u", "h")))
     dom = box(torch.zeros(3, dtype=dtype, device=device),
-              torch.ones(3, dtype=dtype, device=device))
+              torch.ones(3, dtype=dtype, device=device), periodic=periodic)
     spec = win.plan_measured(st.pos, dom, h_max=float(st.h.max()) * 1.05,
                              dim=3, **KNOBS)
     wd = win.build(st.pos, dom, spec)
@@ -115,18 +120,73 @@ def test_forces_kernel_matches_plain(cuda, dtype, fast, balsara):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype,fast", [(torch.float32, False),
+                                        (torch.float64, False),
+                                        (torch.float32, True)])
+def test_forces_grav_kernel_matches_plain(cuda, dtype, fast):
+    """Kernel C's gravity mode: the fused screened P3M short range, split
+    scalars from pm.rs_traced at the structure's cutoff."""
+    cfg = dataclasses.replace(P3M, fast_math=fast)
+    _, dom, spec, wd, f = _inputs(cuda, dtype, seed=2)
+    grav = (pm.rs_traced(cfg, dom, dtype, cutoff=spec.cutoff), cfg.grav_eps)
+    args = [f[k] for k in ("pos_s", "vel_s", "mass_s", "h_s", "rho_s", "P_s",
+                           "cs_s", "om_s", "bf_s")]
+    n0 = dict(wk.LAUNCHES)
+    got = wk.forces(wd, spec, *args, cfg, grav=grav)
+    torch.cuda.synchronize()
+    assert wk.LAUNCHES["forces_grav"] == n0["forces_grav"] + 1
+    assert wk.LAUNCHES["forces"] == n0["forces"]
+    want = wk.forces_plain(wd, spec, *args, cfg, grav=grav)
+    tol = 2e-3 if fast else TOL[dtype]
+    _compare(got[0], want[0], wd.is_real, tol, "acc")
+    _compare(got[1], want[1], wd.is_real, tol, "du")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1000, 5000])
+def test_gravity_kernel_matches_plain(cuda, dtype, n):
+    """Kernel G, with N not a multiple of the column tile."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    pos = torch.rand((n, 3), generator=g, dtype=dtype, device=cuda)
+    mass = (torch.rand(n, generator=g, dtype=dtype, device=cuda) + 0.5) / n
+    cfg = configs.SPHConfig(gravity=True, G=1.4, grav_eps=0.03)
+    n0 = wk.LAUNCHES["gravity"]
+    got = dg.gravity(pos, mass, cfg)
+    torch.cuda.synchronize()
+    assert wk.LAUNCHES["gravity"] == n0 + 1
+    want = dg.gravity_plain(pos, mass, cfg)
+    every = torch.ones(n, dtype=torch.bool, device=cuda)
+    tol = 1e-4 if dtype == torch.float32 else TOL[dtype]
+    _compare(got, want, every, tol, "acc")
+    with pytest.raises(ValueError):
+        dg.gravity(pos, mass, dataclasses.replace(cfg, grav_eps=0.0))
+
+
+@pytest.mark.gpu
 def test_cuda_tensor_never_runs_the_plain_version(cuda, monkeypatch):
-    """A derived pass on the card launches each kernel once and calls no
-    plain version."""
+    """A derived pass on the card launches each kernel of its branch once
+    and calls no plain version: no gravity, P3M (kernel C in its gravity
+    mode) and direct gravity in an open box (kernel G)."""
     def refuse(*a, **k):
         raise AssertionError("plain version called on a CUDA tensor")
 
     monkeypatch.setattr(wk, "solve_h_density_plain", refuse)
     monkeypatch.setattr(wk, "forces_plain", refuse)
-    cfg = dataclasses.replace(configs.TURB, newton_iters=1)
-    st, dom, spec, _, _ = _inputs(cuda, torch.float32)
-    n0 = dict(wk.LAUNCHES)
-    out = wengine.update_derived(st, cfg, dom, spec)
-    torch.cuda.synchronize()
-    assert {k: wk.LAUNCHES[k] - n0[k] for k in n0} == {k: 1 for k in n0}
-    assert bool(torch.isfinite(out.acc).all())
+    monkeypatch.setattr(wengine, "gravity_short_pass", refuse)
+    monkeypatch.setattr(dg, "gravity_plain", refuse)
+    direct = dataclasses.replace(P3M, grav_solver="direct")
+    cases = [
+        (dataclasses.replace(configs.TURB, newton_iters=1), True,
+         ("solve_h_density", "forces")),
+        (P3M, True, ("solve_h_density", "forces_grav")),
+        (direct, False, ("solve_h_density", "forces", "gravity")),
+    ]
+    for cfg, periodic, kernels in cases:
+        st, dom, spec, _, _ = _inputs(cuda, torch.float32, periodic=periodic)
+        n0 = dict(wk.LAUNCHES)
+        out = wengine.update_derived(st, cfg, dom, spec)
+        torch.cuda.synchronize()
+        assert {k: wk.LAUNCHES[k] - n0[k] for k in n0} == {
+            k: int(k in kernels) for k in n0}, cfg
+        assert bool(torch.isfinite(out.acc).all())
