@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one card: builds the CUDA kernels
 from ``sphax_torch/csrc``, holds each against its plain torch version, and
 drives the port's paths at N = 1e6: the bench configuration, the driven CLI
-configuration, the same with P3M self-gravity, and an open box with direct
-gravity.
+configuration, the same with P3M self-gravity, an open box with direct
+gravity, and ``python -m sphax_torch kh n=1024`` (N = 1,572,864, 2D) with
+the rest of the problem suite through the same CLI.
 
     python3 chip_smoke.py
 
@@ -38,19 +39,57 @@ Phases, in order; any failed check raises and exits non-zero:
  13. times     kernel C with and without gravity at the path-11 shapes,
                kernel G at N = 1e6 and, with its plain version, at 64^3,
                and pm.mesh_accel at N = 1e6, M = 128
+ 14. 2D        kernels A (cold Newton, configs.KH) and C (exact and
+     kernels   fast_math) in their dim=2 instantiation vs plain at the kh
+               geometry (kh.build(nx=64), is_real rows): fp32 3e-5, fp64
+               1e-10, fast_math 2e-3
+ 15. kh CLI    sphax_torch.__main__.main(["kh", "n=1024", "max_steps=16",
+               "chunk=16", ...]) in-process: 16 steps, metrics.jsonl and
+               checkpoint.npz, finite records, overflow 0, h_capped 0,
+               |dp| < 1e-5 sum m|v|, 17 launches of each 2D kernel and
+               none of the 3D ones; then a resume from the checkpoint for
+               one more chunk, held to the direct continuation; the warm
+               step time
+ 16. KH gate   tests/problems/test_kh.py through problems.kh(n=32, fp64) on
+               the window engine and run.simulate_until: growth rate in
+               [0.24, 0.40] of linear theory, amps[-1] > 2 amps[i0],
+               |dp| < 1e-10
+ 17. problems  the CLI on sod (n=32: the dense fallback, no window kernel),
+               sedov n=32 visc=mm (3D window engine, Morris-Monaghan) and
+               evrard n=4096 (dense with direct gravity), 4 steps each
+ 18. times     kernels A (cold, 6 Newton updates) and C in 2D at the
+               path-15 shapes, with their plain versions
 Each path runs with every launch count set to 0 just before it, and its
-counts are read just after. The line before the last holds the kernels'
-record; the last line is {"ok": true, "device": {...}}.
+counts are read just after. Each kernel's bound is the larger of its bytes
+over 3.35 TB/s and its operations on the pairs these inputs need (inside
+the support, or the cutoff for the gravity mode) over 67 TFLOP/s fp32
+(34 fp64). The line before the last holds the kernels' record; the last
+line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import json
+import math
+import os
+import shutil
 import sys
 import time
 
 import torch
+
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, non-tensor FLOP/s
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+# Operations per pair, counted off sphax_torch/csrc (an FMA is 2, a
+# reciprocal square root, divide, exp or erfc 1): kernel A's Newton walk
+# (3D, 2D) and its final walk with the Balsara sums, kernel C with the
+# viscosity factor, C's gravity mode for each pair inside the cutoff and
+# again for the pairs outside both supports (their acceleration update),
+# and kernel G.
+FLOPS = {"A_walk": {3: 31, 2: 28}, "A_final_bals": {3: 59, 2: 43},
+         "C": {3: 69, 2: 62}, "C_grav": 13, "C_grav_outside": 7, "G": 19}
 
 
 def log(*a):
@@ -61,9 +100,15 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
 
-    from sphax_torch import _build, bench, configs, make_state
+    import numpy as np
+
+    from sphax_torch import _build, bench, configs, make_state, problems
+    from sphax_torch import run as run_mod
+    from sphax_torch.__main__ import main as cli
     from sphax_torch.core.state import box
+    from sphax_torch.ics import kh as kh_ics
     from sphax_torch.ics import turbulence
+    from sphax_torch.io import checkpoint
     from sphax_torch.neighbors import window as win
     from sphax_torch.physics import direct_gravity as dg
     from sphax_torch.physics import driving, pm, wengine
@@ -88,6 +133,8 @@ def main():
             log("   ", line.strip())
 
     knobs = dict(cutoff_scale=1.05, ghost_safety=1.4, fast_sub=3, rgroups=2)
+    # problems._window_engine's knobs (with h_margin 1.3)
+    KH_KNOBS = dict(cutoff_scale=1.25, fast_sub=3, rgroups=2)
     TOL = {torch.float32: 3e-5, torch.float64: 1e-10}
 
     def compare(got, want, real, tol, what):
@@ -109,12 +156,20 @@ def main():
     def worst(prefix):
         return max(v for k, v in errs.items() if k.startswith(prefix))
 
-    def sorted_inputs(n_side, dtype, seed=1):
-        """Sorted kernel inputs at the main path's geometry (owner-consistent
-        on ghost rows): positions of the turbulence ICs, a seeded 0.4 N(0,1)
-        velocity, and plausible seeded per-particle fields for kernel C."""
-        cfg = dataclasses.replace(configs.TURB, newton_iters=1)
-        ic = turbulence.build(n_side=n_side)
+    def sorted_inputs(n_side, dtype, seed=1, dim=3):
+        """Sorted kernel inputs at a path's geometry (owner-consistent on
+        ghost rows): positions of the turbulence ICs with the main path's
+        window knobs (3D), or of the Kelvin-Helmholtz ICs at nx = 4 n_side
+        with the kh problem's knobs (2D); a seeded 0.4 N(0,1) velocity, and
+        plausible seeded per-particle fields for kernel C."""
+        if dim == 3:
+            cfg = dataclasses.replace(configs.TURB, newton_iters=1)
+            ic = turbulence.build(n_side=n_side)
+            margin, kn = 1.05, knobs
+        else:
+            cfg = configs.KH
+            ic = kh_ics.build(nx=4 * n_side)
+            margin, kn = 1.3, KH_KNOBS
         st = make_state(*(torch.as_tensor(ic[k], dtype=dtype, device=dev)
                           for k in ("pos", "vel", "mass", "u", "h")))
         g = torch.Generator(device=dev).manual_seed(seed)
@@ -124,11 +179,11 @@ def main():
                                                dtype=dtype, device=dev)
         vel = 0.4 * torch.randn(st.vel.shape, generator=g, dtype=dtype,
                                 device=dev)
-        dom = box(torch.zeros(3, dtype=dtype, device=dev),
-                  torch.ones(3, dtype=dtype, device=dev))
+        dom = box(torch.zeros(dim, dtype=dtype, device=dev),
+                  torch.ones(dim, dtype=dtype, device=dev))
         spec = win.plan_measured(st.pos, dom,
-                                 h_max=float(st.h.max()) * 1.05, dim=3,
-                                 **knobs)
+                                 h_max=float(st.h.max()) * margin, dim=dim,
+                                 **kn)
         wd = win.build(st.pos, dom, spec)
         rho = rnd(0.8, 1.2)
         cols = {"vel_s": (vel, 0.0), "mass_s": (st.mass, 0.0),
@@ -220,12 +275,15 @@ def main():
     def drive(name, run, want):
         """Run one path with every launch count set to 0 just before it;
         read the counts just after and hold them to ``want`` (kernels
-        absent from it must not launch)."""
+        absent from it must not launch), or to ``want(out)`` where the
+        count depends on the run."""
         for k in wk.LAUNCHES:
             wk.LAUNCHES[k] = 0
         out = run()
         torch.cuda.synchronize()
         paths[name] = dict(wk.LAUNCHES)
+        if callable(want):
+            want = want(out)
         assert paths[name] == {k: want.get(k, 0) for k in wk.LAUNCHES}, (
             name, paths[name])
         return out
@@ -314,6 +372,17 @@ def main():
     walked, computed = candidate_rows(wd, spec_main)
     log(f"[8 times] candidate rows per real row at N=1e6: walked {walked:.1f}"
         f", computed {computed:.1f}")
+    pa, pc, _ = pair_counts(wd, spec_main, f["pos_s"], f["mass_s"], f["h_s"])
+    bounds = {
+        "A": kernel_bound("A", spec_main, f["pos_s"], pa, iters=0,
+                          bals=True),
+        "A cold": kernel_bound("A", spec_main, f["pos_s"], pa,
+                               iters=A_MODES["cold"].newton_iters,
+                               bals=True),
+        "C": kernel_bound("C", spec_main, f["pos_s"], pc, bf=True)}
+    log(f"[8 times] pairs inside the support per real row: A "
+        f"{pa / int(real.sum()):.1f}, C {pc / int(real.sum()):.1f}; bounds "
+        + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in bounds.items()))
 
     # ---- 9. kernel C gravity mode parity --------------------------------
     def p3m_cfg(cfg):
@@ -461,16 +530,25 @@ def main():
             f"{ms:.3f} ms  plain {pms:.1f} ms  max abs err {e:.3g}")
     del got, want
     walked_g, _ = candidate_rows(wd_g, spec)
+    _, pc_g, pg_g = pair_counts(wd_g, spec, fg["pos_s"], fg["mass_s"],
+                                fg["h_s"], cutoff=spec.cutoff)
+    bounds["C grav"] = kernel_bound("C", spec, fg["pos_s"], pc_g, bf=True,
+                                    grav_pairs=pg_g)
     log(f"[13 times] candidate rows per real row, P3M path: walked "
-        f"{walked_g:.1f}")
+        f"{walked_g:.1f}; pairs inside the cutoff {pg_g / st_g.n:.1f}; "
+        f"bound of C with gravity {bounds['C grav'][0]:.4f} ms "
+        f"({bounds['C grav'][1]})")
     g_ms_1e6, _ = cuda_ms(lambda: dg.gravity(st_o.pos, st_o.mass, cfg_dir), 2)
     pos, mass = cloud(64 ** 3, torch.float32)
     g_ms, got = cuda_ms(lambda: dg.gravity(pos, mass, cfg_gt), 5)
     g_pms, want = cuda_ms(lambda: dg.gravity_plain(pos, mass, cfg_gt), 1)
     compare(got, want, torch.ones(pos.shape[0], dtype=torch.bool,
                                   device=dev), 1e-4, "G timed 64^3")
+    n_g = pos.shape[0]
+    bounds["G"] = bound(28 * n_g, FLOPS["G"] * n_g * n_g, torch.float32)
     log(f"[13 times] G fp32: N=1e6 kernel {g_ms_1e6:.2f} ms; N=64^3 kernel "
-        f"{g_ms:.3f} ms  plain {g_pms:.1f} ms")
+        f"{g_ms:.3f} ms  plain {g_pms:.1f} ms  bound {bounds['G'][0]:.3f} ms "
+        f"({bounds['G'][1]})")
     mesh_ms, _ = cuda_ms(lambda: pm.mesh_accel(st_g.pos, st_g.mass, cfg_g,
                                                dom, rs=rs_g), 10)
     # back-to-back calls time the host's launches of ~100 small torch
@@ -485,44 +563,328 @@ def main():
         f"back to back ({100 * mesh_ms / (step_g * 1e3):.1f} % of a warm "
         f"P3M step), device time {mesh_dev_ms:.3f} ms (profiler)")
 
+    # ---- 14. 2D kernels: the dim=2 instantiations vs plain ---------------
+    for dtype in (torch.float32, torch.float64):
+        cfg, spec, wd, f = sorted_inputs(16, dtype, dim=2)
+        args = [f[k] for k in A_ARGS]
+        got = wk.solve_h_density(wd, spec, *args, cfg, vel_s=f["vel_s"])
+        want = wk.solve_h_density_plain(wd, spec, *args, cfg,
+                                         vel_s=f["vel_s"])
+        torch.cuda.synchronize()
+        e = max(compare(a, b, wd.is_real, TOL[dtype], f"A2 {dtype} out{k}")
+                for k, (a, b) in enumerate(zip(got, want)))
+        log(f"[14 2D kernel A] cold      {str(dtype):13s} n={spec.n_sorted} "
+            f"wseg={spec.wseg} group={spec.group}: max abs err {e:.3g}, max "
+            f"err/scale {worst(f'A2 {dtype}'):.3g} (tol {TOL[dtype]})")
+        args = [f[k] for k in C_ARGS]
+        want = wk.forces_plain(wd, spec, *args, cfg)
+        for fast in ((False, True) if dtype == torch.float32 else (False,)):
+            got = wk.forces(wd, spec, *args,
+                            dataclasses.replace(cfg, fast_math=fast))
+            torch.cuda.synchronize()
+            tol, tag = (2e-3, "fast_math") if fast else (TOL[dtype], "exact")
+            e = max(compare(got[0], want[0], wd.is_real, tol,
+                            f"C2 {tag} {dtype} acc"),
+                    compare(got[1], want[1], wd.is_real, tol,
+                            f"C2 {tag} {dtype} du"))
+            log(f"[14 2D kernel C] {tag:9s} {str(dtype):13s}: max abs err "
+                f"{e:.3g}, max err/scale {worst(f'C2 {tag} {dtype}'):.3g} "
+                f"(tol {tol})")
+
+    def fresh(path):
+        """An empty output directory under the checkout's build/."""
+        shutil.rmtree(path, ignore_errors=True)
+        return path
+
+    def records(out):
+        with open(os.path.join(out, "metrics.jsonl")) as fh:
+            return [json.loads(line) for line in fh]
+
+    def p_sum(st):
+        """(total momentum, sum m |v|), summed in fp64."""
+        mv = st.mass.double()[:, None] * st.vel.double()
+        return mv.sum(0), float(mv.norm(dim=-1).sum())
+
+    # ---- 15. the CLI main path: python -m sphax_torch kh n=1024 ------------
+    kh_out = fresh(os.path.join("build", "smoke", "kh"))
+    kh_args = ["kh", "n=1024", "chunk=16"]
+    ic = kh_ics.build(nx=1024)
+    st0 = make_state(*(torch.as_tensor(ic[k], dtype=torch.float32,
+                                       device=dev)
+                       for k in ("pos", "vel", "mass", "u", "h")))
+    p0, mv0 = p_sum(st0)
+    del st0
+    t0 = time.perf_counter()
+    st_kh, t_kh, step_kh = drive(
+        "kh", lambda: cli(kh_args + ["max_steps=16", f"out={kh_out}"]),
+        {"solve_h_density_2d": 17, "forces_2d": 17})
+    wall_kh = time.perf_counter() - t0
+    recs = records(kh_out)
+    ck = os.path.join(kh_out, "checkpoint.npz")
+    assert step_kh == 16 and os.path.exists(ck), step_kh
+    assert [r["step"] for r in recs] == [16, 16], recs
+    assert all(r["finite"] for r in recs) and recs[0]["h_capped"] == 0, recs
+    for f_ in ("pos", "vel", "h", "rho", "acc", "du_dt"):
+        assert bool(torch.isfinite(getattr(st_kh, f_)).all()), f_
+    dp = float((p_sum(st_kh)[0] - p0).abs().max()) / mv0
+    assert dp < 1e-5, f"kh momentum drift {dp}"
+    prob_kh = problems.kh(n=1024)
+    assert prob_kh.engine_name == "window" and prob_kh.wspec.n_seg == 3
+    # resume from the checkpoint for one more chunk
+    st_ck, t_ck, step_ck, _, _ = checkpoint.load(ck, device=dev)
+    assert (t_ck, step_ck) == (t_kh, 16)
+    assert all(torch.equal(getattr(st_ck, k), getattr(st_kh, k))
+               for k in st_kh._fields)
+    kh_out_r = fresh(os.path.join("build", "smoke", "kh_resume"))
+    st_r, t_r, step_r = drive(
+        "kh resume", lambda: cli(kh_args + ["max_steps=32", f"out={kh_out_r}",
+                                            f"resume={ck}"]),
+        {"solve_h_density_2d": 17, "forces_2d": 17})
+    assert step_r == 32 and records(kh_out_r)[0]["step"] == 32
+    # the direct continuation of the saved state, timed warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cont, _, dts_c, ovf_c = wengine.simulate(st_ck, prob_kh.cfg,
+                                             prob_kh.domain, prob_kh.wspec,
+                                             16)
+    torch.cuda.synchronize()
+    kh_step = (time.perf_counter() - t0) / 16
+    assert int(ovf_c) == 0
+    assert math.isclose(t_r, t_ck + float(dts_c.sum()), rel_tol=1e-9)
+    every = torch.ones(st_r.n, dtype=torch.bool, device=dev)
+    e_r = max(compare(getattr(st_r, k), getattr(cont, k), every, 1e-6,
+                      f"kh resume {k}") for k in ("pos", "vel", "u", "h"))
+    kh_pss = st_kh.n / kh_step
+    log(f"[15 kh CLI] {card} | N={st_kh.n} wseg={prob_kh.wspec.wseg} "
+        f"group={prob_kh.wspec.group}: 16 steps in {wall_kh:.2f} s with set-"
+        f"up (CLI record {recs[0]['particle_steps_per_sec']:.4g} "
+        f"particle-steps/s); warm {kh_step * 1e3:.2f} ms/step = "
+        f"{kh_pss:.4g} particle-steps/s; |dp|/sum m|v| {dp:.3g} (< 1e-5); "
+        f"h_capped 0; resumed at t={t_ck:.5g} step 16, ran to step "
+        f"{step_r}; vs the direct continuation max abs err {e_r:.3g}")
+
+    # ---- 16. the KH growth gate through the 2D kernels (fp64) --------------
+    def kh_gate():
+        prob = problems.kh(n=32, dtype=torch.float64)
+        mass = prob.state.mass.cpu().numpy()
+
+        def amp(s):
+            return kh_ics.mode_amplitude(s.pos.cpu().numpy(),
+                                         s.vel.cpu().numpy(), mass)
+        amps, times_ = [amp(prob.state)], [0.0]
+
+        def cb(s, t, n):
+            amps.append(amp(s))
+            times_.append(t)
+        st, _, _, n = run_mod.simulate_until(
+            prob.state, prob.cfg, prob.domain, prob.engine, t_end=0.8,
+            chunk=32, max_steps=3000, callback=cb)
+        return prob, st, np.asarray(amps), np.asarray(times_), n
+
+    t0 = time.perf_counter()
+    prob16, st16, amps, times16, n16 = drive(
+        "kh gate", kh_gate, lambda out: {"solve_h_density_2d": 1 + out[4],
+                                         "forces_2d": 1 + out[4]})
+    wall16 = time.perf_counter() - t0
+    assert prob16.engine_name == "window"
+    assert bool(torch.isfinite(st16.rho).all())
+    gamma_th = 2 * math.pi * 2 * math.sqrt(2.0) / 3.0
+    i0 = int(np.argmin(amps))
+    assert i0 < len(amps) - 3, "no post-transient growth window"
+    rate = float(np.polyfit(times16[i0:], np.log(amps[i0:]), 1)[0])
+    assert 0.24 * gamma_th < rate < 0.40 * gamma_th, (rate, gamma_th)
+    assert amps[-1] > 2.0 * amps[i0]
+    dp16 = float((p_sum(st16)[0] - p_sum(prob16.state)[0]).abs().max())
+    assert dp16 < 1e-10, dp16
+    capped16 = int(wengine.capped_count(st16, prob16.wspec))
+    log(f"[16 KH gate] N={st16.n} fp64 window engine, {n16} steps in "
+        f"{wall16:.2f} s: rate {rate:.4f} = {rate / gamma_th:.3f} of linear "
+        f"theory (gate [0.24, 0.40]), amplitude x{amps[-1] / amps[i0]:.2f} "
+        f"from step {i0 * 32}, |dp| {dp16:.3g} (< 1e-10), h_capped "
+        f"{capped16}")
+
+    # ---- 17. the other problems through the CLI ----------------------------
+    for label, args, want in (
+            ("sod", ["sod"], {}),
+            ("sedov mm", ["sedov", "n=32", "visc=mm"],
+             {"solve_h_density": 5, "forces": 5}),
+            ("evrard", ["evrard", "n=4096"], {})):
+        out = fresh(os.path.join("build", "smoke", args[0]))
+        t0 = time.perf_counter()
+        st_p, _, step_p = drive(label, lambda: cli(
+            args + ["max_steps=4", f"out={out}"]), want)
+        wall_p = time.perf_counter() - t0
+        recs = records(out)
+        assert step_p == 4 and all(r["finite"] for r in recs), recs
+        for f_ in ("pos", "vel", "h", "rho", "acc"):
+            assert bool(torch.isfinite(getattr(st_p, f_)).all()), (label, f_)
+        note = ""
+        if label == "sedov mm":
+            a_max = float(st_p.alpha.max())
+            assert a_max > configs.SEDOV.mm_alpha_min, a_max
+            note = f", MM alpha up to {a_max:.3f}"
+        if label == "evrard":
+            note = f", e_grav {recs[-1]['e_grav']:.5f}"
+        log(f"[17 problems] {label:8s} N={st_p.n}: 4 steps in {wall_p:.2f} s "
+            f"with set-up, launches {paths[label]}, E "
+            f"{recs[-1]['e_total']:.6f}" + note)
+
+    # ---- 18. 2D kernel times at the path-15 shapes -------------------------
+    spec2 = prob_kh.wspec
+    wd2 = win.build(st_kh.pos, prob_kh.domain, spec2)
+    c = torch.cat([st_kh.pos, st_kh.vel, st_kh.mass[:, None],
+                   st_kh.h[:, None], st_kh.rho[:, None], st_kh.P[:, None],
+                   st_kh.cs[:, None], st_kh.omega[:, None]], dim=-1)
+    g = win.gather_sorted_cols(c, wd2, [0.0] * 4 + [0.0] + [1.0] * 5)
+    f2 = dict(pos_s=wd2.pos_s, vel_s=g[:, 2:4], mass_s=g[:, 4],
+              h0_s=g[:, 5], h_s=g[:, 5], rho_s=g[:, 6], P_s=g[:, 7],
+              cs_s=g[:, 8], om_s=g[:, 9], bf_s=torch.ones_like(g[:, 9]))
+    f2 = {k: v.contiguous() for k, v in f2.items()}
+    real2 = wd2.is_real
+    cfg2 = prob_kh.cfg
+    args = [f2[k] for k in A_ARGS]
+    a2_ms, got = cuda_ms(lambda: wk.solve_h_density(
+        wd2, spec2, *args, cfg2, vel_s=f2["vel_s"]), 5)
+    a2_pms, want = cuda_ms(lambda: wk.solve_h_density_plain(
+        wd2, spec2, *args, cfg2, vel_s=f2["vel_s"]), 1)
+    a2_e = max(compare(a, b, real2, 3e-5, "A2 at kh N")
+               for a, b in zip(got, want))
+    args = [f2[k] for k in C_ARGS]
+    c2_ms, got = cuda_ms(lambda: wk.forces(wd2, spec2, *args, cfg2), 10)
+    c2_pms, want = cuda_ms(lambda: wk.forces_plain(wd2, spec2, *args, cfg2),
+                           1)
+    c2_e = max(compare(a, b, real2, 3e-5, "C2 at kh N")
+               for a, b in zip(got, want))
+    del got, want
+    walked2, computed2 = candidate_rows(wd2, spec2)
+    pa2, pc2, _ = pair_counts(wd2, spec2, f2["pos_s"], f2["mass_s"],
+                              f2["h_s"])
+    bounds["A2"] = kernel_bound("A", spec2, f2["pos_s"], pa2,
+                                iters=cfg2.newton_iters, bals=True)
+    bounds["C2"] = kernel_bound("C", spec2, f2["pos_s"], pc2, bf=True)
+    n_real2 = int(real2.sum())
+    log(f"[18 times] 2D at N={st_kh.n}: A cold ({cfg2.newton_iters} Newton "
+        f"updates) kernel {a2_ms:.3f} ms  plain {a2_pms:.1f} ms  bound "
+        f"{bounds['A2'][0]:.4f} ms ({bounds['A2'][1]})  max abs err "
+        f"{a2_e:.3g}; C exact kernel {c2_ms:.3f} ms  plain {c2_pms:.1f} ms  "
+        f"bound {bounds['C2'][0]:.4f} ms ({bounds['C2'][1]})  max abs err "
+        f"{c2_e:.3g}; candidate rows per real row walked {walked2:.1f}, "
+        f"computed {computed2:.1f}; pairs inside the support per real row "
+        f"A {pa2 / n_real2:.1f}, C {pc2 / n_real2:.1f}")
+
     def total(kernel):
         return sum(p_[kernel] for p_ in paths.values())
 
     src = "sphax_torch/csrc/window_kernels.cu"
     a_ms, a_pms, a_e = times["A h_predict"]
     c_ms, c_pms, c_e = times["C"]
+
+    def bound_keys(key):
+        # no single PyTorch call computes these kernels' functions
+        return {"bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+                "library_ms": None}
+
     kernels = {"kernels": [
         {"name": "solve_h_density", "route": "cuda", "source": src,
          "replaces": "sphax/physics/pallas_kernels.py:315",
          "launches": total("solve_h_density"), "max_abs_err": a_e,
-         "ms": a_ms, "plain_ms": a_pms,
-         "ms_cold": times["A cold"][0], "plain_ms_cold": times["A cold"][1]},
+         "ms": a_ms, "plain_ms": a_pms, **bound_keys("A"),
+         "ms_cold": times["A cold"][0], "plain_ms_cold": times["A cold"][1],
+         "bound_ms_cold": bounds["A cold"][0],
+         "dim2": {"replaces": "sphax/physics/pallas_kernels.py:480",
+                  "launches": total("solve_h_density_2d"),
+                  "max_abs_err": a2_e, "ms": a2_ms, "plain_ms": a2_pms,
+                  **bound_keys("A2"), "n": st_kh.n}},
         {"name": "forces", "route": "cuda", "source": src,
          "replaces": "sphax/physics/pallas_kernels.py:563",
          "launches": total("forces") + total("forces_grav"),
          "launches_grav": total("forces_grav"), "max_abs_err": c_e,
-         "ms": c_ms, "plain_ms": c_pms,
+         "ms": c_ms, "plain_ms": c_pms, **bound_keys("C"),
          "grav": {"replaces": "sphax/physics/pallas_kernels.py:747",
                   "ms": cg["with"][0], "plain_ms": cg["with"][1],
-                  "max_abs_err": cg["with"][2],
+                  "max_abs_err": cg["with"][2], **bound_keys("C grav"),
                   "ms_without_grav": cg["without"][0],
-                  "plain_ms_without_grav": cg["without"][1]}},
+                  "plain_ms_without_grav": cg["without"][1]},
+         "dim2": {"replaces": "sphax/physics/pallas_kernels.py:583",
+                  "launches": total("forces_2d"), "max_abs_err": c2_e,
+                  "ms": c2_ms, "plain_ms": c2_pms, **bound_keys("C2"),
+                  "n": st_kh.n}},
         {"name": "gravity", "route": "cuda",
          "source": "sphax_torch/csrc/gravity_kernel.cu",
          "replaces": "sphax/physics/pallas_kernels.py:808",
          "launches": total("gravity"), "max_abs_err": g_e,
-         "ms": g_ms, "plain_ms": g_pms, "n": 64 ** 3,
+         "ms": g_ms, "plain_ms": g_pms, **bound_keys("G"), "n": 64 ** 3,
          "ms_n1e6": g_ms_1e6},
     ], "launches_by_path": paths, "mesh_accel_ms": mesh_ms,
         "mesh_accel_device_ms": mesh_dev_ms,
         "p3m_step_ms": step_g * 1e3, "rs_mesh_cells": rs_cells,
         "candidate_rows_walked_p3m": walked_g,
         "candidate_rows_walked": walked,
-        "candidate_rows_computed": computed, "card": card}
+        "candidate_rows_computed": computed,
+        "kh": {"n": st_kh.n, "ms_per_step": kh_step * 1e3,
+               "particle_steps_per_s": kh_pss,
+               "candidate_rows_walked": walked2,
+               "candidate_rows_computed": computed2,
+               "gate_rate_over_theory": rate / gamma_th,
+               "gate_steps": n16},
+        "card": card}
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
+
+
+def pair_counts(wd, spec, pos_s, mass_s, h_s, cutoff=None):
+    """Over real rows, each row's candidates counted once: the pairs inside
+    2 h_i (whose terms kernel A computes), inside 2 max(h_i, h_j) (kernel
+    C), and with 0 < r <= cutoff (kernel C's gravity mode)."""
+    from sphax_torch.physics.wengine import _tile_pass
+
+    def kfn(own, winf):
+        (pos_i, m_i, h_i), (pos_j, m_j, h_j) = own, winf
+        r2 = torch.zeros(pos_i.shape[:2] + pos_j.shape[1:2],
+                         dtype=pos_i.dtype, device=pos_i.device)
+        for d in range(pos_i.shape[-1]):
+            dd = pos_i[:, :, None, d] - pos_j[:, None, :, d]
+            r2 += dd * dd
+        live = (m_i > 0)[..., None] & (m_j > 0)[:, None, :]
+        hi = 2.0 * h_i[..., None]
+        hc = torch.maximum(hi, 2.0 * h_j[:, None, :])
+        grav = ((r2 > 0) & (r2 <= cutoff ** 2) if cutoff
+                else torch.zeros_like(live))
+        return tuple((live & m).sum(-1) for m in (r2 < hi * hi,
+                                                   r2 < hc * hc, grav))
+
+    outs = _tile_pass(kfn, wd, spec, (pos_s, mass_s, h_s),
+                      (pos_s, mass_s, h_s), mass_axis=1)
+    return tuple(int(o[wd.is_real].sum()) for o in outs)
+
+
+def bound(nbytes, flops, dtype):
+    """(ms, what binds): the larger of bytes over the memory rate and
+    operations over the peak rate of ``dtype``."""
+    t_b, t_f = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+
+
+def kernel_bound(kind, spec, pos_s, pairs, iters=0, bals=False, bf=False,
+                 grav_pairs=0):
+    """The bound of one launch of kernel A or C: its SoA window, h0 and
+    tables read once and its outputs written once; the operations of the
+    ``pairs`` it needs (``pair_counts``), Newton walks included."""
+    dim, ns, size = spec.dim, spec.n_sorted, pos_s.element_size()
+    tables = 2 * spec.n_groups * spec.n_seg * 4
+    if kind == "A":
+        rows = (dim + 1 + (dim if bals else 0)) + 1 + (5 if bals else 3)
+        per = iters * FLOPS["A_walk"][dim] + (
+            FLOPS["A_final_bals"][dim] if bals else FLOPS["A_walk"][dim])
+        flops = pairs * per
+    else:
+        rows = (2 * dim + 8 + (1 if bf else 0)) + dim + 1
+        flops = pairs * (FLOPS["C"][dim] - (0 if bf else 3))
+        flops += grav_pairs * FLOPS["C_grav"] + max(
+            grav_pairs - pairs, 0) * FLOPS["C_grav_outside"]
+    return bound(rows * ns * size + tables, flops, pos_s.dtype)
 
 
 def candidate_rows(wd, spec):

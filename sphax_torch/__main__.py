@@ -1,0 +1,204 @@
+"""CLI entry point: ``python -m sphax_torch <problem> [key=value ...]``.
+
+The twin of ``python -m sphax``'s single-device loop: a named problem,
+key=value overrides (every SPHConfig field; unknown keys raise), JSONL
+metrics, npz snapshots, checkpoint/resume and an optional profiler trace.
+Examples:
+
+    python -m sphax_torch kh n=1024 max_steps=16 out=runs/kh
+    python -m sphax_torch turb n=100 t_end=1.0 out=runs/turb
+    python -m sphax_torch turb resume=runs/turb/checkpoint.npz
+    python -m sphax_torch sod n=8 device=cpu
+
+``device=cuda`` (the default) runs on the card and raises where none is
+visible; ``device=cpu`` runs on the CPU. Window-engine problems run through
+``wengine.simulate`` (a structure overflow aborts the run), the others
+through ``run.simulate``. Differences from the JAX CLI:
+
+- every chunk is a whole number of rebuild periods (2 steps), and the last
+  chunk is clamped to ``max_steps``: ``max_steps=K`` runs K steps, K + 1
+  for an odd K (the JAX CLI runs whole chunks past it);
+- bool overrides parse 0/1, true/false, yes/no, on/off, and raise on
+  anything else (the JAX CLI reads ``h_predict=false`` as True);
+- ``profile=1`` traces the first chunk of the loop with ``torch.profiler``
+  (``out/trace/trace.json``) and counts it in t and step;
+- the P3M metric ``mesh_fb`` is not logged: it counts the rows that fall
+  back from the JAX package's sorted mesh, which the port does not have
+  (``ROADMAP.md`` queue 1, item 11);
+- not ported yet, and refused: ``shards>1`` (the multi-device layer,
+  ROADMAP slice 5), ``rungs>1`` (block timesteps, slice 3), ``adaptive>0``
+  (drift-gated rebuilds, slice 2 item 9), ``plot=1`` (``diag/plots.py``
+  needs matplotlib, which the card's machine lacks).
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import sys
+
+import numpy as np
+import torch
+
+
+def _parse(argv):
+    from sphax_torch.problems import REGISTRY
+
+    if not argv or argv[0] in ("-h", "--help"):
+        print(__doc__)
+        print("problems:", ", ".join(REGISTRY))
+        raise SystemExit(0)
+    name, kv = argv[0], {}
+    if name not in REGISTRY:
+        raise SystemExit(f"unknown problem {name!r}; problems: "
+                         f"{', '.join(REGISTRY)}")
+    for a in argv[1:]:
+        k, _, v = a.partition("=")
+        try:
+            kv[k] = int(v)
+        except ValueError:
+            try:
+                kv[k] = float(v)
+            except ValueError:
+                kv[k] = v
+    return name, kv
+
+
+def _refuse_unported(kv):
+    """Pop the JAX CLI's options that the port has not ported yet; raise
+    SystemExit when one asks for more than the single-device loop."""
+    if str(kv.pop("shards", 1)) != "1":
+        raise SystemExit("shards>1 (the multi-device layer) is not ported "
+                         "yet: ROADMAP.md slice 5")
+    if int(kv.pop("rungs", 1)) > 1:
+        raise SystemExit("rungs>1 (block timesteps) is not ported yet: "
+                         "ROADMAP.md slice 3")
+    if int(kv.pop("adaptive", 0)) > 0:
+        raise SystemExit("adaptive>0 (drift-gated rebuilds) is not ported "
+                         "yet: ROADMAP.md slice 2, item 9")
+    if int(kv.pop("plot", 0)):
+        raise SystemExit("plot=1 is not ported: diag/plots.py needs "
+                         "matplotlib (ROADMAP.md queue 1)")
+    if int(kv.pop("rebuild_every", 2)) != 2:
+        raise SystemExit("rebuild_every: the single-device loop rebuilds "
+                         "the window structure every 2 steps")
+
+
+def main(argv=None):
+    """Run the CLI; returns the final (state, t, step)."""
+    name, kv = _parse(sys.argv[1:] if argv is None else argv)
+
+    out = kv.pop("out", f"runs/{name}")
+    t_end = kv.pop("t_end", None)
+    chunk = int(kv.pop("chunk", 16))
+    metrics_every = int(kv.pop("metrics_every", 1))   # in chunks
+    snapshot_every = int(kv.pop("snapshot_every", 0))  # in chunks; 0 = off
+    checkpoint_every = int(kv.pop("checkpoint_every", 8))
+    resume = kv.pop("resume", None)
+    profile = int(kv.pop("profile", 0))
+    # max_steps=K: stop after K steps even if t_end is not reached (0 = off)
+    max_steps = int(kv.pop("max_steps", 0))
+    device = torch.device(str(kv.pop("device", "cuda")))
+    _refuse_unported(kv)
+    if chunk < 1:
+        raise SystemExit("chunk must be >= 1")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit("no CUDA device is visible; device=cpu runs on "
+                             "the CPU")
+        # the driving force's matmul runs in full fp32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    from sphax_torch.io import checkpoint, metrics
+    from sphax_torch.physics import wengine
+    from sphax_torch.problems import REGISTRY
+    from sphax_torch.run import simulate
+
+    prob = REGISTRY[name](device=device, **kv)
+    t_end = float(t_end) if t_end is not None else prob.t_end
+    os.makedirs(out, exist_ok=True)
+    log = metrics.MetricsLogger(os.path.join(out, "metrics.jsonl"))
+
+    state, drive, t, step = prob.state, prob.drive, 0.0, 0
+    if resume:
+        state, t, step, drive, _ = checkpoint.load(
+            str(resume), device=device, dtype=prob.state.pos.dtype)
+        if prob.drive_spec is not None and drive is None:
+            raise SystemExit(f"{resume} holds no driving state for {name}")
+        print(f"resumed from {resume}: t={t:.4f} step={step}")
+    driven = prob.drive_spec is not None
+
+    card = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    print(f"[{name}] N={state.n} dim={state.dim} t_end={t_end} "
+          f"device={card} engine={prob.engine_name}")
+
+    def run_chunk(state, drive, nsteps):
+        if driven:
+            prob.noise.reseed(prob.seed, step)
+        if prob.wspec is not None:
+            return wengine.simulate(state, prob.cfg, prob.domain, prob.wspec,
+                                    nsteps, drive=drive,
+                                    drive_spec=prob.drive_spec,
+                                    noise=prob.noise)
+        st, drive, dts = simulate(state, prob.cfg, prob.domain, prob.engine,
+                                  nsteps, drive, prob.drive_spec,
+                                  noise=prob.noise)
+        return st, drive, dts, 0
+
+    def save_checkpoint():
+        checkpoint.save(os.path.join(out, "checkpoint.npz"), state, t, step,
+                        drive if driven else None, seed=prob.seed)
+
+    nchunks = 0
+    while t < t_end and not (max_steps and step >= max_steps):
+        nsteps = min(chunk, max_steps - step) if max_steps else chunk
+        nsteps += nsteps % 2                 # whole rebuild periods
+        trace = (metrics.profile_trace(os.path.join(out, "trace"))
+                 if profile and nchunks == 0 else contextlib.nullcontext())
+        with trace:
+            state, drive, dts, ovf = run_chunk(state, drive, nsteps)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        t += float(torch.sum(dts))
+        step += len(dts)
+        nchunks += 1
+        if int(ovf):
+            # a saturated window structure silently deletes pairs
+            raise RuntimeError(
+                f"window structure overflow ({int(ovf)}) during chunk "
+                f"ending at step {step}; re-plan with larger wseg/ghost "
+                "capacities")
+        if nchunks % metrics_every == 0:
+            extra = {}
+            if prob.wspec is not None:
+                # structural h-cap saturation: silent physics change if > 0
+                extra["h_capped"] = int(wengine.capped_count(state,
+                                                             prob.wspec))
+            rec = log.log(state, prob.cfg, t, step, **extra)
+            capmsg = (f" h_capped={extra['h_capped']}"
+                      if extra.get("h_capped") else "")
+            print(f"  t={t:.4f} step={step} "
+                  f"pss={rec['particle_steps_per_sec']:.3e} "
+                  f"E={rec['e_total']:.5f} mach={rec['mach_rms']:.2f}"
+                  + capmsg)
+            if not rec["finite"]:
+                bad = checkpoint.verify_integrity(state)
+                raise RuntimeError(f"state corrupt at step {step}: {bad}")
+        if snapshot_every and nchunks % snapshot_every == 0:
+            np.savez_compressed(
+                os.path.join(out, f"snap_{step:07d}.npz"),
+                **{k: getattr(state, k).cpu().numpy()
+                   for k in ("pos", "vel", "rho", "u")}, t=t)
+        if checkpoint_every and nchunks % checkpoint_every == 0:
+            save_checkpoint()
+
+    save_checkpoint()
+    rec = log.log(state, prob.cfg, t, step)
+    print(f"done: t={t:.4f} steps={step}; final E={rec['e_total']:.6f}; "
+          f"checkpoint + metrics in {out}/")
+    return state, t, step
+
+
+if __name__ == "__main__":
+    main()

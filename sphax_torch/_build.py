@@ -46,6 +46,9 @@ _ARGTYPES = {
     # src [4, n], n, eps^2, G, acc, stream
     "sphax_gravity": [_P, _I, _D, _D, _P, _P],
 }
+# the 2D instantiations of kernels A and C take the same arguments
+_ARGTYPES.update({f"{k}_2d": _ARGTYPES[k]
+                  for k in ("sphax_solve_h_density", "sphax_forces")})
 
 
 def _nvcc() -> str:
@@ -60,9 +63,9 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def library_path() -> Path:
+def library_path(sources=SOURCES) -> Path:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libsphax_kernels_{h.hexdigest()[:16]}.so"
@@ -83,21 +86,19 @@ def _wait(job) -> str:
     return err
 
 
-def load() -> ctypes.CDLL:
-    """Build (once per sources' hash) and load the kernel library."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    out = library_path()
+def build(sources=SOURCES) -> Path:
+    """Compile ``sources`` into one shared library, once per their hash,
+    and return its path; BUILD_INFO records the build it made."""
+    out = library_path(sources)
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         stem = f"{out.stem}.{os.getpid()}"
-        objs = [out.with_name(f"{stem}.{src.stem}.o") for src in SOURCES]
+        objs = [out.with_name(f"{stem}.{src.stem}.o") for src in sources]
         tmp = out.with_name(f"{stem}.tmp.so")
         nvcc = _nvcc()
         t0 = time.perf_counter()
         jobs = [_run([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)])
-                for src, o in zip(SOURCES, objs)]
+                for src, o in zip(sources, objs)]
         ptxas = "".join([_wait(j) for j in jobs])
         _wait(_run([nvcc, *ARCH, "-shared", "-o", str(tmp),
                     *map(str, objs)]))
@@ -105,16 +106,29 @@ def load() -> ctypes.CDLL:
         for o in objs:
             o.unlink()
         BUILD_INFO.update(seconds=time.perf_counter() - t0, ptxas=ptxas)
-    lib = ctypes.CDLL(str(out))
-    for base, argtypes in _ARGTYPES.items():
+    return out
+
+
+def open_library(path, bases=tuple(_ARGTYPES)) -> ctypes.CDLL:
+    """Load a built library and declare the types of the f32 and f64 entry
+    points of ``bases``."""
+    lib = ctypes.CDLL(str(path))
+    for base in bases:
         for suffix in ("f32", "f64"):
             fn = getattr(lib, f"{base}_{suffix}")
-            fn.argtypes = argtypes
+            fn.argtypes = _ARGTYPES[base]
             fn.restype = ctypes.c_int
     lib.sphax_error_string.argtypes = [ctypes.c_int]
     lib.sphax_error_string.restype = ctypes.c_char_p
-    _lib = lib
     return lib
+
+
+def load() -> ctypes.CDLL:
+    """Build (once per sources' hash) and load the kernel library."""
+    global _lib
+    if _lib is None:
+        _lib = open_library(build())
+    return _lib
 
 
 def error_string(err: int) -> str:

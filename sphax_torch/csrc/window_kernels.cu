@@ -4,6 +4,10 @@
 //   kernel A  sphax/physics/pallas_kernels.py:315  solve_h_density
 //   kernel C  sphax/physics/pallas_kernels.py:563  forces, with its fused P3M
 //             `grav=(rs, eps)` branch (:592-599, :747-769) as the GRAV mode
+// Both are templates on the dimension DIM, instantiated for DIM = 3 and
+// DIM = 2 (the Pallas kernels' dim-generic code, :337-362, :480-489,
+// :523-531, :583-618). A row-group has NSEG = 3^(DIM-1) pencil segments.
+// The GRAV mode is 3D only, as the P3M mesh is.
 //
 // Contract (sphax_torch/physics/window_kernels.py): one thread owns one
 // sorted row i; a block covers one tile of `tile` rows, i.e. tile/group
@@ -26,6 +30,14 @@
 // This is the correctness-first version; trimming the candidate set (finer
 // groups, compaction) and staging windows in shared memory are later work.
 //
+// In 2D (the Kelvin-Helmholtz problem) a row has about 21 neighbours inside
+// 2h (pi (2 eta)^2 with eta = 1.3), and its group walks 3 segments, each
+// about a group's rows plus the fast axis's reach of 2 fast_sub + 1 fine
+// cells plus up to 128 rows of alignment: 753 candidate rows per real row
+// at N = 1,572,864 (kh n=1024, read off w_nact by chip_smoke.py), so the
+// walk is bound, as in 3D, by the distance test of candidates that lie
+// outside the support.
+//
 // Kernel C's GRAV mode adds the screened P3M short range
 // G m_j S(r) (r^2 + eps^2)^-3/2 dx for every candidate with 0 < r^2 <=
 // cutoff^2, ahead of the SPH support exit: the screened force reaches to
@@ -41,11 +53,16 @@
 
 #include <cuda_runtime.h>
 
+#include <utility>
+
 namespace {
 
-constexpr int DIM = 3;
-constexpr int NSEG = 9;  // 3^(DIM-1) pencil segments
-constexpr int BLK = 128; // rows per w_nact block
+constexpr int BLK = 128;  // rows per w_nact block
+
+// 3^(dim-1) pencil segments per row-group
+__host__ __device__ constexpr int nseg(int dim) {
+  return dim <= 1 ? 1 : 3 * nseg(dim - 1);
+}
 
 template <typename T> struct Num;
 
@@ -74,6 +91,7 @@ template <> struct Num<double> {
 };
 
 // The group's candidate ranges; returns the total active block count.
+template <int NSEG>
 __device__ __forceinline__ int load_windows(const int* __restrict__ w_lo,
                                             const int* __restrict__ w_nact,
                                             int g, int (&lo)[NSEG],
@@ -90,7 +108,7 @@ __device__ __forceinline__ int load_windows(const int* __restrict__ w_lo,
 }
 
 // True when row k lies in a segment before s (already counted).
-template <int S>
+template <int S, int NSEG>
 __device__ __forceinline__ bool seen_before(int k, const int (&lo)[NSEG],
                                             const int (&hi)[NSEG]) {
   bool dup = false;
@@ -99,28 +117,55 @@ __device__ __forceinline__ bool seen_before(int k, const int (&lo)[NSEG],
   return dup;
 }
 
+// The per-axis work is straight-line code, never a loop: a loop in a
+// walk's body, even one of constant trip count, changes how nvcc unrolls
+// the walk around it, and the 3D kernels would no longer compile to the
+// code they had before the template.
+template <int N> using Axes = std::make_integer_sequence<int, N>;
+
+// f(0), f(1), ..., f(N - 1)
+template <typename F, int... D>
+__device__ __forceinline__ void each_axis(std::integer_sequence<int, D...>,
+                                          F&& f) {
+  (f(D), ...);
+}
+
+// a . b summed in axis order: (a0 b0 + a1 b1) + a2 b2
+template <typename T, int DIM, int... D>
+__device__ __forceinline__ T dot_(const T (&a)[DIM], const T (&b)[DIM],
+                                  std::integer_sequence<int, D...>) {
+  return (... + (a[D] * b[D]));
+}
+
+template <typename T, int DIM>
+__device__ __forceinline__ T dot(const T (&a)[DIM], const T (&b)[DIM]) {
+  return dot_(a, b, Axes<DIM>{});
+}
+
 // ---------------------------------------------------------------------------
 // kernel A: Newton-h + density + d rho/d h (+ Balsara div/curl sums)
 // ---------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, int DIM>
 struct DensSums {
-  T rho, drdh, div, c0, c1, c2;
+  T rho, drdh, div;
+  T curl[DIM == 3 ? 3 : 1];  // 3D: the curl vector; 2D: its one component
 };
 
-template <typename T, bool BALS, int S>
+// SoA rows of the density window: DIM positions, m (, DIM velocities)
+template <typename T, int DIM, bool BALS, int S>
 __device__ __forceinline__ void density_segment(
-    const T* __restrict__ win, int Ns, const int (&lo)[NSEG],
-    const int (&hi)[NSEG], T xi, T yi, T zi, T vxi, T vyi, T vzi, T invh,
-    T sigd, DensSums<T>& acc) {
-  const T* X = win;
-  const T* Y = win + Ns;
-  const T* Z = win + 2 * (size_t)Ns;
-  const T* M = win + 3 * (size_t)Ns;
+    const T* __restrict__ win, int Ns, const int (&lo)[nseg(DIM)],
+    const int (&hi)[nseg(DIM)], const T (&xi)[DIM], const T (&vi)[DIM],
+    T invh, T sigd, DensSums<T, DIM>& acc) {
+  const T* X[DIM];
+  each_axis(Axes<DIM>{}, [&](int d) { X[d] = win + d * (size_t)Ns; });
+  const T* M = win + DIM * (size_t)Ns;
   for (int k = lo[S]; k < hi[S]; ++k) {
     if (seen_before<S>(k, lo, hi)) continue;
-    const T dx = xi - X[k], dy = yi - Y[k], dz = zi - Z[k];
-    const T r2 = dx * dx + dy * dy + dz * dz;
+    T dx[DIM];
+    each_axis(Axes<DIM>{}, [&](int d) { dx[d] = xi[d] - X[d][k]; });
+    const T r2 = dot(dx, dx);
     const T invr = Num<T>::rsqrt(r2 + Num<T>::tiny);
     const T q = r2 * invr * invh;
     if (q >= T(2)) continue;  // outside the support: every term is 0
@@ -139,42 +184,57 @@ __device__ __forceinline__ void density_segment(
     acc.rho += m * w;
     acc.drdh += m * (-(T(DIM) * w + q * dwdq) * invh);
     if (BALS) {
-      const T* VX = win + 4 * (size_t)Ns;
-      const T* VY = win + 5 * (size_t)Ns;
-      const T* VZ = win + 6 * (size_t)Ns;
+      const T* V[DIM];
+      each_axis(Axes<DIM>{},
+                [&](int d) { V[d] = win + (DIM + 1 + d) * (size_t)Ns; });
       const T mw = m * (dwdq * invh * invr);
-      const T dvx = vxi - VX[k], dvy = vyi - VY[k], dvz = vzi - VZ[k];
-      acc.div += mw * (dvx * dx + dvy * dy + dvz * dz);
-      acc.c0 += mw * (dvy * dz - dvz * dy);
-      acc.c1 += mw * (dvz * dx - dvx * dz);
-      acc.c2 += mw * (dvx * dy - dvy * dx);
+      T dv[DIM];
+      each_axis(Axes<DIM>{}, [&](int d) { dv[d] = vi[d] - V[d][k]; });
+      acc.div += mw * dot(dv, dx);
+      if constexpr (DIM == 3) {
+        acc.curl[0] += mw * (dv[1] * dx[2] - dv[2] * dx[1]);
+        acc.curl[1] += mw * (dv[2] * dx[0] - dv[0] * dx[2]);
+        acc.curl[2] += mw * (dv[0] * dx[1] - dv[1] * dx[0]);
+      } else {
+        acc.curl[0] += mw * (dv[0] * dx[1] - dv[1] * dx[0]);
+      }
     }
   }
 }
 
-template <typename T, bool BALS>
-__device__ __forceinline__ DensSums<T> density_walk(
-    const T* __restrict__ win, int Ns, const int (&lo)[NSEG],
-    const int (&hi)[NSEG], T xi, T yi, T zi, T vxi, T vyi, T vzi, T h,
+// every segment in order, unrolled at compile time
+template <typename T, int DIM, bool BALS, int... S>
+__device__ __forceinline__ void density_segments(
+    std::integer_sequence<int, S...>, const T* __restrict__ win, int Ns,
+    const int (&lo)[nseg(DIM)], const int (&hi)[nseg(DIM)],
+    const T (&xi)[DIM], const T (&vi)[DIM], T invh, T sigd,
+    DensSums<T, DIM>& acc) {
+  (density_segment<T, DIM, BALS, S>(win, Ns, lo, hi, xi, vi, invh, sigd,
+                                    acc), ...);
+}
+
+template <typename T, int DIM, bool BALS>
+__device__ __forceinline__ DensSums<T, DIM> density_walk(
+    const T* __restrict__ win, int Ns, const int (&lo)[nseg(DIM)],
+    const int (&hi)[nseg(DIM)], const T (&xi)[DIM], const T (&vi)[DIM], T h,
     T sig) {
   const T invh = T(1) / h;
-  const T sigd = sig * invh * invh * invh;
-  DensSums<T> a{T(0), T(0), T(0), T(0), T(0), T(0)};
-#define SPHAX_SEG(S)                                                       \
-  density_segment<T, BALS, S>(win, Ns, lo, hi, xi, yi, zi, vxi, vyi, vzi, \
-                              invh, sigd, a)
-  SPHAX_SEG(0); SPHAX_SEG(1); SPHAX_SEG(2); SPHAX_SEG(3); SPHAX_SEG(4);
-  SPHAX_SEG(5); SPHAX_SEG(6); SPHAX_SEG(7); SPHAX_SEG(8);
-#undef SPHAX_SEG
+  T sigd = sig;  // sig / h^DIM
+  each_axis(Axes<DIM>{}, [&](int) { sigd *= invh; });
+  DensSums<T, DIM> a{};
+  density_segments<T, DIM, BALS>(Axes<nseg(DIM)>{}, win, Ns, lo, hi, xi, vi,
+                                 invh, sigd, a);
   return a;
 }
 
 // pallas_kernels.py newton_update: same clamps and thresholds.
-template <typename T>
+template <typename T, int DIM>
 __device__ __forceinline__ T newton_update(T h, T rho, T drdh, T m_safe,
                                            T eta_d, T hcap) {
   rho = rho > T(1e-30) ? rho : T(1e-30);
-  const T rho_h = m_safe * eta_d / (h * h * h);
+  T hd = h;  // h^DIM
+  each_axis(Axes<DIM - 1>{}, [&](int) { hd *= h; });
+  const T rho_h = m_safe * eta_d / hd;
   const T phi = rho - rho_h;
   T dphi = drdh + T(DIM) * rho_h / h;
   if (fabs(dphi) < T(1e-30)) dphi = T(-1e-30);
@@ -185,13 +245,14 @@ __device__ __forceinline__ T newton_update(T h, T rho, T drdh, T m_safe,
   return hn < hcap ? hn : hcap;
 }
 
-template <typename T, bool BALS>
+template <typename T, int DIM, bool BALS>
 __global__ void solve_h_density_kernel(
     const T* __restrict__ win, const T* __restrict__ h0,
     const int* __restrict__ w_lo, const int* __restrict__ w_nact, int Ns,
     int group, T sig, T eta_d, T hcap, int iters, T* __restrict__ h_out,
     T* __restrict__ rho_out, T* __restrict__ drdh_out,
     T* __restrict__ div_out, T* __restrict__ curl_out) {
+  constexpr int NSEG = nseg(DIM);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= Ns) return;
   int lo[NSEG], hi[NSEG];
@@ -207,28 +268,31 @@ __global__ void solve_h_density_kernel(
     }
     return;
   }
-  const T xi = win[i], yi = win[Ns + i], zi = win[2 * (size_t)Ns + i];
-  const T mi = win[3 * (size_t)Ns + i];
+  T xi[DIM], vi[DIM];
+  each_axis(Axes<DIM>{}, [&](int d) { xi[d] = win[(size_t)d * Ns + i]; });
+  const T mi = win[DIM * (size_t)Ns + i];
   const T m_safe = mi > T(1e-30) ? mi : T(1e-30);
-  T vxi = T(0), vyi = T(0), vzi = T(0);
-  if (BALS) {
-    vxi = win[4 * (size_t)Ns + i];
-    vyi = win[5 * (size_t)Ns + i];
-    vzi = win[6 * (size_t)Ns + i];
-  }
+  each_axis(Axes<DIM>{}, [&](int d) {
+    vi[d] = BALS ? win[(DIM + 1 + d) * (size_t)Ns + i] : T(0);
+  });
   for (int it = 0; it < iters; ++it) {
-    const DensSums<T> a = density_walk<T, false>(win, Ns, lo, hi, xi, yi, zi,
-                                                 vxi, vyi, vzi, h, sig);
-    h = newton_update(h, a.rho, a.drdh, m_safe, eta_d, hcap);
+    const DensSums<T, DIM> a =
+        density_walk<T, DIM, false>(win, Ns, lo, hi, xi, vi, h, sig);
+    h = newton_update<T, DIM>(h, a.rho, a.drdh, m_safe, eta_d, hcap);
   }
-  const DensSums<T> a = density_walk<T, BALS>(win, Ns, lo, hi, xi, yi, zi,
-                                              vxi, vyi, vzi, h, sig);
+  const DensSums<T, DIM> a =
+      density_walk<T, DIM, BALS>(win, Ns, lo, hi, xi, vi, h, sig);
   h_out[i] = h;
   rho_out[i] = a.rho;
   drdh_out[i] = a.drdh;
   if (BALS) {
     div_out[i] = a.div;
-    curl_out[i] = Num<T>::sqrt(a.c0 * a.c0 + a.c1 * a.c1 + a.c2 * a.c2);
+    if constexpr (DIM == 3)
+      curl_out[i] = Num<T>::sqrt(a.curl[0] * a.curl[0] +
+                                 a.curl[1] * a.curl[1] +
+                                 a.curl[2] * a.curl[2]);
+    else
+      curl_out[i] = fabs(a.curl[0]);
   }
 }
 
@@ -236,18 +300,25 @@ __global__ void solve_h_density_kernel(
 // kernel C: symmetrized pressure force + Monaghan viscosity + du/dt
 // ---------------------------------------------------------------------------
 
-// SoA field rows of the forces window
-enum { FX, FY, FZ, FVX, FVY, FVZ, FM, FH, FINVH, FRHO, FCS, FCI, FGC1, FGC2,
-       FBF };
-
-template <typename T>
-struct ForceSums {
-  T ax, ay, az, du;
+// SoA field rows of the forces window: DIM positions, DIM velocities, then
+// m h invh rho cs ci gc1 gc2 (bf)
+template <int DIM>
+struct FRow {
+  static constexpr int X = 0, V = DIM, M = 2 * DIM, H = M + 1, INVH = M + 2,
+                       RHO = M + 3, CS = M + 4, CI = M + 5, GC1 = M + 6,
+                       GC2 = M + 7, BF = M + 8;
 };
 
-template <typename T>
+template <typename T, int DIM>
+struct ForceSums {
+  T a[DIM];
+  T du;
+};
+
+template <typename T, int DIM>
 struct Own {
-  T x, y, z, vx, vy, vz, h, invh, rho, cs, ci, gc1, gc2, bf;
+  T x[DIM], v[DIM];
+  T h, invh, rho, cs, ci, gc1, gc2, bf;
 };
 
 // The P3M split scalars and constants of the GRAV mode.
@@ -267,27 +338,27 @@ __device__ __forceinline__ T grav_coef(T r2, T r, const Grav<T>& g) {
   return g.G * screen * (tg * tg * tg);
 }
 
-template <typename T, bool BF, bool FAST, bool GRAV, int S>
+template <typename T, int DIM, bool BF, bool FAST, bool GRAV, int S>
 __device__ __forceinline__ void force_segment(
-    const T* __restrict__ win, int Ns, const int (&lo)[NSEG],
-    const int (&hi)[NSEG], const Own<T>& o, T alpha, T beta, T epsv,
-    const Grav<T>& g, ForceSums<T>& acc) {
+    const T* __restrict__ win, int Ns, const int (&lo)[nseg(DIM)],
+    const int (&hi)[nseg(DIM)], const Own<T, DIM>& o, T alpha, T beta,
+    T epsv, const Grav<T>& g, ForceSums<T, DIM>& acc) {
+  using R = FRow<DIM>;
   auto F = [&](int f, int k) { return win[(size_t)f * Ns + k]; };
   for (int k = lo[S]; k < hi[S]; ++k) {
     if (seen_before<S>(k, lo, hi)) continue;
-    const T dx = o.x - F(FX, k), dy = o.y - F(FY, k), dz = o.z - F(FZ, k);
-    const T r2 = dx * dx + dy * dy + dz * dz;
+    T dx[DIM];
+    each_axis(Axes<DIM>{}, [&](int d) { dx[d] = o.x[d] - F(R::X + d, k); });
+    const T r2 = dot(dx, dx);
     const T invr = Num<T>::rsqrt(r2 + Num<T>::tiny);
     const T r = r2 * invr;
     const T gco = GRAV ? grav_coef(r2, r, g) : T(0);
     const T qi = r * o.invh;
-    const T qj = r * F(FINVH, k);
+    const T qj = r * F(R::INVH, k);
     if (qi >= T(2) && qj >= T(2)) {  // both gradients vanish
       if (GRAV) {
-        const T fcoef = F(FM, k) * gco;
-        acc.ax -= fcoef * dx;
-        acc.ay -= fcoef * dy;
-        acc.az -= fcoef * dz;
+        const T fcoef = F(R::M, k) * gco;
+        each_axis(Axes<DIM>{}, [&](int d) { acc.a[d] -= fcoef * dx[d]; });
       }
       continue;
     }
@@ -295,38 +366,46 @@ __device__ __forceinline__ void force_segment(
     T gi = qi < T(1) ? o.gc2 * (T(2.25) * qi - T(3))
                      : T(-0.75) * o.gc1 * (ti * ti) * invr;
     gi = qi < T(2) ? gi : T(0);
-    T gj = qj < T(1) ? F(FGC2, k) * (T(2.25) * qj - T(3))
-                     : T(-0.75) * F(FGC1, k) * (tj * tj) * invr;
+    T gj = qj < T(1) ? F(R::GC2, k) * (T(2.25) * qj - T(3))
+                     : T(-0.75) * F(R::GC1, k) * (tj * tj) * invr;
     gj = qj < T(2) ? gj : T(0);
     const T gbar = T(0.5) * (gi + gj);
 
-    const T dvx = o.vx - F(FVX, k), dvy = o.vy - F(FVY, k),
-            dvz = o.vz - F(FVZ, k);
-    const T vdotr = dvx * dx + dvy * dy + dvz * dz;
-    const T hbar = T(0.5) * (o.h + F(FH, k));
+    T dv[DIM];
+    each_axis(Axes<DIM>{}, [&](int d) { dv[d] = o.v[d] - F(R::V + d, k); });
+    const T vdotr = dot(dv, dx);
+    const T hbar = T(0.5) * (o.h + F(R::H, k));
     const T mu_den = r2 + epsv * hbar * hbar;
     T mu = Num<T>::template div<FAST>(hbar * vdotr, mu_den);
     mu = vdotr < T(0) ? mu : T(0);
-    const T cbar = T(0.5) * (o.cs + F(FCS, k));
-    const T rhobar = T(0.5) * (o.rho + F(FRHO, k));
+    const T cbar = T(0.5) * (o.cs + F(R::CS, k));
+    const T rhobar = T(0.5) * (o.rho + F(R::RHO, k));
     T Pi = Num<T>::template div<FAST>((beta * mu - alpha * cbar) * mu,
                                       rhobar);
-    if (BF) Pi = Pi * (T(0.5) * (o.bf + F(FBF, k)));
+    if (BF) Pi = Pi * (T(0.5) * (o.bf + F(R::BF, k)));
 
-    const T m = F(FM, k);
+    const T m = F(R::M, k);
     const T cigi = o.ci * gi;
     const T pigb = Pi * gbar;
-    T fsum = cigi + F(FCI, k) * gj + pigb;
+    T fsum = cigi + F(R::CI, k) * gj + pigb;
     if (GRAV) fsum += gco;
     const T fcoef = m * fsum;
-    acc.ax -= fcoef * dx;
-    acc.ay -= fcoef * dy;
-    acc.az -= fcoef * dz;
+    each_axis(Axes<DIM>{}, [&](int d) { acc.a[d] -= fcoef * dx[d]; });
     acc.du += m * (cigi + T(0.5) * pigb) * vdotr;
   }
 }
 
-template <typename T, bool BF, bool FAST, bool GRAV>
+template <typename T, int DIM, bool BF, bool FAST, bool GRAV, int... S>
+__device__ __forceinline__ void force_segments(
+    std::integer_sequence<int, S...>, const T* __restrict__ win, int Ns,
+    const int (&lo)[nseg(DIM)], const int (&hi)[nseg(DIM)],
+    const Own<T, DIM>& o, T alpha, T beta, T epsv, const Grav<T>& g,
+    ForceSums<T, DIM>& acc) {
+  (force_segment<T, DIM, BF, FAST, GRAV, S>(win, Ns, lo, hi, o, alpha, beta,
+                                            epsv, g, acc), ...);
+}
+
+template <typename T, int DIM, bool BF, bool FAST, bool GRAV>
 __global__ void forces_kernel(const T* __restrict__ win,
                               const int* __restrict__ w_lo,
                               const int* __restrict__ w_nact, int Ns,
@@ -334,36 +413,42 @@ __global__ void forces_kernel(const T* __restrict__ win,
                               const T* __restrict__ gsc, T G, T rcut2,
                               T* __restrict__ acc_out,
                               T* __restrict__ du_out) {
+  static_assert(DIM == 3 || !GRAV, "the GRAV mode is 3D only");
+  using R = FRow<DIM>;
+  constexpr int NSEG = nseg(DIM);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= Ns) return;
   int lo[NSEG], hi[NSEG];
   const int active = load_windows(w_lo, w_nact, i / group, lo, hi);
-  ForceSums<T> a{T(0), T(0), T(0), T(0)};
+  ForceSums<T, DIM> a{};
   if (active > 0) {
     auto F = [&](int f) { return win[(size_t)f * Ns + i]; };
-    const Own<T> o{F(FX),   F(FY),   F(FZ),  F(FVX), F(FVY),
-                   F(FVZ),  F(FH),   F(FINVH), F(FRHO), F(FCS),
-                   F(FCI),  F(FGC1), F(FGC2), BF ? F(FBF) : T(0)};
+    Own<T, DIM> o;
+    each_axis(Axes<DIM>{}, [&](int d) { o.x[d] = F(R::X + d); });
+    each_axis(Axes<DIM>{}, [&](int d) { o.v[d] = F(R::V + d); });
+    o.h = F(R::H);
+    o.invh = F(R::INVH);
+    o.rho = F(R::RHO);
+    o.cs = F(R::CS);
+    o.ci = F(R::CI);
+    o.gc1 = F(R::GC1);
+    o.gc2 = F(R::GC2);
+    o.bf = BF ? F(R::BF) : T(0);
     Grav<T> g{T(0), T(0), T(0), G, rcut2};
     if (GRAV) {
       g.x_scale = gsc[0];
       g.sp = gsc[1];
       g.eps2 = gsc[2];
     }
-#define SPHAX_SEG(S)                                                        \
-  force_segment<T, BF, FAST, GRAV, S>(win, Ns, lo, hi, o, alpha, beta, epsv, \
-                                      g, a)
-    SPHAX_SEG(0); SPHAX_SEG(1); SPHAX_SEG(2); SPHAX_SEG(3); SPHAX_SEG(4);
-    SPHAX_SEG(5); SPHAX_SEG(6); SPHAX_SEG(7); SPHAX_SEG(8);
-#undef SPHAX_SEG
+    force_segments<T, DIM, BF, FAST, GRAV>(Axes<NSEG>{}, win, Ns, lo, hi, o,
+                                           alpha, beta, epsv, g, a);
   }
-  acc_out[3 * (size_t)i + 0] = a.ax;
-  acc_out[3 * (size_t)i + 1] = a.ay;
-  acc_out[3 * (size_t)i + 2] = a.az;
+  each_axis(Axes<DIM>{},
+            [&](int d) { acc_out[DIM * (size_t)i + d] = a.a[d]; });
   du_out[i] = a.du;
 }
 
-template <typename T>
+template <typename T, int DIM>
 cudaError_t launch_solve_h_density(const void* win, const void* h0,
                                    const void* w_lo, const void* w_nact,
                                    int Ns, int tile, int group, double sig,
@@ -381,18 +466,19 @@ cudaError_t launch_solve_h_density(const void* win, const void* h0,
         static_cast<T*>(curl));
   };
   if (bals)
-    args(solve_h_density_kernel<T, true>);
+    args(solve_h_density_kernel<T, DIM, true>);
   else
-    args(solve_h_density_kernel<T, false>);
+    args(solve_h_density_kernel<T, DIM, false>);
   return cudaGetLastError();
 }
 
-template <typename T, bool FAST, bool GRAV>
+// fast_math (approximate divides) applies to fp32 only.
+template <typename T, int DIM, bool GRAV>
 cudaError_t launch_forces(const void* win, const void* w_lo,
                           const void* w_nact, int Ns, int tile, int group,
                           double alpha, double beta, double epsv, int use_bf,
-                          const void* gsc, double G, double rcut2, void* acc,
-                          void* du, void* stream) {
+                          int fast, const void* gsc, double G, double rcut2,
+                          void* acc, void* du, void* stream) {
   const dim3 grid(Ns / tile), block(tile);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto args = [&](auto kernel) {
@@ -402,10 +488,15 @@ cudaError_t launch_forces(const void* win, const void* w_lo,
         T(epsv), static_cast<const T*>(gsc), T(G), T(rcut2),
         static_cast<T*>(acc), static_cast<T*>(du));
   };
-  if (use_bf)
-    args(forces_kernel<T, true, FAST, GRAV>);
+  constexpr bool F32 = sizeof(T) == 4;
+  if (use_bf && fast && F32)
+    args(forces_kernel<T, DIM, true, F32, GRAV>);
+  else if (use_bf)
+    args(forces_kernel<T, DIM, true, false, GRAV>);
+  else if (fast && F32)
+    args(forces_kernel<T, DIM, false, F32, GRAV>);
   else
-    args(forces_kernel<T, false, FAST, GRAV>);
+    args(forces_kernel<T, DIM, false, false, GRAV>);
   return cudaGetLastError();
 }
 
@@ -413,87 +504,55 @@ cudaError_t launch_forces(const void* win, const void* w_lo,
 
 extern "C" {
 
-cudaError_t sphax_solve_h_density_f32(const void* win, const void* h0,
-                                      const void* w_lo, const void* w_nact,
-                                      int Ns, int tile, int group, double sig,
-                                      double eta_d, double hcap, int iters,
-                                      int bals, void* h, void* rho,
-                                      void* drdh, void* div, void* curl,
-                                      void* stream) {
-  return launch_solve_h_density<float>(win, h0, w_lo, w_nact, Ns, tile,
-                                       group, sig, eta_d, hcap, iters, bals,
-                                       h, rho, drdh, div, curl, stream);
-}
+// Kernel A: sphax_solve_h_density_{f32,f64} (3D), ..._2d_{f32,f64} (2D).
+#define SPHAX_A_ENTRY(NAME, T, DIM)                                         \
+  cudaError_t NAME(const void* win, const void* h0, const void* w_lo,       \
+                   const void* w_nact, int Ns, int tile, int group,         \
+                   double sig, double eta_d, double hcap, int iters,        \
+                   int bals, void* h, void* rho, void* drdh, void* div,     \
+                   void* curl, void* stream) {                              \
+    return launch_solve_h_density<T, DIM>(win, h0, w_lo, w_nact, Ns, tile,  \
+                                          group, sig, eta_d, hcap, iters,   \
+                                          bals, h, rho, drdh, div, curl,    \
+                                          stream);                          \
+  }
+SPHAX_A_ENTRY(sphax_solve_h_density_f32, float, 3)
+SPHAX_A_ENTRY(sphax_solve_h_density_f64, double, 3)
+SPHAX_A_ENTRY(sphax_solve_h_density_2d_f32, float, 2)
+SPHAX_A_ENTRY(sphax_solve_h_density_2d_f64, double, 2)
+#undef SPHAX_A_ENTRY
 
-cudaError_t sphax_solve_h_density_f64(const void* win, const void* h0,
-                                      const void* w_lo, const void* w_nact,
-                                      int Ns, int tile, int group, double sig,
-                                      double eta_d, double hcap, int iters,
-                                      int bals, void* h, void* rho,
-                                      void* drdh, void* div, void* curl,
-                                      void* stream) {
-  return launch_solve_h_density<double>(win, h0, w_lo, w_nact, Ns, tile,
-                                        group, sig, eta_d, hcap, iters, bals,
-                                        h, rho, drdh, div, curl, stream);
-}
+// Kernel C without gravity: sphax_forces_{f32,f64} (3D), ..._2d_* (2D).
+#define SPHAX_C_ENTRY(NAME, T, DIM)                                         \
+  cudaError_t NAME(const void* win, const void* w_lo, const void* w_nact,   \
+                   int Ns, int tile, int group, double alpha, double beta,  \
+                   double epsv, int use_bf, int fast, void* acc, void* du,  \
+                   void* stream) {                                          \
+    return launch_forces<T, DIM, false>(win, w_lo, w_nact, Ns, tile, group, \
+                                        alpha, beta, epsv, use_bf, fast,    \
+                                        nullptr, 0.0, 0.0, acc, du, stream); \
+  }
+SPHAX_C_ENTRY(sphax_forces_f32, float, 3)
+SPHAX_C_ENTRY(sphax_forces_f64, double, 3)
+SPHAX_C_ENTRY(sphax_forces_2d_f32, float, 2)
+SPHAX_C_ENTRY(sphax_forces_2d_f64, double, 2)
+#undef SPHAX_C_ENTRY
 
-// fast_math (approximate divides) applies to fp32 only.
-cudaError_t sphax_forces_f32(const void* win, const void* w_lo,
-                             const void* w_nact, int Ns, int tile, int group,
-                             double alpha, double beta, double epsv,
-                             int use_bf, int fast, void* acc, void* du,
-                             void* stream) {
-  if (fast)
-    return launch_forces<float, true, false>(win, w_lo, w_nact, Ns, tile,
-                                             group, alpha, beta, epsv, use_bf,
-                                             nullptr, 0.0, 0.0, acc, du,
-                                             stream);
-  return launch_forces<float, false, false>(win, w_lo, w_nact, Ns, tile,
-                                            group, alpha, beta, epsv, use_bf,
-                                            nullptr, 0.0, 0.0, acc, du,
-                                            stream);
-}
-
-cudaError_t sphax_forces_f64(const void* win, const void* w_lo,
-                             const void* w_nact, int Ns, int tile, int group,
-                             double alpha, double beta, double epsv,
-                             int use_bf, int fast, void* acc, void* du,
-                             void* stream) {
-  (void)fast;
-  return launch_forces<double, false, false>(win, w_lo, w_nact, Ns, tile,
-                                             group, alpha, beta, epsv, use_bf,
-                                             nullptr, 0.0, 0.0, acc, du,
-                                             stream);
-}
-
-// Kernel C with the fused P3M short range: gsc -> the three split scalars
-// on the device.
-cudaError_t sphax_forces_grav_f32(const void* win, const void* w_lo,
-                                  const void* w_nact, int Ns, int tile,
-                                  int group, double alpha, double beta,
-                                  double epsv, int use_bf, int fast,
-                                  const void* gsc, double G, double rcut2,
-                                  void* acc, void* du, void* stream) {
-  if (fast)
-    return launch_forces<float, true, true>(win, w_lo, w_nact, Ns, tile,
-                                            group, alpha, beta, epsv, use_bf,
-                                            gsc, G, rcut2, acc, du, stream);
-  return launch_forces<float, false, true>(win, w_lo, w_nact, Ns, tile,
-                                           group, alpha, beta, epsv, use_bf,
-                                           gsc, G, rcut2, acc, du, stream);
-}
-
-cudaError_t sphax_forces_grav_f64(const void* win, const void* w_lo,
-                                  const void* w_nact, int Ns, int tile,
-                                  int group, double alpha, double beta,
-                                  double epsv, int use_bf, int fast,
-                                  const void* gsc, double G, double rcut2,
-                                  void* acc, void* du, void* stream) {
-  (void)fast;
-  return launch_forces<double, false, true>(win, w_lo, w_nact, Ns, tile,
-                                            group, alpha, beta, epsv, use_bf,
-                                            gsc, G, rcut2, acc, du, stream);
-}
+// Kernel C with the fused P3M short range (3D): gsc -> the three split
+// scalars on the device.
+#define SPHAX_CG_ENTRY(NAME, T)                                             \
+  cudaError_t NAME(const void* win, const void* w_lo, const void* w_nact,   \
+                   int Ns, int tile, int group, double alpha, double beta,  \
+                   double epsv, int use_bf, int fast, const void* gsc,      \
+                   double G, double rcut2, void* acc, void* du,             \
+                   void* stream) {                                          \
+    return launch_forces<T, 3, true>(win, w_lo, w_nact, Ns, tile, group,    \
+                                     alpha, beta, epsv, use_bf, fast, gsc,  \
+                                     G, rcut2, acc, du, stream);            \
+  }
+SPHAX_CG_ENTRY(sphax_forces_grav_f32, float)
+SPHAX_CG_ENTRY(sphax_forces_grav_f64, double)
+#undef SPHAX_CG_ENTRY
 
 const char* sphax_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

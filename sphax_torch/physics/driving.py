@@ -53,14 +53,27 @@ def init(n_modes: int, dtype=torch.float64, device=None) -> DriveState:
     return DriveState(amp_re=z, amp_im=z.clone())
 
 
-def gaussian_noise(generator: torch.Generator):
-    """Noise source for ``wengine.simulate``: two standard-normal draws of
-    the amplitude shape per step, from ``generator`` (on the run's
-    device)."""
-    def draw(shape, dtype, device):
-        return tuple(torch.randn(shape, generator=generator, dtype=dtype,
-                                 device=device) for _ in range(2))
-    return draw
+class GaussianNoise:
+    """Noise source for ``wengine.simulate`` and ``run.simulate``: two
+    standard-normal draws of the amplitude shape per step, from
+    ``generator`` (on the run's device)."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+
+    def __call__(self, shape, dtype, device):
+        return tuple(torch.randn(shape, generator=self.generator,
+                                 dtype=dtype, device=device)
+                     for _ in range(2))
+
+    def reseed(self, seed: int, step: int):
+        """Restart the stream at a chunk boundary from (seed, step), so a
+        run resumed at ``step`` draws what an uninterrupted run draws."""
+        self.generator.manual_seed((int(seed) << 32) | int(step))
+
+
+def gaussian_noise(generator: torch.Generator) -> GaussianNoise:
+    return GaussianNoise(generator)
 
 
 def _solenoidal_project(amp, khat):

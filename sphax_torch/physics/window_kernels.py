@@ -4,7 +4,8 @@
 and Balsara div/curl sums) and ``forces`` (kernel C: symmetrized pressure
 force, Monaghan viscosity and du/dt, plus the fused screened P3M short-range
 gravity with ``grav=(rs, eps)``) replace the Pallas TPU kernels
-``sphax.physics.pallas_kernels.solve_h_density`` and ``.forces``.
+``sphax.physics.pallas_kernels.solve_h_density`` and ``.forces``, in 3D
+and in 2D (the ``kh`` problem); the gravity mode is 3D only.
 
 Each wrapper chooses by the device of its input tensors: a CUDA tensor
 launches the hand-written CUDA kernel (``sphax_torch/csrc/window_kernels.cu``,
@@ -34,9 +35,10 @@ from sphax_torch.physics import pairs
 
 # Launches of each CUDA kernel; a wrapper adds one where it launches.
 # "forces_grav" counts kernel C's gravity mode, "forces" its plain SPH mode,
-# "gravity" kernel G (physics/direct_gravity.py).
+# "gravity" kernel G (physics/direct_gravity.py); the "_2d" keys count the
+# dim=2 instantiations of kernels A and C.
 LAUNCHES = {"solve_h_density": 0, "forces": 0, "forces_grav": 0,
-            "gravity": 0}
+            "gravity": 0, "solve_h_density_2d": 0, "forces_2d": 0}
 
 
 def _newton_iters(cfg: SPHConfig) -> int:
@@ -156,7 +158,9 @@ def solve_h_density_plain(wd: WindowData, spec: WindowSpec, pos_s, mass_s,
             divv_p, curl_p = pairs.balsara_terms(lp.dx, lp.r, dv, lp.own(h),
                                                  mj, dim)
             curl = lp.sum(curl_p, shape)
-            curl_mag = torch.sqrt(torch.sum(curl * curl, dim=-1))
+            # a vector in 3D, one scalar component in 2D
+            curl_mag = (torch.sqrt(torch.sum(curl * curl, dim=-1))
+                        if dim == 3 else torch.abs(curl))
             outs += (lp.sum(divv_p, shape), curl_mag)
         return outs
 
@@ -214,11 +218,15 @@ def _ptr(t):
 
 
 def _check_cuda(wd: WindowData, spec: WindowSpec, cfg: SPHConfig, ref,
-                tensors):
+                tensors, grav=False):
     """Raise on anything the CUDA kernels do not take."""
-    if cfg.dim != 3 or spec.dim != 3:
-        raise NotImplementedError("the CUDA window kernels are built for "
-                                  "dim=3 only")
+    if cfg.dim != spec.dim or cfg.dim not in (2, 3):
+        raise NotImplementedError(f"the CUDA window kernels are built for "
+                                  f"dim 2 and 3 (cfg.dim={cfg.dim}, "
+                                  f"spec.dim={spec.dim})")
+    if grav and cfg.dim != 3:
+        raise NotImplementedError("kernel C's gravity mode is 3D only, as "
+                                  "the P3M mesh is")
     if spec.cwidth > 0:
         raise NotImplementedError("candidate compaction (cwidth > 0) is "
                                   "not ported yet")
@@ -245,6 +253,11 @@ def _check_cuda(wd: WindowData, spec: WindowSpec, cfg: SPHConfig, ref,
                              f"tensor on {ref.device}")
 
 
+def _kernel_name(base: str, dim: int) -> str:
+    """The C entry point and launch key: ``base`` in 3D, ``base_2d`` in 2D."""
+    return base if dim == 3 else f"{base}_{dim}d"
+
+
 def _launch(fn_name, dtype, *args):
     from sphax_torch import _build
 
@@ -260,8 +273,9 @@ def _launch(fn_name, dtype, *args):
 
 def solve_h_density(wd: WindowData, spec: WindowSpec, pos_s, mass_s, h0_s,
                     cfg: SPHConfig, vel_s=None):
-    """Kernel A. Returns (h, rho, drho_dh[, div_sum, curl_mag]) per sorted
-    row; the last two only when cfg.need_divv and vel_s is given."""
+    """Kernel A, in 3D or 2D. Returns (h, rho, drho_dh[, div_sum,
+    curl_mag]) per sorted row; the last two only when cfg.need_divv and
+    vel_s is given."""
     if pos_s.device.type == "cpu":
         return solve_h_density_plain(wd, spec, pos_s, mass_s, h0_s, cfg,
                                      vel_s=vel_s)
@@ -272,16 +286,18 @@ def solve_h_density(wd: WindowData, spec: WindowSpec, pos_s, mass_s, h0_s,
     if fuse_bals:
         tensors["vel_s"] = vel_s
     _check_cuda(wd, spec, cfg, pos_s, tensors)
-    # SoA [F, Ns] candidate fields: x, y, z, m (, vx, vy, vz)
+    dim = cfg.dim
+    # SoA [F, Ns] candidate fields: the dim positions, m (, dim velocities)
     win = torch.cat([pos_s.T, mass_s[None]]
                     + ([vel_s.T] if fuse_bals else [])).contiguous()
     h0 = h0_s.contiguous()
     outs = [torch.empty_like(h0) for _ in range(5 if fuse_bals else 3)]
     null = ctypes.c_void_p(None)
-    _launch("solve_h_density", pos_s.dtype,
+    _launch(_kernel_name("solve_h_density", dim), pos_s.dtype,
             _ptr(win), _ptr(h0), _ptr(wd.w_lo), _ptr(wd.w_nact),
             spec.n_sorted, spec.tile, spec.group,
-            float(K.sigma(3)), float(cfg.eta) ** 3, 0.5 * float(spec.cutoff),
+            float(K.sigma(dim)), float(cfg.eta) ** dim,
+            0.5 * float(spec.cutoff),
             _newton_iters(cfg), int(fuse_bals),
             *[_ptr(o) for o in outs],
             *([] if fuse_bals else [null, null]))
@@ -290,10 +306,11 @@ def solve_h_density(wd: WindowData, spec: WindowSpec, pos_s, mass_s, h0_s,
 
 def forces(wd: WindowData, spec: WindowSpec, pos_s, vel_s, mass_s, h_s,
            rho_s, P_s, cs_s, om_s, bf_s, cfg: SPHConfig, grav=None):
-    """Kernel C. Returns (acc_s [Ns, D], du_s [Ns]); ``bf_s`` is read only
-    when cfg.visc_factor_on. ``grav=(rs, eps)`` adds the screened P3M short
-    range over the same candidates, hard-cut at spec.cutoff; ``rs`` is a
-    0-d tensor on the inputs' device, so no step waits on the host."""
+    """Kernel C, in 3D or 2D. Returns (acc_s [Ns, D], du_s [Ns]); ``bf_s``
+    is read only when cfg.visc_factor_on. ``grav=(rs, eps)`` (3D only) adds
+    the screened P3M short range over the same candidates, hard-cut at
+    spec.cutoff; ``rs`` is a 0-d tensor on the inputs' device, so no step
+    waits on the host."""
     if pos_s.device.type == "cpu":
         return forces_plain(wd, spec, pos_s, vel_s, mass_s, h_s, rho_s, P_s,
                             cs_s, om_s, bf_s, cfg, grav=grav)
@@ -304,13 +321,15 @@ def forces(wd: WindowData, spec: WindowSpec, pos_s, vel_s, mass_s, h_s,
                    rho_s=rho_s, P_s=P_s, cs_s=cs_s, om_s=om_s)
     if use_bf:
         tensors["bf_s"] = bf_s
-    _check_cuda(wd, spec, cfg, pos_s, tensors)
+    _check_cuda(wd, spec, cfg, pos_s, tensors, grav=grav is not None)
+    dim = cfg.dim
     # per-particle hoisted fields, as the Pallas kernel ships them
     invh = 1.0 / h_s
     ci = P_s / (om_s * rho_s * rho_s)
-    gc1 = float(K.sigma(3)) * invh ** 4
+    gc1 = float(K.sigma(dim)) * invh ** (dim + 1)
     gc2 = gc1 * invh
-    # SoA [F, Ns]: x y z vx vy vz m h invh rho cs ci gc1 gc2 (bf)
+    # SoA [F, Ns]: the dim positions and velocities, then
+    # m h invh rho cs ci gc1 gc2 (bf)
     win = torch.cat([pos_s.T, vel_s.T]
                     + [f[None] for f in (mass_s, h_s, invh, rho_s, cs_s, ci,
                                          gc1, gc2)]
@@ -323,7 +342,8 @@ def forces(wd: WindowData, spec: WindowSpec, pos_s, vel_s, mass_s, h_s,
             float(cfg.alpha_visc), float(cfg.beta_visc),
             float(cfg.eps_visc), int(use_bf), int(fast)]
     if grav is None:
-        _launch("forces", pos_s.dtype, *args, _ptr(acc), _ptr(du))
+        _launch(_kernel_name("forces", dim), pos_s.dtype, *args, _ptr(acc),
+                _ptr(du))
         return acc, du
     rs, eps = grav
     if (not isinstance(rs, torch.Tensor) or rs.device != pos_s.device

@@ -15,7 +15,13 @@ import pytest
 import torch
 
 import sphax
+from sphax.diag import riemann as j_riemann
+from sphax.diag import sedov as j_sedov_diag
+from sphax.ics import evrard as j_evrard
+from sphax.ics import kh as j_kh
 from sphax.ics import lattice as j_lattice
+from sphax.ics import sedov as j_sedov
+from sphax.ics import sod as j_sod
 from sphax.ics import turbulence as j_turb
 from sphax.integrate import timestep as j_timestep
 from sphax.physics import eos as j_eos
@@ -24,7 +30,13 @@ from sphax.physics import pairs as j_pairs
 from sphax_torch import configs as t_configs
 from sphax_torch import convert
 from sphax_torch.core.state import ParticleState as TState
+from sphax_torch.diag import riemann as t_riemann
+from sphax_torch.diag import sedov as t_sedov_diag
+from sphax_torch.ics import evrard as t_evrard
+from sphax_torch.ics import kh as t_kh
 from sphax_torch.ics import lattice as t_lattice
+from sphax_torch.ics import sedov as t_sedov
+from sphax_torch.ics import sod as t_sod
 from sphax_torch.ics import turbulence as t_turb
 from sphax_torch.integrate import timestep as t_timestep
 from sphax_torch.physics import eos as t_eos
@@ -72,6 +84,44 @@ def test_ics_equal(kw):
     np.testing.assert_array_equal(
         t_lattice.cubic_lattice((3, 4), [0, -1], [1, 2]),
         j_lattice.cubic_lattice((3, 4), [0, -1], [1, 2]))
+
+
+@pytest.mark.parametrize("mods,kw", [
+    ((j_sod, t_sod), dict(nx_left=8, n_trans=4)),
+    ((j_sedov, t_sedov), dict(n_side=7, centre=(0.3, 0.5, 0.6))),
+    ((j_kh, t_kh), dict(nx=16, kmode=3)),
+    ((j_evrard, t_evrard), dict(n=333)),
+])
+def test_problem_ics_equal(mods, kw):
+    """The NumPy copies of the problem ICs build the same arrays."""
+    a, b = (m.build(**kw) for m in mods)
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(b[k], a[k])
+    if mods[0] is j_kh:
+        args = (a["pos"], a["vel"] + 0.01, a["mass"])
+        assert t_kh.mode_amplitude(*args) == j_kh.mode_amplitude(*args)
+    if mods[0] is j_evrard:
+        assert (t_evrard.total_energy(a["pos"], a["vel"], a["mass"], a["u"])
+                == j_evrard.total_energy(a["pos"], a["vel"], a["mass"],
+                                         a["u"]))
+
+
+def test_diag_copies_equal():
+    """The exact Riemann solution and the Sedov radius estimators."""
+    x = np.linspace(0.0, 1.0, 301)
+    for t in (0.0, 0.05, 0.2):
+        for a, b in zip(t_riemann.sod_solution(x, t),
+                        j_riemann.sod_solution(x, t)):
+            np.testing.assert_array_equal(a, b)
+    for g in (5.0 / 3.0, 1.4, 1.3):
+        assert (t_sedov_diag.shock_radius(0.05, 1.0, 1.0, g)
+                == j_sedov_diag.shock_radius(0.05, 1.0, 1.0, g))
+    rng = np.random.default_rng(2)
+    pos, rho = rng.random((500, 3)), rng.random(500)
+    c = np.full(3, 0.5)
+    assert (t_sedov_diag.measured_shock_radius(pos, rho, c, 1.0)
+            == j_sedov_diag.measured_shock_radius(pos, rho, c, 1.0))
 
 
 @pytest.mark.parametrize("dim", [1, 2, 3])
@@ -229,4 +279,4 @@ def test_package_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 27

@@ -1,5 +1,5 @@
-"""The CUDA kernels A, C (with and without its P3M gravity mode) and G
-against their plain torch versions, on a card.
+"""The CUDA kernels A, C (with and without its P3M gravity mode; A and C
+in 3D and in 2D) and G against their plain torch versions, on a card.
 
 These tests import no JAX (the machine with the card has none) and skip
 where no CUDA device is visible. Run them on the card without the suite's
@@ -21,7 +21,7 @@ import torch
 
 from sphax_torch import configs, make_state
 from sphax_torch.core.state import box
-from sphax_torch.ics import turbulence
+from sphax_torch.ics import kh, turbulence
 from sphax_torch.neighbors import window as win
 from sphax_torch.physics import direct_gravity as dg
 from sphax_torch.physics import pm, wengine
@@ -35,6 +35,12 @@ A_CASES = {
     "balsara_off": configs.SPHConfig(dim=3, adaptive_h=True, newton_iters=2),
 }
 KNOBS = dict(cutoff_scale=1.05, ghost_safety=1.4, fast_sub=3, rgroups=2)
+# 2D: the kh problem's configuration and window knobs (problems.kh)
+A_CASES_2D = {
+    "kh_cold": configs.KH,
+    "kh_balsara_off": dataclasses.replace(configs.KH, balsara=False),
+}
+KNOBS_2D = dict(cutoff_scale=1.25, fast_sub=3, rgroups=2)
 P3M = dataclasses.replace(configs.TURB, newton_iters=1, gravity=True,
                           grav_solver="p3m", grav_mesh=32)
 
@@ -46,16 +52,19 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(device, dtype, n_side=16, seed=0, periodic=True):
+def _inputs(device, dtype, n_side=16, seed=0, periodic=True, dim=3):
     """Sorted inputs at the production window geometry, owner-consistent on
-    ghost rows, from the turbulence ICs and a seeded generator."""
-    ic = turbulence.build(n_side=n_side)
+    ghost rows, from the turbulence ICs (3D) or the Kelvin-Helmholtz ICs
+    with nx = 4 n_side (2D) and a seeded generator."""
+    ic = (turbulence.build(n_side=n_side) if dim == 3
+          else kh.build(nx=4 * n_side))
     st = make_state(*(torch.as_tensor(ic[k], dtype=dtype, device=device)
                       for k in ("pos", "vel", "mass", "u", "h")))
-    dom = box(torch.zeros(3, dtype=dtype, device=device),
-              torch.ones(3, dtype=dtype, device=device), periodic=periodic)
-    spec = win.plan_measured(st.pos, dom, h_max=float(st.h.max()) * 1.05,
-                             dim=3, **KNOBS)
+    dom = box(torch.zeros(dim, dtype=dtype, device=device),
+              torch.ones(dim, dtype=dtype, device=device), periodic=periodic)
+    h_max = float(st.h.max()) * (1.05 if dim == 3 else 1.3)
+    spec = win.plan_measured(st.pos, dom, h_max=h_max, dim=dim,
+                             **(KNOBS if dim == 3 else KNOBS_2D))
     wd = win.build(st.pos, dom, spec)
     g = torch.Generator(device=device).manual_seed(seed)
 
@@ -120,6 +129,53 @@ def test_forces_kernel_matches_plain(cuda, dtype, fast, balsara):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(A_CASES_2D))
+def test_solve_h_density_2d_kernel_matches_plain(cuda, dtype, case):
+    """Kernel A's dim=2 instantiation at the kh problem's geometry."""
+    cfg = A_CASES_2D[case]
+    _, _, spec, wd, f = _inputs(cuda, dtype, dim=2)
+    assert spec.n_seg == 3
+    vel = f["vel_s"] if cfg.need_divv else None
+    args = (f["pos_s"], f["mass_s"], f["h0_s"])
+    n0 = dict(wk.LAUNCHES)
+    got = wk.solve_h_density(wd, spec, *args, cfg, vel_s=vel)
+    torch.cuda.synchronize()
+    assert {k: wk.LAUNCHES[k] - n0[k] for k in n0} == {
+        k: int(k == "solve_h_density_2d") for k in n0}
+    want = wk.solve_h_density_plain(wd, spec, *args, cfg, vel_s=vel)
+    assert len(got) == len(want) == (5 if cfg.need_divv else 3)
+    for k, (a, b) in enumerate(zip(got, want)):
+        _compare(a, b, wd.is_real, TOL[dtype], f"{case} output {k}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,fast", [(torch.float32, False),
+                                        (torch.float64, False),
+                                        (torch.float32, True)])
+@pytest.mark.parametrize("balsara", [True, False])
+def test_forces_2d_kernel_matches_plain(cuda, dtype, fast, balsara):
+    """Kernel C's dim=2 instantiation; its gravity mode is 3D only."""
+    cfg = dataclasses.replace(configs.KH, balsara=balsara, fast_math=fast)
+    _, dom, spec, wd, f = _inputs(cuda, dtype, seed=1, dim=2)
+    args = [f[k] for k in ("pos_s", "vel_s", "mass_s", "h_s", "rho_s", "P_s",
+                           "cs_s", "om_s", "bf_s")]
+    n0 = dict(wk.LAUNCHES)
+    got = wk.forces(wd, spec, *args, cfg)
+    torch.cuda.synchronize()
+    assert {k: wk.LAUNCHES[k] - n0[k] for k in n0} == {
+        k: int(k == "forces_2d") for k in n0}
+    assert tuple(got[0].shape) == (spec.n_sorted, 2)
+    want = wk.forces_plain(wd, spec, *args, cfg)
+    tol = 2e-3 if fast else TOL[dtype]
+    _compare(got[0], want[0], wd.is_real, tol, "acc")
+    _compare(got[1], want[1], wd.is_real, tol, "du")
+    rs = torch.ones((), dtype=dtype, device=cuda)
+    with pytest.raises(NotImplementedError):
+        wk.forces(wd, spec, *args, cfg, grav=(rs, 0.01))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype,fast", [(torch.float32, False),
                                         (torch.float64, False),
                                         (torch.float32, True)])
@@ -167,7 +223,8 @@ def test_gravity_kernel_matches_plain(cuda, dtype, n):
 def test_cuda_tensor_never_runs_the_plain_version(cuda, monkeypatch):
     """A derived pass on the card launches each kernel of its branch once
     and calls no plain version: no gravity, P3M (kernel C in its gravity
-    mode) and direct gravity in an open box (kernel G)."""
+    mode), direct gravity in an open box (kernel G), and the 2D kh
+    configuration (the dim=2 kernels)."""
     def refuse(*a, **k):
         raise AssertionError("plain version called on a CUDA tensor")
 
@@ -181,9 +238,11 @@ def test_cuda_tensor_never_runs_the_plain_version(cuda, monkeypatch):
          ("solve_h_density", "forces")),
         (P3M, True, ("solve_h_density", "forces_grav")),
         (direct, False, ("solve_h_density", "forces", "gravity")),
+        (configs.KH, True, ("solve_h_density_2d", "forces_2d")),
     ]
     for cfg, periodic, kernels in cases:
-        st, dom, spec, _, _ = _inputs(cuda, torch.float32, periodic=periodic)
+        st, dom, spec, _, _ = _inputs(cuda, torch.float32, periodic=periodic,
+                                      dim=cfg.dim)
         n0 = dict(wk.LAUNCHES)
         out = wengine.update_derived(st, cfg, dom, spec)
         torch.cuda.synchronize()
