@@ -3,7 +3,9 @@ from ``sphax_torch/csrc``, holds each against its plain torch version, and
 drives the port's paths at N = 1e6: the bench configuration, the driven CLI
 configuration, the same with P3M self-gravity, an open box with direct
 gravity, and ``python -m sphax_torch kh n=1024`` (N = 1,572,864, 2D) with
-the rest of the problem suite through the same CLI.
+the rest of the problem suite through the same CLI; then the bench
+configuration with the compact walks of kernels A and C, with drift-gated
+rebuilds, and with both, and the CLI's turb with ``adaptive=8``.
 
     python3 chip_smoke.py
 
@@ -59,6 +61,24 @@ Phases, in order; any failed check raises and exits non-zero:
                evrard n=4096 (dense with direct gravity), 4 steps each
  18. times     kernels A (cold, 6 Newton updates) and C in 2D at the
                path-15 shapes, with their plain versions
+ 19. compact   the compact walks (spec.cwidth > 0, plan_compact) at the
+     walks     phase 3/14 geometries: A cold and h_predict, C exact,
+               fast_math and gravity (grav_mesh=128) in 3D, A and C in 2D,
+               against the compact plain versions (fp32 3e-5, fp64 1e-10,
+               fast_math 2e-3) and against the in-place kernels on the same
+               inputs (fp32 3e-5, fp64 1e-10)
+ 20. compact   bench.run at N = 1e6 with compact=True, adaptive=8 and both:
+     and       bench.py's checks and exact launch counts (compact keys only
+     adaptive  when compact); particle-steps/s, cwidth, c_n's mean, p99 and
+               max, the builds; then the CLI's turb n=100 adaptive=8 for 16
+               steps: finite, overflow 0, builds in its record
+ 21. times     the compact walks beside the in-place ones, in turns on the
+               same inputs: A (h_predict, cold) and C (fast_math) at the
+               bench shapes, C with gravity at the phase-13 shapes, A and C
+               in 2D at the phase-18 shapes; their plain versions; the pairs
+               inside the support recounted on the compact lists (the same,
+               so the same bounds); and one adaptive=8 step with and without
+               the drift gate's host read
 Each path runs with every launch count set to 0 just before it, and its
 counts are read just after. Each kernel's bound is the larger of its bytes
 over 3.35 TB/s and its operations on the pairs these inputs need (inside
@@ -105,6 +125,7 @@ def main():
     from sphax_torch import _build, bench, configs, make_state, problems
     from sphax_torch import run as run_mod
     from sphax_torch.__main__ import main as cli
+    from sphax_torch.ab_kernels import sorted_fields
     from sphax_torch.core.state import box
     from sphax_torch.ics import kh as kh_ics
     from sphax_torch.ics import turbulence
@@ -156,12 +177,13 @@ def main():
     def worst(prefix):
         return max(v for k, v in errs.items() if k.startswith(prefix))
 
-    def sorted_inputs(n_side, dtype, seed=1, dim=3):
+    def sorted_inputs(n_side, dtype, seed=1, dim=3, compact=False):
         """Sorted kernel inputs at a path's geometry (owner-consistent on
         ghost rows): positions of the turbulence ICs with the main path's
         window knobs (3D), or of the Kelvin-Helmholtz ICs at nx = 4 n_side
         with the kh problem's knobs (2D); a seeded 0.4 N(0,1) velocity, and
-        plausible seeded per-particle fields for kernel C."""
+        plausible seeded per-particle fields for kernel C. ``compact`` plans
+        with plan_compact."""
         if dim == 3:
             cfg = dataclasses.replace(configs.TURB, newton_iters=1)
             ic = turbulence.build(n_side=n_side)
@@ -181,9 +203,9 @@ def main():
                                 device=dev)
         dom = box(torch.zeros(dim, dtype=dtype, device=dev),
                   torch.ones(dim, dtype=dtype, device=dev))
-        spec = win.plan_measured(st.pos, dom,
-                                 h_max=float(st.h.max()) * margin, dim=dim,
-                                 **kn)
+        plan = win.plan_compact if compact else win.plan_measured
+        spec = plan(st.pos, dom, h_max=float(st.h.max()) * margin, dim=dim,
+                    **kn)
         wd = win.build(st.pos, dom, spec)
         rho = rnd(0.8, 1.2)
         cols = {"vel_s": (vel, 0.0), "mass_s": (st.mass, 0.0),
@@ -436,6 +458,7 @@ def main():
     st, dom, spec = bench.setup(100, cfg_g, dev, vel_scale=0.0,
                                 h_margin=1.3, cutoff_scale=1.25, fast_sub=3,
                                 rgroups=2)
+    spec_g, dom_g = spec, dom
     rs_g = pm.rs_traced(cfg_g, dom, torch.float32, cutoff=spec.cutoff)
     rs_cells = float(rs_g) * cfg_g.grav_mesh / float(dom.extent.min())
 
@@ -772,6 +795,254 @@ def main():
         f"computed {computed2:.1f}; pairs inside the support per real row "
         f"A {pa2 / n_real2:.1f}, C {pc2 / n_real2:.1f}")
 
+    # ---- 19. compact walks vs plain, and vs the in-place walk ------------
+    def compact_parity(tag, dim, dtype, cfg, which, grav=None, n_side=48):
+        """One kernel's compact walk on phase 3/14's inputs with a compact
+        plan: against the compact plain version at ``which``'s tolerance,
+        and against the in-place kernel on the same inputs (the same pairs)
+        at the dtype's. Returns the largest absolute error."""
+        _, spec, wd, f = sorted_inputs(n_side, dtype, dim=dim, compact=True)
+        assert int(wd.overflow) == 0 and spec.cwidth > 0
+        inplace = dataclasses.replace(spec, cwidth=0)
+        gr = None
+        if grav:
+            dom_ = box(torch.zeros(3, dtype=dtype, device=dev),
+                       torch.ones(3, dtype=dtype, device=dev))
+            gr = (pm.rs_traced(cfg, dom_, dtype, cutoff=spec.cutoff),
+                  cfg.grav_eps)
+        if which == "A":
+            args = [f[k] for k in A_ARGS]
+            run = lambda fn, s_: fn(wd, s_, *args, cfg, vel_s=f["vel_s"])
+            fns = (wk.solve_h_density, wk.solve_h_density_plain)
+        else:
+            args = [f[k] for k in C_ARGS]
+            run = lambda fn, s_: fn(wd, s_, *args, cfg, grav=gr)
+            fns = (wk.forces, wk.forces_plain)
+        got, want = run(fns[0], spec), run(fns[1], spec)
+        ref = run(fns[0], inplace)
+        torch.cuda.synchronize()
+        tol = 2e-3 if cfg.fast_math and dtype == torch.float32 else TOL[dtype]
+        key = f"compact {tag} {dtype}"
+        e = max(compare(a, b, wd.is_real, tol, f"{key} out{k}")
+                for k, (a, b) in enumerate(zip(got, want)))
+        e_in = max(compare(a, b, wd.is_real, TOL[dtype],
+                           f"{key} vs in place out{k}")
+                   for k, (a, b) in enumerate(zip(got, ref)))
+        log(f"[19 compact] {tag:14s} {str(dtype):13s} cwidth={spec.cwidth}: "
+            f"vs plain max abs err {e:.3g}, max err/scale "
+            f"{worst(f'{key} out'):.3g} (tol {tol}); vs the in-place kernel "
+            f"{e_in:.3g}, {worst(f'{key} vs'):.3g} (tol {TOL[dtype]})")
+        return e
+
+    for dtype in (torch.float32, torch.float64):
+        for mode, cfg in A_MODES.items():
+            compact_parity(f"A {mode}", 3, dtype, cfg, "A")
+        cfg = dataclasses.replace(configs.TURB, newton_iters=1)
+        compact_parity("C exact", 3, dtype, cfg, "C")
+        if dtype == torch.float32:
+            compact_parity("C fast_math", 3, dtype,
+                           dataclasses.replace(cfg, fast_math=True), "C")
+        compact_parity("C grav", 3, dtype, p3m_cfg(cfg), "C", grav=True)
+        compact_parity("A2 cold", 2, dtype, configs.KH, "A", n_side=16)
+        compact_parity("C2 exact", 2, dtype, configs.KH, "C", n_side=16)
+        if dtype == torch.float32:
+            compact_parity("C2 fast_math", 2, dtype,
+                           dataclasses.replace(configs.KH, fast_math=True),
+                           "C", n_side=16)
+
+    # ---- 20. the compact and adaptive bench paths, and adaptive=8 CLI ----
+    def c_stats(wd):
+        """Compacted candidates per group with real rows (mean, p99, max)
+        and per real row (mean)."""
+        n = wd.c_n[wd.c_n > 0].double()
+        per_row = wd.c_n.repeat_interleave(
+            wd.is_real.numel() // wd.c_n.numel())[wd.is_real].double()
+        return (float(n.mean()), float(torch.quantile(n, 0.99)),
+                int(n.max()), float(per_row.mean()))
+
+    bench_modes = {}
+    for label, kw in (("bench compact", dict(compact=True)),
+                      ("bench adaptive=8", dict(adaptive=8)),
+                      ("bench compact adaptive=8",
+                       dict(compact=True, adaptive=8))):
+        tag = "_compact" if kw.get("compact") else ""
+        t0 = time.perf_counter()
+        res_m, st_m, dom_m, spec_m = drive(label, lambda: bench.run(
+            n_side=100, steps=16, reps=3, device=dev, **kw),
+            {f"solve_h_density{tag}": per, f"forces{tag}": per})
+        res_m.update(launches=paths[label],
+                     setup_and_runs_s=time.perf_counter() - t0)
+        if spec_m.cwidth:
+            wd_m = win.build(st_m.pos, dom_m, spec_m)
+            assert int(wd_m.overflow) == 0
+            res_m["c_n_mean_p99_max_per_row"] = c_stats(wd_m)
+        bench_modes[label] = res_m
+        log(f"[20 {label}]", json.dumps(res_m))
+
+    cli_out = fresh(os.path.join("build", "smoke", "turb_adaptive"))
+    t0 = time.perf_counter()
+    st_a, _, step_a = drive("turb adaptive=8 CLI", lambda: cli(
+        ["turb", "n=100", "adaptive=8", "max_steps=16", f"out={cli_out}"]),
+        {"solve_h_density": 17, "forces": 17})
+    wall_a = time.perf_counter() - t0
+    recs = records(cli_out)
+    assert step_a == 16 and [r["step"] for r in recs] == [16, 16], recs
+    assert all(r["finite"] for r in recs) and recs[0]["h_capped"] == 0, recs
+    assert 2 <= recs[0]["rebuilds"] <= 16, recs[0]
+    for f_ in ("pos", "vel", "h", "rho", "acc", "du_dt"):
+        assert bool(torch.isfinite(getattr(st_a, f_)).all()), f_
+    log(f"[20 turb adaptive=8 CLI] N={st_a.n}: 16 steps in {wall_a:.2f} s "
+        f"with set-up, overflow 0, {recs[0]['rebuilds']} builds, CLI record "
+        f"{recs[0]['particle_steps_per_sec']:.4g} particle-steps/s, mach "
+        f"{recs[0]['mach_rms']:.4g}")
+
+    # ---- 21. compact times at the N = 1e6 shapes, beside in-place -------
+    def with_cwidth(spec, pos, dom_):
+        """``spec`` with plan_compact's width for these positions (its
+        probe build at cwidth 128): the same sort and windows, so the same
+        sorted inputs serve both walks."""
+        probe = win.build(pos, dom_, dataclasses.replace(spec, cwidth=128))
+        cw = int(math.ceil(int(probe.c_max) * 1.2 / 128) * 128)
+        return dataclasses.replace(spec, cwidth=max(cw, 128))
+
+    def turns(fa, fb, reps=10, rounds=2):
+        """Median ms of two launch functions timed in turns a, b, b, a."""
+        ta, tb = [], []
+        for _ in range(rounds):
+            ta.append(cuda_ms(fa, reps)[0])
+            tb.append(cuda_ms(fb, reps)[0])
+            tb.append(cuda_ms(fb, reps)[0])
+            ta.append(cuda_ms(fa, reps)[0])
+        return float(np.median(ta)), float(np.median(tb))
+
+    # the bench configuration's shapes (phase 8)
+    cfg_b = dataclasses.replace(configs.TURB, newton_iters=1, fast_math=True,
+                                h_predict=True)
+    wd_b = win.build(st_main.pos, dom_main, spec_main)
+    fb = sorted_fields(st_main, wd_b)
+    spec_c = with_cwidth(spec_main, st_main.pos, dom_main)
+    wd_c = win.build(st_main.pos, dom_main, spec_c)
+    assert torch.equal(wd_c.g, wd_b.g) and int(wd_c.overflow) == 0
+    real_b = wd_b.is_real
+    ctimes = {}
+    for label, kcfg in (("A h_predict", cfg_b), ("A cold", A_MODES["cold"])):
+        args = [fb[k] for k in A_ARGS]
+
+        def launch(w, s_):
+            return lambda: wk.solve_h_density(w, s_, *args, kcfg,
+                                              vel_s=fb["vel_s"])
+        ims, cms = turns(launch(wd_b, spec_main), launch(wd_c, spec_c))
+        got = launch(wd_c, spec_c)()
+        pms, want = cuda_ms(lambda: wk.solve_h_density_plain(
+            wd_c, spec_c, *args, kcfg, vel_s=fb["vel_s"]), 2)
+        e = max(compare(a, b, real_b, 3e-5, f"{label} compact at N=1e6")
+                for a, b in zip(got, want))
+        ctimes[label] = (cms, pms, e, ims)
+    args = [fb[k] for k in C_ARGS]
+
+    def launch_c(w, s_, c_=cfg_b, fields=args, gr=None):
+        return lambda: wk.forces(w, s_, *fields, c_, grav=gr)
+    ims, cms = turns(launch_c(wd_b, spec_main), launch_c(wd_c, spec_c))
+    got = launch_c(wd_c, spec_c)()
+    pms, want = cuda_ms(lambda: wk.forces_plain(wd_c, spec_c, *args, cfg_b),
+                        2)
+    e = max(compare(a, b, real_b, 2e-3, f"C fast_math compact at N=1e6 {k}")
+            for k, (a, b) in enumerate(zip(got, want)))
+    ctimes["C"] = (cms, pms, e, ims)
+    pa_c, pc_c, _ = pair_counts(wd_c, spec_c, fb["pos_s"], fb["mass_s"],
+                                fb["h_s"])
+    assert (pa_c, pc_c) == (pa, pc), ((pa_c, pc_c), (pa, pc))
+    cst = c_stats(wd_c)
+    # the P3M path's shapes (phase 13), kernel C with gravity
+    grav_g = (rs_g, cfg_g.grav_eps)
+    spec_gc = with_cwidth(spec_g, st_g.pos, dom_g)
+    wd_gc = win.build(st_g.pos, dom_g, spec_gc)
+    assert torch.equal(wd_gc.g, wd_g.g) and int(wd_gc.overflow) == 0
+    gargs = [fg[k].contiguous() for k in C_ARGS]
+    ims, cms = turns(launch_c(wd_g, spec_g, cfg_g, gargs, grav_g),
+                     launch_c(wd_gc, spec_gc, cfg_g, gargs, grav_g))
+    got = launch_c(wd_gc, spec_gc, cfg_g, gargs, grav_g)()
+    pms, want = cuda_ms(lambda: wk.forces_plain(wd_gc, spec_gc, *gargs,
+                                                cfg_g, grav=grav_g), 1)
+    e = max(compare(a, b, wd_gc.is_real, 3e-5, f"C grav compact at N=1e6 {k}")
+            for k, (a, b) in enumerate(zip(got, want)))
+    ctimes["C grav"] = (cms, pms, e, ims)
+    cst_g = c_stats(wd_gc)
+    # 2D, the kh path's shapes (phase 18)
+    spec2c = with_cwidth(spec2, st_kh.pos, prob_kh.domain)
+    wd2c = win.build(st_kh.pos, prob_kh.domain, spec2c)
+    assert torch.equal(wd2c.g, wd2.g) and int(wd2c.overflow) == 0
+    args = [f2[k] for k in A_ARGS]
+    ims, cms = turns(lambda: wk.solve_h_density(wd2, spec2, *args, cfg2,
+                                                vel_s=f2["vel_s"]),
+                     lambda: wk.solve_h_density(wd2c, spec2c, *args, cfg2,
+                                                vel_s=f2["vel_s"]), reps=5)
+    got = wk.solve_h_density(wd2c, spec2c, *args, cfg2, vel_s=f2["vel_s"])
+    pms, want = cuda_ms(lambda: wk.solve_h_density_plain(
+        wd2c, spec2c, *args, cfg2, vel_s=f2["vel_s"]), 1)
+    e = max(compare(a, b, real2, 3e-5, f"A2 compact at kh N {k}")
+            for k, (a, b) in enumerate(zip(got, want)))
+    ctimes["A2"] = (cms, pms, e, ims)
+    args = [f2[k] for k in C_ARGS]
+    ims, cms = turns(lambda: wk.forces(wd2, spec2, *args, cfg2),
+                     lambda: wk.forces(wd2c, spec2c, *args, cfg2))
+    got = wk.forces(wd2c, spec2c, *args, cfg2)
+    pms, want = cuda_ms(lambda: wk.forces_plain(wd2c, spec2c, *args, cfg2), 1)
+    e = max(compare(a, b, real2, 3e-5, f"C2 compact at kh N {k}")
+            for k, (a, b) in enumerate(zip(got, want)))
+    ctimes["C2"] = (cms, pms, e, ims)
+    cst2 = c_stats(wd2c)
+    del got, want
+    for label, (cms, pms, e, ims) in ctimes.items():
+        log(f"[21 times] {label:11s} compact {cms:.3f} ms  in place "
+            f"{ims:.3f} ms ({ims / cms:.2f}x)  plain {pms:.1f} ms  max abs "
+            f"err {e:.3g}")
+    log(f"[21 times] compacted candidates per group (mean, p99, max) and per"
+        f" real row: bench {cst}, P3M {cst_g}, kh {cst2}; in-place walked "
+        f"per real row: bench {walked:.1f}, P3M {walked_g:.1f}, kh "
+        f"{walked2:.1f}; pairs inside the support per real row unchanged "
+        f"(A {pa}, C {pc} in all)")
+
+    # one adaptive step with and without the gate's host read: the same
+    # 16-step run (bench configuration, adaptive=8) with the gate read, and
+    # replaying the decisions it took without reading (nor computing) it
+    gate = wengine.drift_gate
+    decisions = []
+
+    def reading(*a):
+        decisions.append(gate(*a))
+        return decisions[-1]
+
+    def adaptive_run(st0):
+        torch.cuda.synchronize()
+        t0_ = time.perf_counter()
+        out = wengine.simulate(st0, cfg_b, dom_main, spec_main, 16,
+                               adaptive_rebuild=8)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0_) / 16 * 1e3, out[4]
+
+    st_w = wengine.simulate(st_main, cfg_b, dom_main, spec_main, 16)[0]
+    with_read, without, builds = [], [], None
+    try:
+        for r in range(4):
+            if r % 2 == 0:
+                decisions.clear()
+                wengine.drift_gate = reading
+                ms, builds = adaptive_run(st_w)
+                with_read.append(ms)
+            else:
+                replay = iter(list(decisions))
+                wengine.drift_gate = lambda *a: next(replay)
+                without.append(adaptive_run(st_w)[0])
+    finally:
+        wengine.drift_gate = gate
+    gate_ms = (float(np.median(with_read)), float(np.median(without)))
+    log(f"[21 times] adaptive=8 step, bench configuration: "
+        f"{gate_ms[0]:.3f} ms with the gate's host read, {gate_ms[1]:.3f} "
+        f"ms replaying its {len(decisions)} decisions without it "
+        f"({gate_ms[0] - gate_ms[1]:.3f} ms a step); {builds} builds in 16 "
+        f"steps")
+
     def total(kernel):
         return sum(p_[kernel] for p_ in paths.values())
 
@@ -809,6 +1080,38 @@ def main():
                   "launches": total("forces_2d"), "max_abs_err": c2_e,
                   "ms": c2_ms, "plain_ms": c2_pms, **bound_keys("C2"),
                   "n": st_kh.n}},
+        {"name": "solve_h_density_compact", "route": "cuda", "source": src,
+         "replaces": "sphax/physics/pallas_kernels.py:195",
+         "launches": total("solve_h_density_compact"),
+         "max_abs_err": ctimes["A h_predict"][2],
+         "ms": ctimes["A h_predict"][0], "plain_ms": ctimes["A h_predict"][1],
+         **bound_keys("A"), "in_place_ms": ctimes["A h_predict"][3],
+         "ms_cold": ctimes["A cold"][0],
+         "plain_ms_cold": ctimes["A cold"][1],
+         "in_place_ms_cold": ctimes["A cold"][3],
+         "bound_ms_cold": bounds["A cold"][0],
+         "c_n_mean_p99_max_per_row": cst,
+         "dim2": {"launches": total("solve_h_density_compact_2d"),
+                  "max_abs_err": ctimes["A2"][2], "ms": ctimes["A2"][0],
+                  "plain_ms": ctimes["A2"][1],
+                  "in_place_ms": ctimes["A2"][3], **bound_keys("A2"),
+                  "c_n_mean_p99_max_per_row": cst2}},
+        {"name": "forces_compact", "route": "cuda", "source": src,
+         "replaces": "sphax/physics/pallas_kernels.py:619",
+         "launches": total("forces_compact") + total("forces_grav_compact"),
+         "launches_grav": total("forces_grav_compact"),
+         "max_abs_err": ctimes["C"][2], "ms": ctimes["C"][0],
+         "plain_ms": ctimes["C"][1], **bound_keys("C"),
+         "in_place_ms": ctimes["C"][3],
+         "grav": {"ms": ctimes["C grav"][0], "plain_ms": ctimes["C grav"][1],
+                  "max_abs_err": ctimes["C grav"][2],
+                  "in_place_ms": ctimes["C grav"][3],
+                  **bound_keys("C grav"),
+                  "c_n_mean_p99_max_per_row": cst_g},
+         "dim2": {"launches": total("forces_compact_2d"),
+                  "max_abs_err": ctimes["C2"][2], "ms": ctimes["C2"][0],
+                  "plain_ms": ctimes["C2"][1],
+                  "in_place_ms": ctimes["C2"][3], **bound_keys("C2")}},
         {"name": "gravity", "route": "cuda",
          "source": "sphax_torch/csrc/gravity_kernel.cu",
          "replaces": "sphax/physics/pallas_kernels.py:808",
@@ -827,6 +1130,10 @@ def main():
                "candidate_rows_computed": computed2,
                "gate_rate_over_theory": rate / gamma_th,
                "gate_steps": n16},
+        "bench_modes": {k: {"particle_steps_per_s": v["value"],
+                            "cwidth": v["cwidth"], "rebuilds": v["rebuilds"]}
+                        for k, v in bench_modes.items()},
+        "adaptive_step_ms_with_without_gate_read": gate_ms,
         "card": card}
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

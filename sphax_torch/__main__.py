@@ -13,11 +13,16 @@ Examples:
 ``device=cuda`` (the default) runs on the card and raises where none is
 visible; ``device=cpu`` runs on the CPU. Window-engine problems run through
 ``wengine.simulate`` (a structure overflow aborts the run), the others
-through ``run.simulate``. Differences from the JAX CLI:
+through ``run.simulate``. ``adaptive=K`` rebuilds the window structure on
+the drift gate, with at most K steps of staleness, instead of every 2
+steps; each metrics record then carries ``rebuilds``, the builds of its
+chunk. The dense engine ignores it, as the JAX CLI does. Differences from
+the JAX CLI:
 
-- every chunk is a whole number of rebuild periods (2 steps), and the last
-  chunk is clamped to ``max_steps``: ``max_steps=K`` runs K steps, K + 1
-  for an odd K (the JAX CLI runs whole chunks past it);
+- every fixed-cadence chunk is a whole number of rebuild periods (2
+  steps), an adaptive chunk any number, and the last chunk is clamped to
+  ``max_steps``: ``max_steps=K`` runs K steps, K + 1 for an odd K at the
+  fixed cadence (the JAX CLI runs whole chunks past it);
 - bool overrides parse 0/1, true/false, yes/no, on/off, and raise on
   anything else (the JAX CLI reads ``h_predict=false`` as True);
 - ``profile=1`` traces the first chunk of the loop with ``torch.profiler``
@@ -26,9 +31,8 @@ through ``run.simulate``. Differences from the JAX CLI:
   back from the JAX package's sorted mesh, which the port does not have
   (``ROADMAP.md`` queue 1, item 11);
 - not ported yet, and refused: ``shards>1`` (the multi-device layer,
-  ROADMAP slice 5), ``rungs>1`` (block timesteps, slice 3), ``adaptive>0``
-  (drift-gated rebuilds, slice 2 item 9), ``plot=1`` (``diag/plots.py``
-  needs matplotlib, which the card's machine lacks).
+  ROADMAP slice 5), ``rungs>1`` (block timesteps, slice 3), ``plot=1``
+  (``diag/plots.py`` needs matplotlib, which the card's machine lacks).
 """
 from __future__ import annotations
 
@@ -72,9 +76,6 @@ def _refuse_unported(kv):
     if int(kv.pop("rungs", 1)) > 1:
         raise SystemExit("rungs>1 (block timesteps) is not ported yet: "
                          "ROADMAP.md slice 3")
-    if int(kv.pop("adaptive", 0)) > 0:
-        raise SystemExit("adaptive>0 (drift-gated rebuilds) is not ported "
-                         "yet: ROADMAP.md slice 2, item 9")
     if int(kv.pop("plot", 0)):
         raise SystemExit("plot=1 is not ported: diag/plots.py needs "
                          "matplotlib (ROADMAP.md queue 1)")
@@ -97,6 +98,9 @@ def main(argv=None):
     profile = int(kv.pop("profile", 0))
     # max_steps=K: stop after K steps even if t_end is not reached (0 = off)
     max_steps = int(kv.pop("max_steps", 0))
+    # adaptive=K: drift-gated window rebuilds, at most K steps of staleness
+    # (0: every 2 steps)
+    adaptive = int(kv.pop("adaptive", 0))
     device = torch.device(str(kv.pop("device", "cuda")))
     _refuse_unported(kv)
     if chunk < 1:
@@ -133,18 +137,23 @@ def main(argv=None):
     print(f"[{name}] N={state.n} dim={state.dim} t_end={t_end} "
           f"device={card} engine={prob.engine_name}")
 
+    gated = adaptive > 0 and prob.wspec is not None
+
     def run_chunk(state, drive, nsteps):
+        """(state, drive, dts, overflow, builds of the chunk)."""
         if driven:
             prob.noise.reseed(prob.seed, step)
         if prob.wspec is not None:
-            return wengine.simulate(state, prob.cfg, prob.domain, prob.wspec,
-                                    nsteps, drive=drive,
-                                    drive_spec=prob.drive_spec,
-                                    noise=prob.noise)
+            out = wengine.simulate(state, prob.cfg, prob.domain, prob.wspec,
+                                   nsteps, drive=drive,
+                                   drive_spec=prob.drive_spec,
+                                   noise=prob.noise,
+                                   adaptive_rebuild=adaptive)
+            return out if gated else (*out, None)
         st, drive, dts = simulate(state, prob.cfg, prob.domain, prob.engine,
                                   nsteps, drive, prob.drive_spec,
                                   noise=prob.noise)
-        return st, drive, dts, 0
+        return st, drive, dts, 0, None
 
     def save_checkpoint():
         checkpoint.save(os.path.join(out, "checkpoint.npz"), state, t, step,
@@ -153,11 +162,12 @@ def main(argv=None):
     nchunks = 0
     while t < t_end and not (max_steps and step >= max_steps):
         nsteps = min(chunk, max_steps - step) if max_steps else chunk
-        nsteps += nsteps % 2                 # whole rebuild periods
+        if not gated:
+            nsteps += nsteps % 2             # whole rebuild periods
         trace = (metrics.profile_trace(os.path.join(out, "trace"))
                  if profile and nchunks == 0 else contextlib.nullcontext())
         with trace:
-            state, drive, dts, ovf = run_chunk(state, drive, nsteps)
+            state, drive, dts, ovf, builds = run_chunk(state, drive, nsteps)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
         t += float(torch.sum(dts))
@@ -175,9 +185,13 @@ def main(argv=None):
                 # structural h-cap saturation: silent physics change if > 0
                 extra["h_capped"] = int(wengine.capped_count(state,
                                                              prob.wspec))
+            if gated:
+                extra["rebuilds"] = builds
             rec = log.log(state, prob.cfg, t, step, **extra)
             capmsg = (f" h_capped={extra['h_capped']}"
                       if extra.get("h_capped") else "")
+            if gated:
+                capmsg += f" rebuilds={builds}"
             print(f"  t={t:.4f} step={step} "
                   f"pss={rec['particle_steps_per_sec']:.3e} "
                   f"E={rec['e_total']:.5f} mach={rec['mach_rms']:.2f}"

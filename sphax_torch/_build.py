@@ -46,9 +46,15 @@ _ARGTYPES = {
     # src [4, n], n, eps^2, G, acc, stream
     "sphax_gravity": [_P, _I, _D, _D, _P, _P],
 }
+# the compact walks take c_lo, c_len in place of w_lo, w_nact, and cwidth
+# right after group (before the first double)
+_ARGTYPES.update({f"{k}_compact": v[:v.index(_D)] + [_I] + v[v.index(_D):]
+                  for k, v in tuple(_ARGTYPES.items())
+                  if k != "sphax_gravity"})
 # the 2D instantiations of kernels A and C take the same arguments
-_ARGTYPES.update({f"{k}_2d": _ARGTYPES[k]
-                  for k in ("sphax_solve_h_density", "sphax_forces")})
+_ARGTYPES.update({f"{k}{c}_2d": _ARGTYPES[f"{k}{c}"]
+                  for k in ("sphax_solve_h_density", "sphax_forces")
+                  for c in ("", "_compact")})
 
 
 def _nvcc() -> str:

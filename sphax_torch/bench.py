@@ -11,9 +11,11 @@ median of 3 timed runs after one warm-up run. Prints ONE JSON line.
 
 The same environment knobs as ``bench.py`` select variants (BENCH_NSIDE,
 BENCH_STEPS, BENCH_REBUILD, BENCH_CUTOFF_SCALE, BENCH_HMARGIN,
-BENCH_FAST_SUB, BENCH_RGROUPS, BENCH_HPRED); candidate compaction and
-drift-gated rebuilds are not ported yet. ``vs_baseline`` is null: the port
-has no baseline of its own yet.
+BENCH_FAST_SUB, BENCH_RGROUPS, BENCH_HPRED), and its two round-4 modes:
+BENCH_COMPACT=1 plans with ``window.plan_compact`` and runs kernels A and C
+as compact walks, BENCH_ADAPTIVE=K rebuilds on the drift gate with at most
+K steps of staleness (BENCH_REBUILD is then ignored); the two combine.
+``vs_baseline`` is null: the port has no baseline of its own yet.
 """
 from __future__ import annotations
 
@@ -43,10 +45,10 @@ def card() -> str:
 
 
 def setup(n_side, cfg, device, dtype=torch.float32, vel_scale=0.3, seed=0,
-          h_margin=1.05, **knobs):
+          h_margin=1.05, compact=False, **knobs):
     """Turbulence ICs on ``device`` with a seeded normal velocity field, the
-    measured window plan and the cold derived pass. Returns (state, domain,
-    spec)."""
+    measured window plan (``plan_compact`` when ``compact``) and the cold
+    derived pass. Returns (state, domain, spec)."""
     ic = turbulence.build(n_side=n_side)
     st = make_state(*(torch.as_tensor(ic[k], dtype=dtype, device=device)
                       for k in ("pos", "vel", "mass", "u", "h")))
@@ -55,8 +57,9 @@ def setup(n_side, cfg, device, dtype=torch.float32, vel_scale=0.3, seed=0,
         st.vel.shape, generator=gen, dtype=dtype, device=device))
     dom = box(torch.zeros(3, dtype=dtype, device=device),
               torch.as_tensor(ic["box"], dtype=dtype, device=device))
-    spec = win.plan_measured(st.pos, dom, h_max=float(st.h.max()) * h_margin,
-                             dim=3, **knobs)
+    plan = win.plan_compact if compact else win.plan_measured
+    spec = plan(st.pos, dom, h_max=float(st.h.max()) * h_margin, dim=3,
+                **knobs)
     return wengine.update_derived(st, cfg, dom, spec), dom, spec
 
 
@@ -68,28 +71,35 @@ def h_residual(st, cfg) -> float:
 
 def run(n_side=100, steps=16, rebuild_every=2, cutoff_scale=1.05,
         h_margin=1.05, fast_sub=3, rgroups=2, h_predict=True, reps=3,
-        device="cuda"):
+        device="cuda", compact=False, adaptive=0):
     """Set up, warm up, time ``reps`` runs of ``steps`` steps; check the
-    result as ``bench.py`` does. Returns (result dict, final state, domain,
-    spec)."""
+    result as ``bench.py`` does. ``compact`` walks the compacted candidate
+    lists, ``adaptive=K`` rebuilds on the drift gate. Returns (result dict,
+    final state, domain, spec)."""
     cfg = dataclasses.replace(configs.TURB, newton_iters=1, fast_math=True,
                               h_predict=h_predict)
     st, dom, spec = setup(n_side, cfg, device, h_margin=h_margin,
-                          cutoff_scale=cutoff_scale, ghost_safety=1.4,
-                          fast_sub=fast_sub, rgroups=rgroups)
+                          compact=compact, cutoff_scale=cutoff_scale,
+                          ghost_safety=1.4, fast_sub=fast_sub,
+                          rgroups=rgroups)
+    tag = "_compact" if compact else ""
+    rebuilds = []
 
     def one(s):
         before = dict(wk.LAUNCHES)
         out = wengine.simulate(s, cfg, dom, spec, steps,
-                               rebuild_every=rebuild_every)
+                               rebuild_every=rebuild_every,
+                               adaptive_rebuild=adaptive)
+        if adaptive:
+            rebuilds.append(out[4])
         if s.pos.is_cuda:
-            # one launch of kernels A and C per step, no other kernel, and
-            # no plain version
-            want = {"solve_h_density": steps, "forces": steps}
+            # one launch of kernels A and C per step, in the walk the spec
+            # asks for, no other kernel, and no plain version
+            want = {f"solve_h_density{tag}": steps, f"forces{tag}": steps}
             for k in before:
                 assert wk.LAUNCHES[k] - before[k] == want.get(k, 0), (
                     k, wk.LAUNCHES)
-        return out
+        return out[:4]
 
     st2, _, dts, ovf = one(st)              # warm-up
     walls = []
@@ -119,6 +129,10 @@ def run(n_side=100, steps=16, rebuild_every=2, cutoff_scale=1.05,
         "wall_s": wall,
         "engine": "torch-cuda-window",
         "wseg": spec.wseg,
+        "cwidth": spec.cwidth,
+        "adaptive": adaptive,
+        # builds of each timed run, its first build included
+        "rebuilds": rebuilds[1:] if adaptive else None,
         "h_residual": res,
         "device": (torch.cuda.get_device_name(st2.pos.device)
                    if st2.pos.is_cuda else str(st2.pos.device)),
@@ -139,7 +153,9 @@ def main():
                     h_margin=float(env("BENCH_HMARGIN", 1.05)),
                     fast_sub=int(env("BENCH_FAST_SUB", 3)),
                     rgroups=int(env("BENCH_RGROUPS", 2)),
-                    h_predict=bool(int(env("BENCH_HPRED", 1))))
+                    h_predict=bool(int(env("BENCH_HPRED", 1))),
+                    compact=bool(int(env("BENCH_COMPACT", 0))),
+                    adaptive=int(env("BENCH_ADAPTIVE", 0)))
     out["card"] = card()
     print(json.dumps(out))
 

@@ -7,7 +7,9 @@
 // Both are templates on the dimension DIM, instantiated for DIM = 3 and
 // DIM = 2 (the Pallas kernels' dim-generic code, :337-362, :480-489,
 // :523-531, :583-618). A row-group has NSEG = 3^(DIM-1) pencil segments.
-// The GRAV mode is 3D only, as the P3M mesh is.
+// The GRAV mode is 3D only, as the P3M mesh is. Each kernel also has a
+// compact walk (`*_compact_kernel`, the Pallas kernels' spec.cwidth > 0
+// mode, :195-236), described below.
 //
 // Contract (sphax_torch/physics/window_kernels.py): one thread owns one
 // sorted row i; a block covers one tile of `tile` rows, i.e. tile/group
@@ -26,9 +28,8 @@
 // (fast_sub=3, rgroups=2), against ~74 neighbours inside 2h (eta = 1.3).
 // The per-candidate distance test and the per-pair math dominate; the
 // operands arrive as warp-uniform broadcasts that hit L1/L2. What the
-// design does about it: nothing yet.
-// This is the correctness-first version; trimming the candidate set (finer
-// groups, compaction) and staging windows in shared memory are later work.
+// design does about it: the compact mode below walks about half the rows.
+// Finer groups and staging the candidates in shared memory are later work.
 //
 // In 2D (the Kelvin-Helmholtz problem) a row has about 21 neighbours inside
 // 2h (pi (2 eta)^2 with eta = 1.3), and its group walks 3 segments, each
@@ -37,6 +38,20 @@
 // at N = 1,572,864 (kh n=1024, read off w_nact by chip_smoke.py), so the
 // walk is bound, as in 3D, by the distance test of candidates that lie
 // outside the support.
+//
+// The compact mode (spec.cwidth > 0; the Pallas kernels' `_compact_view`,
+// pallas_kernels.py:195-236, entered at :346-351 and :619-626, dedup
+// skipped at :446 and :691) walks each group's compacted candidate list
+// instead: the disjoint runs [c_lo[g,s], c_lo[g,s] + c_len[g,s]) in
+// segment order, cut at cwidth rows in all, as window.compact_index cuts
+// its table. The runs are walked in place in the same SoA [F, Ns] arrays,
+// unaligned, with no dedup compares and no gathered buffer (the Pallas
+// path gathers a [F, n_groups * cwidth] copy, 1.9 GB a call at N = 1e6).
+// Same pairs as the in-place walk, so the same bound; at the bench
+// configuration a group walks about 1,064 rows per row instead of 2,217.
+// The in-place and compact kernels are separate __global__ templates over
+// one __forceinline__ row body, so the in-place kernels keep their names
+// and their code.
 //
 // Kernel C's GRAV mode adds the screened P3M short range
 // G m_j S(r) (r^2 + eps^2)^-3/2 dx for every candidate with 0 < r^2 <=
@@ -53,6 +68,7 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
 #include <utility>
 
 namespace {
@@ -107,6 +123,38 @@ __device__ __forceinline__ int load_windows(const int* __restrict__ w_lo,
   return total;
 }
 
+// The group's compacted runs, cut at cwidth rows in all; returns the
+// total row count.
+template <int NSEG>
+__device__ __forceinline__ int load_runs(const int* __restrict__ c_lo,
+                                         const int* __restrict__ c_len,
+                                         int g, int cwidth, int (&lo)[NSEG],
+                                         int (&hi)[NSEG]) {
+  int total = 0;
+#pragma unroll
+  for (int s = 0; s < NSEG; ++s) {
+    const int len = min(c_len[g * NSEG + s], cwidth - total);
+    lo[s] = c_lo[g * NSEG + s];
+    hi[s] = lo[s] + len;
+    total += len;
+  }
+  return total;
+}
+
+// The group's candidate ranges of either walk; returns the count that
+// says whether the group has any candidate.
+template <bool COMPACT, int NSEG>
+__device__ __forceinline__ int load_ranges(const int* __restrict__ tab_lo,
+                                           const int* __restrict__ tab_n,
+                                           int g, int cwidth,
+                                           int (&lo)[NSEG],
+                                           int (&hi)[NSEG]) {
+  if constexpr (COMPACT)
+    return load_runs(tab_lo, tab_n, g, cwidth, lo, hi);
+  else
+    return load_windows(tab_lo, tab_n, g, lo, hi);
+}
+
 // True when row k lies in a segment before s (already counted).
 template <int S, int NSEG>
 __device__ __forceinline__ bool seen_before(int k, const int (&lo)[NSEG],
@@ -152,8 +200,10 @@ struct DensSums {
   T curl[DIM == 3 ? 3 : 1];  // 3D: the curl vector; 2D: its one component
 };
 
-// SoA rows of the density window: DIM positions, m (, DIM velocities)
-template <typename T, int DIM, bool BALS, int S>
+// SoA rows of the density window: DIM positions, m (, DIM velocities).
+// DEDUP skips rows of earlier segments (the in-place windows overlap; the
+// compact runs do not).
+template <typename T, int DIM, bool BALS, bool DEDUP, int S>
 __device__ __forceinline__ void density_segment(
     const T* __restrict__ win, int Ns, const int (&lo)[nseg(DIM)],
     const int (&hi)[nseg(DIM)], const T (&xi)[DIM], const T (&vi)[DIM],
@@ -162,7 +212,9 @@ __device__ __forceinline__ void density_segment(
   each_axis(Axes<DIM>{}, [&](int d) { X[d] = win + d * (size_t)Ns; });
   const T* M = win + DIM * (size_t)Ns;
   for (int k = lo[S]; k < hi[S]; ++k) {
-    if (seen_before<S>(k, lo, hi)) continue;
+    if constexpr (DEDUP) {
+      if (seen_before<S>(k, lo, hi)) continue;
+    }
     T dx[DIM];
     each_axis(Axes<DIM>{}, [&](int d) { dx[d] = xi[d] - X[d][k]; });
     const T r2 = dot(dx, dx);
@@ -203,17 +255,17 @@ __device__ __forceinline__ void density_segment(
 }
 
 // every segment in order, unrolled at compile time
-template <typename T, int DIM, bool BALS, int... S>
+template <typename T, int DIM, bool BALS, bool DEDUP, int... S>
 __device__ __forceinline__ void density_segments(
     std::integer_sequence<int, S...>, const T* __restrict__ win, int Ns,
     const int (&lo)[nseg(DIM)], const int (&hi)[nseg(DIM)],
     const T (&xi)[DIM], const T (&vi)[DIM], T invh, T sigd,
     DensSums<T, DIM>& acc) {
-  (density_segment<T, DIM, BALS, S>(win, Ns, lo, hi, xi, vi, invh, sigd,
-                                    acc), ...);
+  (density_segment<T, DIM, BALS, DEDUP, S>(win, Ns, lo, hi, xi, vi, invh,
+                                           sigd, acc), ...);
 }
 
-template <typename T, int DIM, bool BALS>
+template <typename T, int DIM, bool BALS, bool DEDUP>
 __device__ __forceinline__ DensSums<T, DIM> density_walk(
     const T* __restrict__ win, int Ns, const int (&lo)[nseg(DIM)],
     const int (&hi)[nseg(DIM)], const T (&xi)[DIM], const T (&vi)[DIM], T h,
@@ -222,8 +274,8 @@ __device__ __forceinline__ DensSums<T, DIM> density_walk(
   T sigd = sig;  // sig / h^DIM
   each_axis(Axes<DIM>{}, [&](int) { sigd *= invh; });
   DensSums<T, DIM> a{};
-  density_segments<T, DIM, BALS>(Axes<nseg(DIM)>{}, win, Ns, lo, hi, xi, vi,
-                                 invh, sigd, a);
+  density_segments<T, DIM, BALS, DEDUP>(Axes<nseg(DIM)>{}, win, Ns, lo, hi,
+                                        xi, vi, invh, sigd, a);
   return a;
 }
 
@@ -245,18 +297,24 @@ __device__ __forceinline__ T newton_update(T h, T rho, T drdh, T m_safe,
   return hn < hcap ? hn : hcap;
 }
 
-template <typename T, int DIM, bool BALS>
-__global__ void solve_h_density_kernel(
+// One sorted row of kernel A. The tables are (w_lo, w_nact) in the
+// in-place walk and (c_lo, c_len) in the compact one; cwidth is read only
+// by the compact walk.
+template <typename T, int DIM, bool BALS, bool COMPACT>
+__device__ __forceinline__ void solve_h_density_row(
     const T* __restrict__ win, const T* __restrict__ h0,
-    const int* __restrict__ w_lo, const int* __restrict__ w_nact, int Ns,
-    int group, T sig, T eta_d, T hcap, int iters, T* __restrict__ h_out,
-    T* __restrict__ rho_out, T* __restrict__ drdh_out,
-    T* __restrict__ div_out, T* __restrict__ curl_out) {
+    const int* __restrict__ tab_lo, const int* __restrict__ tab_n, int Ns,
+    int group, int cwidth, T sig, T eta_d, T hcap, int iters,
+    T* __restrict__ h_out, T* __restrict__ rho_out,
+    T* __restrict__ drdh_out, T* __restrict__ div_out,
+    T* __restrict__ curl_out) {
   constexpr int NSEG = nseg(DIM);
+  constexpr bool DEDUP = !COMPACT;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= Ns) return;
   int lo[NSEG], hi[NSEG];
-  const int active = load_windows(w_lo, w_nact, i / group, lo, hi);
+  const int active =
+      load_ranges<COMPACT>(tab_lo, tab_n, i / group, cwidth, lo, hi);
   T h = h0[i];
   if (active == 0) {
     h_out[i] = h;
@@ -277,11 +335,11 @@ __global__ void solve_h_density_kernel(
   });
   for (int it = 0; it < iters; ++it) {
     const DensSums<T, DIM> a =
-        density_walk<T, DIM, false>(win, Ns, lo, hi, xi, vi, h, sig);
+        density_walk<T, DIM, false, DEDUP>(win, Ns, lo, hi, xi, vi, h, sig);
     h = newton_update<T, DIM>(h, a.rho, a.drdh, m_safe, eta_d, hcap);
   }
   const DensSums<T, DIM> a =
-      density_walk<T, DIM, BALS>(win, Ns, lo, hi, xi, vi, h, sig);
+      density_walk<T, DIM, BALS, DEDUP>(win, Ns, lo, hi, xi, vi, h, sig);
   h_out[i] = h;
   rho_out[i] = a.rho;
   drdh_out[i] = a.drdh;
@@ -294,6 +352,33 @@ __global__ void solve_h_density_kernel(
     else
       curl_out[i] = fabs(a.curl[0]);
   }
+}
+
+template <typename T, int DIM, bool BALS>
+__global__ void solve_h_density_kernel(
+    const T* __restrict__ win, const T* __restrict__ h0,
+    const int* __restrict__ w_lo, const int* __restrict__ w_nact, int Ns,
+    int group, T sig, T eta_d, T hcap, int iters, T* __restrict__ h_out,
+    T* __restrict__ rho_out, T* __restrict__ drdh_out,
+    T* __restrict__ div_out, T* __restrict__ curl_out) {
+  solve_h_density_row<T, DIM, BALS, false>(win, h0, w_lo, w_nact, Ns, group,
+                                           0, sig, eta_d, hcap, iters, h_out,
+                                           rho_out, drdh_out, div_out,
+                                           curl_out);
+}
+
+template <typename T, int DIM, bool BALS>
+__global__ void solve_h_density_compact_kernel(
+    const T* __restrict__ win, const T* __restrict__ h0,
+    const int* __restrict__ c_lo, const int* __restrict__ c_len, int Ns,
+    int group, int cwidth, T sig, T eta_d, T hcap, int iters,
+    T* __restrict__ h_out, T* __restrict__ rho_out,
+    T* __restrict__ drdh_out, T* __restrict__ div_out,
+    T* __restrict__ curl_out) {
+  solve_h_density_row<T, DIM, BALS, true>(win, h0, c_lo, c_len, Ns, group,
+                                          cwidth, sig, eta_d, hcap, iters,
+                                          h_out, rho_out, drdh_out, div_out,
+                                          curl_out);
 }
 
 // ---------------------------------------------------------------------------
@@ -338,7 +423,8 @@ __device__ __forceinline__ T grav_coef(T r2, T r, const Grav<T>& g) {
   return g.G * screen * (tg * tg * tg);
 }
 
-template <typename T, int DIM, bool BF, bool FAST, bool GRAV, int S>
+template <typename T, int DIM, bool BF, bool FAST, bool GRAV, bool DEDUP,
+          int S>
 __device__ __forceinline__ void force_segment(
     const T* __restrict__ win, int Ns, const int (&lo)[nseg(DIM)],
     const int (&hi)[nseg(DIM)], const Own<T, DIM>& o, T alpha, T beta,
@@ -346,7 +432,9 @@ __device__ __forceinline__ void force_segment(
   using R = FRow<DIM>;
   auto F = [&](int f, int k) { return win[(size_t)f * Ns + k]; };
   for (int k = lo[S]; k < hi[S]; ++k) {
-    if (seen_before<S>(k, lo, hi)) continue;
+    if constexpr (DEDUP) {
+      if (seen_before<S>(k, lo, hi)) continue;
+    }
     T dx[DIM];
     each_axis(Axes<DIM>{}, [&](int d) { dx[d] = o.x[d] - F(R::X + d, k); });
     const T r2 = dot(dx, dx);
@@ -395,31 +483,33 @@ __device__ __forceinline__ void force_segment(
   }
 }
 
-template <typename T, int DIM, bool BF, bool FAST, bool GRAV, int... S>
+template <typename T, int DIM, bool BF, bool FAST, bool GRAV, bool DEDUP,
+          int... S>
 __device__ __forceinline__ void force_segments(
     std::integer_sequence<int, S...>, const T* __restrict__ win, int Ns,
     const int (&lo)[nseg(DIM)], const int (&hi)[nseg(DIM)],
     const Own<T, DIM>& o, T alpha, T beta, T epsv, const Grav<T>& g,
     ForceSums<T, DIM>& acc) {
-  (force_segment<T, DIM, BF, FAST, GRAV, S>(win, Ns, lo, hi, o, alpha, beta,
-                                            epsv, g, acc), ...);
+  (force_segment<T, DIM, BF, FAST, GRAV, DEDUP, S>(win, Ns, lo, hi, o, alpha,
+                                                   beta, epsv, g, acc),
+   ...);
 }
 
-template <typename T, int DIM, bool BF, bool FAST, bool GRAV>
-__global__ void forces_kernel(const T* __restrict__ win,
-                              const int* __restrict__ w_lo,
-                              const int* __restrict__ w_nact, int Ns,
-                              int group, T alpha, T beta, T epsv,
-                              const T* __restrict__ gsc, T G, T rcut2,
-                              T* __restrict__ acc_out,
-                              T* __restrict__ du_out) {
+// One sorted row of kernel C; the tables as in solve_h_density_row.
+template <typename T, int DIM, bool BF, bool FAST, bool GRAV, bool COMPACT>
+__device__ __forceinline__ void forces_row(
+    const T* __restrict__ win, const int* __restrict__ tab_lo,
+    const int* __restrict__ tab_n, int Ns, int group, int cwidth, T alpha,
+    T beta, T epsv, const T* __restrict__ gsc, T G, T rcut2,
+    T* __restrict__ acc_out, T* __restrict__ du_out) {
   static_assert(DIM == 3 || !GRAV, "the GRAV mode is 3D only");
   using R = FRow<DIM>;
   constexpr int NSEG = nseg(DIM);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= Ns) return;
   int lo[NSEG], hi[NSEG];
-  const int active = load_windows(w_lo, w_nact, i / group, lo, hi);
+  const int active =
+      load_ranges<COMPACT>(tab_lo, tab_n, i / group, cwidth, lo, hi);
   ForceSums<T, DIM> a{};
   if (active > 0) {
     auto F = [&](int f) { return win[(size_t)f * Ns + i]; };
@@ -440,63 +530,107 @@ __global__ void forces_kernel(const T* __restrict__ win,
       g.sp = gsc[1];
       g.eps2 = gsc[2];
     }
-    force_segments<T, DIM, BF, FAST, GRAV>(Axes<NSEG>{}, win, Ns, lo, hi, o,
-                                           alpha, beta, epsv, g, a);
+    force_segments<T, DIM, BF, FAST, GRAV, !COMPACT>(
+        Axes<NSEG>{}, win, Ns, lo, hi, o, alpha, beta, epsv, g, a);
   }
   each_axis(Axes<DIM>{},
             [&](int d) { acc_out[DIM * (size_t)i + d] = a.a[d]; });
   du_out[i] = a.du;
 }
 
-template <typename T, int DIM>
+template <typename T, int DIM, bool BF, bool FAST, bool GRAV>
+__global__ void forces_kernel(const T* __restrict__ win,
+                              const int* __restrict__ w_lo,
+                              const int* __restrict__ w_nact, int Ns,
+                              int group, T alpha, T beta, T epsv,
+                              const T* __restrict__ gsc, T G, T rcut2,
+                              T* __restrict__ acc_out,
+                              T* __restrict__ du_out) {
+  forces_row<T, DIM, BF, FAST, GRAV, false>(win, w_lo, w_nact, Ns, group, 0,
+                                            alpha, beta, epsv, gsc, G, rcut2,
+                                            acc_out, du_out);
+}
+
+template <typename T, int DIM, bool BF, bool FAST, bool GRAV>
+__global__ void forces_compact_kernel(
+    const T* __restrict__ win, const int* __restrict__ c_lo,
+    const int* __restrict__ c_len, int Ns, int group, int cwidth, T alpha,
+    T beta, T epsv, const T* __restrict__ gsc, T G, T rcut2,
+    T* __restrict__ acc_out, T* __restrict__ du_out) {
+  forces_row<T, DIM, BF, FAST, GRAV, true>(win, c_lo, c_len, Ns, group,
+                                           cwidth, alpha, beta, epsv, gsc, G,
+                                           rcut2, acc_out, du_out);
+}
+
+// The compact kernels take cwidth after group; `cw` is empty for the
+// in-place ones.
+template <typename T, int DIM, bool COMPACT>
 cudaError_t launch_solve_h_density(const void* win, const void* h0,
-                                   const void* w_lo, const void* w_nact,
-                                   int Ns, int tile, int group, double sig,
-                                   double eta_d, double hcap, int iters,
-                                   int bals, void* h, void* rho, void* drdh,
-                                   void* div, void* curl, void* stream) {
+                                   const void* tab_lo, const void* tab_n,
+                                   int Ns, int tile, int group, int cwidth,
+                                   double sig, double eta_d, double hcap,
+                                   int iters, int bals, void* h, void* rho,
+                                   void* drdh, void* div, void* curl,
+                                   void* stream) {
   const dim3 grid(Ns / tile), block(tile);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto args = [&](auto kernel) {
+  auto run = [&](auto kernel, auto... cw) {
     kernel<<<grid, block, 0, st>>>(
         static_cast<const T*>(win), static_cast<const T*>(h0),
-        static_cast<const int*>(w_lo), static_cast<const int*>(w_nact), Ns,
-        group, T(sig), T(eta_d), T(hcap), iters, static_cast<T*>(h),
+        static_cast<const int*>(tab_lo), static_cast<const int*>(tab_n), Ns,
+        group, cw..., T(sig), T(eta_d), T(hcap), iters, static_cast<T*>(h),
         static_cast<T*>(rho), static_cast<T*>(drdh), static_cast<T*>(div),
         static_cast<T*>(curl));
   };
+  auto args = [&](auto bals_c) {
+    constexpr bool B = decltype(bals_c)::value;
+    if constexpr (COMPACT)
+      run(solve_h_density_compact_kernel<T, DIM, B>, cwidth);
+    else
+      run(solve_h_density_kernel<T, DIM, B>);
+  };
   if (bals)
-    args(solve_h_density_kernel<T, DIM, true>);
+    args(std::true_type{});
   else
-    args(solve_h_density_kernel<T, DIM, false>);
+    args(std::false_type{});
   return cudaGetLastError();
 }
 
 // fast_math (approximate divides) applies to fp32 only.
-template <typename T, int DIM, bool GRAV>
-cudaError_t launch_forces(const void* win, const void* w_lo,
-                          const void* w_nact, int Ns, int tile, int group,
-                          double alpha, double beta, double epsv, int use_bf,
-                          int fast, const void* gsc, double G, double rcut2,
-                          void* acc, void* du, void* stream) {
+template <typename T, int DIM, bool GRAV, bool COMPACT>
+cudaError_t launch_forces(const void* win, const void* tab_lo,
+                          const void* tab_n, int Ns, int tile, int group,
+                          int cwidth, double alpha, double beta, double epsv,
+                          int use_bf, int fast, const void* gsc, double G,
+                          double rcut2, void* acc, void* du, void* stream) {
   const dim3 grid(Ns / tile), block(tile);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto args = [&](auto kernel) {
+  auto run = [&](auto kernel, auto... cw) {
     kernel<<<grid, block, 0, st>>>(
-        static_cast<const T*>(win), static_cast<const int*>(w_lo),
-        static_cast<const int*>(w_nact), Ns, group, T(alpha), T(beta),
+        static_cast<const T*>(win), static_cast<const int*>(tab_lo),
+        static_cast<const int*>(tab_n), Ns, group, cw..., T(alpha), T(beta),
         T(epsv), static_cast<const T*>(gsc), T(G), T(rcut2),
         static_cast<T*>(acc), static_cast<T*>(du));
   };
+  auto args = [&](auto bf_c, auto fast_c) {
+    constexpr bool B = decltype(bf_c)::value, F = decltype(fast_c)::value;
+    if constexpr (COMPACT)
+      run(forces_compact_kernel<T, DIM, B, F, GRAV>, cwidth);
+    else
+      run(forces_kernel<T, DIM, B, F, GRAV>);
+  };
   constexpr bool F32 = sizeof(T) == 4;
+  using Yes = std::true_type;
+  using No = std::false_type;
+  using Fast = std::bool_constant<F32>;
   if (use_bf && fast && F32)
-    args(forces_kernel<T, DIM, true, F32, GRAV>);
+    args(Yes{}, Fast{});
   else if (use_bf)
-    args(forces_kernel<T, DIM, true, false, GRAV>);
+    args(Yes{}, No{});
   else if (fast && F32)
-    args(forces_kernel<T, DIM, false, F32, GRAV>);
+    args(No{}, Fast{});
   else
-    args(forces_kernel<T, DIM, false, false, GRAV>);
+    args(No{}, No{});
   return cudaGetLastError();
 }
 
@@ -511,10 +645,9 @@ extern "C" {
                    double sig, double eta_d, double hcap, int iters,        \
                    int bals, void* h, void* rho, void* drdh, void* div,     \
                    void* curl, void* stream) {                              \
-    return launch_solve_h_density<T, DIM>(win, h0, w_lo, w_nact, Ns, tile,  \
-                                          group, sig, eta_d, hcap, iters,   \
-                                          bals, h, rho, drdh, div, curl,    \
-                                          stream);                          \
+    return launch_solve_h_density<T, DIM, false>(                         \
+        win, h0, w_lo, w_nact, Ns, tile, group, 0, sig, eta_d, hcap, iters, \
+        bals, h, rho, drdh, div, curl, stream);                             \
   }
 SPHAX_A_ENTRY(sphax_solve_h_density_f32, float, 3)
 SPHAX_A_ENTRY(sphax_solve_h_density_f64, double, 3)
@@ -522,21 +655,57 @@ SPHAX_A_ENTRY(sphax_solve_h_density_2d_f32, float, 2)
 SPHAX_A_ENTRY(sphax_solve_h_density_2d_f64, double, 2)
 #undef SPHAX_A_ENTRY
 
+// Kernel A's compact walk: sphax_solve_h_density_compact_{f32,f64} (3D),
+// ..._compact_2d_{f32,f64} (2D); the runs c_lo, c_len and cwidth in place
+// of w_lo, w_nact.
+#define SPHAX_AC_ENTRY(NAME, T, DIM)                                        \
+  cudaError_t NAME(const void* win, const void* h0, const void* c_lo,       \
+                   const void* c_len, int Ns, int tile, int group,          \
+                   int cwidth, double sig, double eta_d, double hcap,       \
+                   int iters, int bals, void* h, void* rho, void* drdh,     \
+                   void* div, void* curl, void* stream) {                   \
+    return launch_solve_h_density<T, DIM, true>(                          \
+        win, h0, c_lo, c_len, Ns, tile, group, cwidth, sig, eta_d, hcap,    \
+        iters, bals, h, rho, drdh, div, curl, stream);                      \
+  }
+SPHAX_AC_ENTRY(sphax_solve_h_density_compact_f32, float, 3)
+SPHAX_AC_ENTRY(sphax_solve_h_density_compact_f64, double, 3)
+SPHAX_AC_ENTRY(sphax_solve_h_density_compact_2d_f32, float, 2)
+SPHAX_AC_ENTRY(sphax_solve_h_density_compact_2d_f64, double, 2)
+#undef SPHAX_AC_ENTRY
+
 // Kernel C without gravity: sphax_forces_{f32,f64} (3D), ..._2d_* (2D).
 #define SPHAX_C_ENTRY(NAME, T, DIM)                                         \
   cudaError_t NAME(const void* win, const void* w_lo, const void* w_nact,   \
                    int Ns, int tile, int group, double alpha, double beta,  \
                    double epsv, int use_bf, int fast, void* acc, void* du,  \
                    void* stream) {                                          \
-    return launch_forces<T, DIM, false>(win, w_lo, w_nact, Ns, tile, group, \
-                                        alpha, beta, epsv, use_bf, fast,    \
-                                        nullptr, 0.0, 0.0, acc, du, stream); \
+    return launch_forces<T, DIM, false, false>(                           \
+        win, w_lo, w_nact, Ns, tile, group, 0, alpha, beta, epsv, use_bf,   \
+        fast, nullptr, 0.0, 0.0, acc, du, stream);                          \
   }
 SPHAX_C_ENTRY(sphax_forces_f32, float, 3)
 SPHAX_C_ENTRY(sphax_forces_f64, double, 3)
 SPHAX_C_ENTRY(sphax_forces_2d_f32, float, 2)
 SPHAX_C_ENTRY(sphax_forces_2d_f64, double, 2)
 #undef SPHAX_C_ENTRY
+
+// Kernel C's compact walk without gravity: sphax_forces_compact_* (3D),
+// ..._compact_2d_* (2D).
+#define SPHAX_CC_ENTRY(NAME, T, DIM)                                        \
+  cudaError_t NAME(const void* win, const void* c_lo, const void* c_len,    \
+                   int Ns, int tile, int group, int cwidth, double alpha,   \
+                   double beta, double epsv, int use_bf, int fast,          \
+                   void* acc, void* du, void* stream) {                     \
+    return launch_forces<T, DIM, false, true>(                            \
+        win, c_lo, c_len, Ns, tile, group, cwidth, alpha, beta, epsv,       \
+        use_bf, fast, nullptr, 0.0, 0.0, acc, du, stream);                  \
+  }
+SPHAX_CC_ENTRY(sphax_forces_compact_f32, float, 3)
+SPHAX_CC_ENTRY(sphax_forces_compact_f64, double, 3)
+SPHAX_CC_ENTRY(sphax_forces_compact_2d_f32, float, 2)
+SPHAX_CC_ENTRY(sphax_forces_compact_2d_f64, double, 2)
+#undef SPHAX_CC_ENTRY
 
 // Kernel C with the fused P3M short range (3D): gsc -> the three split
 // scalars on the device.
@@ -546,13 +715,28 @@ SPHAX_C_ENTRY(sphax_forces_2d_f64, double, 2)
                    double epsv, int use_bf, int fast, const void* gsc,      \
                    double G, double rcut2, void* acc, void* du,             \
                    void* stream) {                                          \
-    return launch_forces<T, 3, true>(win, w_lo, w_nact, Ns, tile, group,    \
-                                     alpha, beta, epsv, use_bf, fast, gsc,  \
-                                     G, rcut2, acc, du, stream);            \
+    return launch_forces<T, 3, true, false>(                              \
+        win, w_lo, w_nact, Ns, tile, group, 0, alpha, beta, epsv, use_bf,   \
+        fast, gsc, G, rcut2, acc, du, stream);                              \
   }
 SPHAX_CG_ENTRY(sphax_forces_grav_f32, float)
 SPHAX_CG_ENTRY(sphax_forces_grav_f64, double)
 #undef SPHAX_CG_ENTRY
+
+// Kernel C's compact walk with the fused P3M short range (3D).
+#define SPHAX_CGC_ENTRY(NAME, T)                                            \
+  cudaError_t NAME(const void* win, const void* c_lo, const void* c_len,    \
+                   int Ns, int tile, int group, int cwidth, double alpha,   \
+                   double beta, double epsv, int use_bf, int fast,          \
+                   const void* gsc, double G, double rcut2, void* acc,      \
+                   void* du, void* stream) {                                \
+    return launch_forces<T, 3, true, true>(                               \
+        win, c_lo, c_len, Ns, tile, group, cwidth, alpha, beta, epsv,       \
+        use_bf, fast, gsc, G, rcut2, acc, du, stream);                      \
+  }
+SPHAX_CGC_ENTRY(sphax_forces_grav_compact_f32, float)
+SPHAX_CGC_ENTRY(sphax_forces_grav_compact_f64, double)
+#undef SPHAX_CGC_ENTRY
 
 const char* sphax_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -14,10 +14,14 @@ One stable sort of cell keys and O(N) everything else:
      (one per neighbouring pencil), padded to the static width ``wseg``.
      ``overflow`` counts tiles whose true run exceeded wseg plus dropped
      ghosts (must be 0 for exactness).
+  4. With ``spec.cwidth > 0`` each group also gets its COMPACTED candidate
+     list: the segment runs clipped against each other (``c_lo``,
+     ``c_len``), disjoint, concatenated in segment order and capped at
+     ``cwidth`` rows (``compact_index``).
 
 Rows beyond a segment's true range lie outside the kernel support or have
 zero mass, so the pair kernels need no mask beyond a first-occurrence
-dedup across segments.
+dedup across segments (none at all on the compacted lists).
 """
 from __future__ import annotations
 
@@ -46,8 +50,9 @@ class WindowSpec:
     wseg: int                     # static width of each pencil segment
     n_sorted: int                 # padded sorted-array length
     fast_sub: int = 1             # fast-axis cell subdivision
-    cwidth: int = 0               # candidate compaction width (0 = off; the
-    #                               compacted mode is not ported yet)
+    cwidth: int = 0               # candidate compaction width: rows per
+    #                               row-group's compacted list (multiple of
+    #                               128; 0 = off)
     rgroups: int = 1              # row-groups per tile: windows are per
     #                               group of tile/rgroups sorted rows
 
@@ -147,8 +152,15 @@ class WindowData(NamedTuple):
     w_nact:   [n_groups, n_seg] active 128-row blocks per segment
     t_lo:     [n_tiles, n_seg] tile-union window start (128-aligned)
     t_nact:   [n_tiles, n_seg] active 128-blocks of the union window
-    overflow: [] union runs past wseg + dropped ghosts (must be 0)
+    overflow: [] union runs past wseg + dropped ghosts (+ groups whose
+              compacted count exceeds cwidth, spec.cwidth > 0); must be 0
     max_run:  [] largest aligned union window length actually required
+
+    With spec.cwidth > 0 (else None), the compacted candidate runs:
+    c_lo:     [n_groups, n_seg] first row of each segment's clipped run
+    c_len:    [n_groups, n_seg] its length (runs are disjoint, in order)
+    c_n:      [n_groups] true compacted count, the sum of c_len
+    c_max:    [] largest c_n (for plan_compact)
     """
 
     g: torch.Tensor
@@ -163,6 +175,10 @@ class WindowData(NamedTuple):
     t_nact: torch.Tensor
     overflow: torch.Tensor
     max_run: torch.Tensor
+    c_lo: torch.Tensor = None
+    c_len: torch.Tensor = None
+    c_n: torch.Tensor = None
+    c_max: torch.Tensor = None
 
 
 def _pack_offset(mask, orig_idx, cap: int, n: int):
@@ -181,9 +197,6 @@ def build(pos, domain: Domain, spec: WindowSpec) -> WindowData:
     Every real row defines windows and spawns periodic images (the
     reference's ``active``/``image`` masks serve its distributed engines,
     which are not ported yet)."""
-    if spec.cwidth > 0:
-        raise NotImplementedError(
-            "candidate compaction (spec.cwidth > 0) is not ported yet")
     n, dim = pos.shape
     dtype, dev = pos.dtype, pos.device
     i32 = dict(dtype=torch.int32, device=dev)
@@ -330,10 +343,49 @@ def build(pos, domain: Domain, spec: WindowSpec) -> WindowData:
     if R == 1:
         t_lo, t_nact = w_lo, w_nact
 
+    # ---- per-group candidate compaction (spec.cwidth > 0). The segment
+    # ranges [ws, we) rise with the segment offset, so segment s overlaps
+    # the earlier ones' union only below their running maximum end:
+    # clipping its start there gives disjoint runs whose concatenation is
+    # the group's exact candidate set, with no duplicates and no 128-row
+    # alignment
+    c_lo = c_len = c_n = c_max = None
+    if spec.cwidth > 0:
+        we_prev = torch.cat([torch.zeros((nt, 1), **i32),
+                             torch.cummax(we_t, 1).values[:, :-1]], 1)
+        c_lo = torch.maximum(ws_t, we_prev).contiguous()
+        c_len = torch.clamp_min(we_t - c_lo, 0).contiguous()
+        c_n = c_len.sum(1, dtype=torch.int32)
+        overflow = (overflow + (c_n > spec.cwidth).sum()).to(torch.int32)
+        c_max = c_n.amax()
+
     return WindowData(g=g, src=src, inv=inv_real[:n], is_real=is_real,
                       pos_s=pos_s, shift_s=shift_s, w_lo=w_lo, w_nact=w_nact,
                       t_lo=t_lo, t_nact=t_nact, overflow=overflow,
-                      max_run=max_run)
+                      max_run=max_run, c_lo=c_lo, c_len=c_len, c_n=c_n,
+                      c_max=c_max)
+
+
+def compact_index(wd: WindowData, spec: WindowSpec, groups=None):
+    """The compacted candidate table of the row-groups ``groups`` (an index
+    tensor; all when None): [n, cwidth] int32 sorted rows, the runs (c_lo,
+    c_len) concatenated in segment order and cut at cwidth; entries past
+    c_n point at the last sorted row. Equal to the reference build's
+    ``c_idx``. The CUDA kernels walk the runs in place and never build
+    it."""
+    c_lo, c_len = ((wd.c_lo, wd.c_len) if groups is None
+                   else (wd.c_lo[groups], wd.c_len[groups]))
+    C = spec.cwidth
+    off = torch.cumsum(c_len, 1) - c_len           # exclusive prefix
+    k = torch.arange(C, dtype=off.dtype, device=off.device)[None, :]
+    idx = torch.full((c_lo.shape[0], C), spec.n_sorted - 1,
+                     dtype=torch.int32, device=c_lo.device)
+    for s in range(spec.n_seg):
+        o, ln = off[:, s:s + 1], c_len[:, s:s + 1]
+        m = (k >= o) & (k < o + ln)
+        idx = torch.where(m, (c_lo[:, s:s + 1] + (k - o)).to(torch.int32),
+                          idx)
+    return idx
 
 
 def gather_sorted(field_orig, wd: WindowData, fill=0.0):
@@ -367,6 +419,32 @@ def refresh_pos(pos, wd: WindowData):
     """Sorted extended positions for NEW particle positions using a stale
     structure (valid while drift < skin/2)."""
     return gather_sorted(pos, wd) + wd.shift_s
+
+
+def gather_cands(cols_sorted, wd: WindowData, spec: WindowSpec,
+                 mass_col: int):
+    """The compacted candidate buffer: [Ns, K] sorted-order fields ->
+    [n_groups * cwidth, K] candidate-major rows (one row gather), with the
+    pair-weight column ``mass_col`` zeroed on the padding entries past each
+    group's c_n, so they contribute nothing. For the plain versions and the
+    tests: at N = 1e6 it is about 2 GB."""
+    out = cols_sorted[compact_index(wd, spec).reshape(-1).long()]
+    live = (torch.arange(spec.cwidth, device=out.device)[None, :]
+            < wd.c_n[:, None]).reshape(-1)
+    out[:, mass_col] = torch.where(live, out[:, mass_col], 0.0)
+    return out
+
+
+def plan_compact(pos, domain: Domain, h_max: float, dim: int,
+                 headroom: float = 1.2, **kw) -> WindowSpec:
+    """plan_measured plus the measured compaction width: one probe build
+    at cwidth = 128 (c_max is the true count whatever the width), then
+    cwidth = c_max * headroom rounded up to 128. The overflow counter
+    catches later growth, as for wseg."""
+    spec = plan_measured(pos, domain, h_max, dim, **kw)
+    wd = build(pos, domain, dataclasses.replace(spec, cwidth=128))
+    cw = int(np.ceil(int(wd.c_max) * headroom / 128.0) * 128)
+    return dataclasses.replace(spec, cwidth=max(cw, 128))
 
 
 def plan_measured(pos, domain: Domain, h_max: float, dim: int,

@@ -60,26 +60,57 @@ def _tile_pass(kernel_fn, wd: WindowData, spec: WindowSpec, own_fields,
     [TB, T, ...] rows and [TB, n_seg*S, ...] window gathers and returns a
     tuple of [TB, T, ...]. ``mass_axis`` names the win_fields entry carrying
     the pair weight; it is zeroed on duplicate candidates.
+
+    With spec.cwidth > 0 the window of a group is instead its own cwidth
+    slice of the compacted candidate buffer (``window.gather_cands``, one
+    block of groups at a time): no dedup, and the pair weight zeroed on
+    the padding entries past c_n.
+
+    Only groups with candidates run: the walks' contract gives every other
+    group h = h0 and zeros, which the callers apply, so their rows come
+    back zero here. (Groups of ghost rows only are most of a small box.)
     """
-    T, S, nt = spec.group, spec.wseg, spec.n_groups
+    T, nt = spec.group, spec.n_groups
     n_seg = spec.n_seg
-    # keep the live [TB, n_seg * S] window gathers bounded
-    TB = max(1, 600_000 // (n_seg * S))
-    ar = torch.arange(S, dtype=torch.int64, device=wd.w_lo.device)
-    outs = []
-    for t0 in range(0, nt, TB):
-        tb = min(TB, nt - t0)
-        own = tuple(f[t0 * T:(t0 + tb) * T].reshape((tb, T) + f.shape[1:])
+    compact = spec.cwidth > 0
+    width = spec.cwidth if compact else n_seg * spec.wseg
+    # keep the live [TB, width] window gathers bounded
+    TB = max(1, 600_000 // width)
+    dev = wd.w_lo.device
+    ar = torch.arange(width if compact else spec.wseg, dtype=torch.int64,
+                      device=dev)
+    ar_t = torch.arange(T, dtype=torch.int64, device=dev)
+    gids = torch.nonzero(wk._group_active(wd, spec)).reshape(-1)
+    rows_all, outs = [], []
+    for b0 in range(0, gids.numel(), TB):
+        g = gids[b0:b0 + TB]
+        tb = g.numel()
+        rows = (g[:, None] * T + ar_t).reshape(-1)
+        own = tuple(f[rows].reshape((tb, T) + f.shape[1:])
                     for f in own_fields)
-        w_lo = wd.w_lo[t0:t0 + tb]
-        idx = (w_lo[..., None].long() + ar).reshape(tb, n_seg * S)
+        if compact:
+            idx = win.compact_index(wd, spec, g).long()
+        else:
+            w_lo = wd.w_lo[g]
+            idx = (w_lo[..., None].long() + ar).reshape(tb, width)
         winf = [f[idx] for f in win_fields]
-        if mass_axis is not None and n_seg > 1:
-            keep = dedup_mask(w_lo, n_seg, S)
+        if mass_axis is not None and compact:
+            live = ar < wd.c_n[g, None]
+            winf[mass_axis] = torch.where(live, winf[mass_axis], 0.0)
+        elif mass_axis is not None and n_seg > 1:
+            keep = dedup_mask(w_lo, n_seg, spec.wseg)
             winf[mass_axis] = torch.where(keep, winf[mass_axis], 0.0)
+        rows_all.append(rows)
         outs.append(kernel_fn(own, tuple(winf)))
-    return tuple(torch.cat([o[k] for o in outs]).reshape(
-        (nt * T,) + outs[0][k].shape[2:]) for k in range(len(outs[0])))
+    rows = torch.cat(rows_all)
+    result = []
+    for k in range(len(outs[0])):
+        o = torch.cat([o_[k] for o_ in outs])
+        o = o.reshape((-1,) + o.shape[2:])
+        full = o.new_zeros((nt * T,) + o.shape[1:])
+        full[rows] = o
+        result.append(full)
+    return tuple(result)
 
 
 def gravity_short_pass(wd, spec: WindowSpec, pos_s, mass_s, cfg: SPHConfig,
@@ -238,11 +269,22 @@ def update_derived(state: ParticleState, cfg: SPHConfig, domain: Domain,
 def simulate(state: ParticleState, cfg: SPHConfig, domain: Domain,
              spec: WindowSpec, nsteps: int, rebuild_every: int = 2,
              drive=None, drive_spec=None, noise=None,
-             adaptive_rebuild: int = 0):
+             adaptive_rebuild: int = 0, skin_safety: float = 0.8):
     """Fixed-cadence production loop: every ``rebuild_every`` steps wrap
     positions into the box and rebuild the structure; the steps in between
     drift UNWRAPPED against the fixed structure (a wrap teleports a
     particle, which a stale structure cannot represent).
+
+    ``adaptive_rebuild=K > 0`` switches to drift-gated rebuilds (the
+    reference's scheme; ``rebuild_every`` is then ignored): wrap and build
+    once, then rebuild at the top of a step when this step's exact
+    end-of-drift displacement since the build, dt (v + dt/2 a), would spend
+    the Verlet skin, 4 max|disp|^2 >= (skin_safety max(cutoff - 2 max h,
+    0))^2, or when the structure would reach K steps of age. The candidate
+    set stays a superset of the neighbour set, so this changes when builds
+    happen, never the pairs. The gate's bool is read on the host once per
+    step, the one host synchronisation in the loop (``lax.cond`` has no
+    torch twin); a step whose age cap binds skips the read.
 
     With ``drive_spec`` the OU driving amplitudes advance once per step
     with the step's dt; ``noise(shape, dtype, device) -> (xi_re, xi_im)``
@@ -250,11 +292,12 @@ def simulate(state: ParticleState, cfg: SPHConfig, domain: Domain,
 
     Returns (state, drive, dts, overflow); ``overflow`` is the MAX
     per-rebuild structure overflow and must be 0 (a saturated structure
-    silently drops pairs). No host synchronisation happens in the loop.
+    silently drops pairs). No host synchronisation happens in the
+    fixed-cadence loop. The adaptive loop returns (state, drive, dts,
+    overflow, rebuilds): ``rebuilds`` counts its builds, the first one
+    included.
     """
-    if adaptive_rebuild:
-        raise NotImplementedError("drift-gated rebuilds are not ported yet")
-    if nsteps % rebuild_every:
+    if not adaptive_rebuild and nsteps % rebuild_every:
         raise ValueError("nsteps must be a multiple of rebuild_every")
     if drive_spec is not None and (drive is None or noise is None):
         raise ValueError("driving needs an initial DriveState and a noise "
@@ -264,8 +307,7 @@ def simulate(state: ParticleState, cfg: SPHConfig, domain: Domain,
         modes = torch.tensor(drive_spec.modes, dtype=state.pos.dtype,
                              device=state.pos.device)
 
-    def step_with(st, wd, dr):
-        dt = local_dt(st, cfg)
+    def step_with(st, wd, dr, dt):
         if drive_spec is not None:
             xi = noise(dr.amp_re.shape, dr.amp_re.dtype, dr.amp_re.device)
             dr = drv.update(dr, modes, dt, drive_spec.tau,
@@ -282,16 +324,49 @@ def simulate(state: ParticleState, cfg: SPHConfig, domain: Domain,
         st, dt = leapfrog.step(st, cfg, domain, derived, dt=dt, wrap=False)
         return st, dr, dt
 
-    dts, ovfs = [], []
-    for _ in range(nsteps // rebuild_every):
-        state = state._replace(pos=domain.wrap(state.pos))
-        wd = win.build(state.pos, domain, spec)
+    def rebuild(st):
+        st = st._replace(pos=domain.wrap(st.pos))
+        wd = win.build(st.pos, domain, spec)
         ovfs.append(wd.overflow)
+        return st, wd
+
+    dts, ovfs = [], []
+    if adaptive_rebuild:
+        state, wd = rebuild(state)
+        ref, since = state.pos, 0
+        for _ in range(nsteps):
+            dt = local_dt(state, cfg)
+            if (since + 1 >= adaptive_rebuild
+                    or drift_gate(state, ref, dt, spec, skin_safety)):
+                state, wd = rebuild(state)
+                ref, since = state.pos, 0
+            else:
+                since += 1
+            state, drive, dt = step_with(state, wd, drive, dt)
+            dts.append(dt)
+        return (state._replace(pos=domain.wrap(state.pos)), drive,
+                torch.stack(dts), torch.stack(ovfs).amax(), len(ovfs))
+    for _ in range(nsteps // rebuild_every):
+        state, wd = rebuild(state)
         for _ in range(rebuild_every):
-            state, drive, dt = step_with(state, wd, drive)
+            state, drive, dt = step_with(state, wd, drive,
+                                         local_dt(state, cfg))
             dts.append(dt)
     return (state._replace(pos=domain.wrap(state.pos)), drive,
             torch.stack(dts), torch.stack(ovfs).amax())
+
+
+def drift_gate(state: ParticleState, ref, dt, spec: WindowSpec,
+               skin_safety: float) -> bool:
+    """True when the step about to run would drift some particle far enough
+    from its build position ``ref`` to spend the Verlet skin. KDK drifts by
+    dt (v + dt/2 a) with the carried acceleration, so the end-of-drift
+    displacement is exact before the walk. Reads one bool back from the
+    device."""
+    disp = state.pos + dt * (state.vel + 0.5 * dt * state.acc) - ref
+    maxd2 = torch.sum(disp * disp, dim=-1).amax()
+    slack = torch.clamp_min(spec.cutoff - 2.0 * state.h.amax(), 0.0)
+    return bool(4.0 * maxd2 >= (skin_safety * slack) ** 2)
 
 
 def overflow_count(state: ParticleState, domain: Domain, spec: WindowSpec):

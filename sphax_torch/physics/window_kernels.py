@@ -20,6 +20,14 @@ Every candidate outside the true neighbour set lies beyond the kernel
 support or has zero mass, so any convention that counts each row of the
 union once gives the same sums up to summation order. A group whose w_nact
 row is all zero writes h = h0 and zeros for every other output.
+
+With spec.cwidth > 0 (the compact mode, the reference's ``_compact_view``)
+the candidates of group g are instead its compacted list: the disjoint runs
+[c_lo[g,s], c_lo[g,s] + c_len[g,s]) in segment order, cut at cwidth rows,
+with no dedup; the plain versions sum over the group's slice of
+``window.gather_cands``' buffer, the CUDA kernels walk the runs in place. A
+group with c_n == 0 writes h = h0 and zeros. The same pairs as the in-place
+walk, in another order.
 """
 from __future__ import annotations
 
@@ -36,9 +44,13 @@ from sphax_torch.physics import pairs
 # Launches of each CUDA kernel; a wrapper adds one where it launches.
 # "forces_grav" counts kernel C's gravity mode, "forces" its plain SPH mode,
 # "gravity" kernel G (physics/direct_gravity.py); the "_2d" keys count the
-# dim=2 instantiations of kernels A and C.
+# dim=2 instantiations of kernels A and C, the "_compact" keys their
+# compact walks.
 LAUNCHES = {"solve_h_density": 0, "forces": 0, "forces_grav": 0,
-            "gravity": 0, "solve_h_density_2d": 0, "forces_2d": 0}
+            "gravity": 0, "solve_h_density_2d": 0, "forces_2d": 0,
+            "solve_h_density_compact": 0, "forces_compact": 0,
+            "forces_grav_compact": 0, "solve_h_density_compact_2d": 0,
+            "forces_compact_2d": 0}
 
 
 def _newton_iters(cfg: SPHConfig) -> int:
@@ -47,8 +59,10 @@ def _newton_iters(cfg: SPHConfig) -> int:
     return cfg.newton_iters if cfg.adaptive_h and not cfg.h_predict else 0
 
 
-def _group_active(wd: WindowData):
-    return wd.w_nact.sum(dim=1) > 0                      # [n_groups]
+def _group_active(wd: WindowData, spec: WindowSpec):
+    if spec.cwidth > 0:
+        return wd.c_n > 0                                # [n_groups]
+    return wd.w_nact.sum(dim=1) > 0
 
 
 class _LivePairs:
@@ -167,7 +181,7 @@ def solve_h_density_plain(wd: WindowData, spec: WindowSpec, pos_s, mass_s,
     own = [pos_s, mass_s, h0_s] + ([vel_s] if fuse_bals else [])
     winf = [pos_s, mass_s] + ([vel_s] if fuse_bals else [])
     outs = _tile_pass(kfn, wd, spec, own, winf, mass_axis=1)
-    act = _group_active(wd).repeat_interleave(spec.group)
+    act = _group_active(wd, spec).repeat_interleave(spec.group)
     h = torch.where(act, outs[0], h0_s)
     return (h,) + tuple(torch.where(act, o, 0.0) for o in outs[1:])
 
@@ -204,7 +218,7 @@ def forces_plain(wd: WindowData, spec: WindowSpec, pos_s, vel_s, mass_s, h_s,
     acc, du = _tile_pass(kfn, wd, spec, own, winf, mass_axis=2)
     if grav is not None:
         acc = acc + gravity_short_pass(wd, spec, pos_s, mass_s, cfg, *grav)
-    act = _group_active(wd).repeat_interleave(spec.group)
+    act = _group_active(wd, spec).repeat_interleave(spec.group)
     return torch.where(act[:, None], acc, 0.0), torch.where(act, du, 0.0)
 
 
@@ -227,9 +241,6 @@ def _check_cuda(wd: WindowData, spec: WindowSpec, cfg: SPHConfig, ref,
     if grav and cfg.dim != 3:
         raise NotImplementedError("kernel C's gravity mode is 3D only, as "
                                   "the P3M mesh is")
-    if spec.cwidth > 0:
-        raise NotImplementedError("candidate compaction (cwidth > 0) is "
-                                  "not ported yet")
     if ref.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"unsupported dtype {ref.dtype}")
     if spec.group % 32 or spec.tile > 1024:
@@ -245,12 +256,30 @@ def _check_cuda(wd: WindowData, spec: WindowSpec, cfg: SPHConfig, ref,
         if t.shape[0] != Ns:
             raise ValueError(f"{name} has {t.shape[0]} rows, not {Ns}")
     shape = (spec.n_groups, spec.n_seg)
-    for name in ("w_lo", "w_nact"):
+    for name in _tables(spec):
         t = getattr(wd, name)
-        if (t.device != ref.device or t.dtype != torch.int32
+        if (t is None or t.device != ref.device or t.dtype != torch.int32
                 or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(f"wd.{name} must be a contiguous int32 {shape} "
                              f"tensor on {ref.device}")
+
+
+def _tables(spec: WindowSpec):
+    """The group tables a walk reads: the compacted runs in compact mode,
+    the in-place windows otherwise."""
+    return ("c_lo", "c_len") if spec.cwidth > 0 else ("w_lo", "w_nact")
+
+
+def _walk(base: str, wd: WindowData, spec: WindowSpec, dim: int):
+    """The walk's entry point and launch key (``base``, ``base_2d`` in 2D,
+    ``base_compact[_2d]`` for the compact walk), its two group tables, and
+    its size arguments: n_sorted, tile, group, and cwidth when compact."""
+    compact = spec.cwidth > 0
+    name = _kernel_name(f"{base}_compact" if compact else base, dim)
+    tabs = [_ptr(getattr(wd, t)) for t in _tables(spec)]
+    size = [spec.n_sorted, spec.tile, spec.group] + (
+        [spec.cwidth] if compact else [])
+    return name, tabs, size
 
 
 def _kernel_name(base: str, dim: int) -> str:
@@ -273,9 +302,9 @@ def _launch(fn_name, dtype, *args):
 
 def solve_h_density(wd: WindowData, spec: WindowSpec, pos_s, mass_s, h0_s,
                     cfg: SPHConfig, vel_s=None):
-    """Kernel A, in 3D or 2D. Returns (h, rho, drho_dh[, div_sum,
-    curl_mag]) per sorted row; the last two only when cfg.need_divv and
-    vel_s is given."""
+    """Kernel A, in 3D or 2D, in place or (spec.cwidth > 0) compact.
+    Returns (h, rho, drho_dh[, div_sum, curl_mag]) per sorted row; the last
+    two only when cfg.need_divv and vel_s is given."""
     if pos_s.device.type == "cpu":
         return solve_h_density_plain(wd, spec, pos_s, mass_s, h0_s, cfg,
                                      vel_s=vel_s)
@@ -293,9 +322,8 @@ def solve_h_density(wd: WindowData, spec: WindowSpec, pos_s, mass_s, h0_s,
     h0 = h0_s.contiguous()
     outs = [torch.empty_like(h0) for _ in range(5 if fuse_bals else 3)]
     null = ctypes.c_void_p(None)
-    _launch(_kernel_name("solve_h_density", dim), pos_s.dtype,
-            _ptr(win), _ptr(h0), _ptr(wd.w_lo), _ptr(wd.w_nact),
-            spec.n_sorted, spec.tile, spec.group,
+    name, tabs, size = _walk("solve_h_density", wd, spec, dim)
+    _launch(name, pos_s.dtype, _ptr(win), _ptr(h0), *tabs, *size,
             float(K.sigma(dim)), float(cfg.eta) ** dim,
             0.5 * float(spec.cutoff),
             _newton_iters(cfg), int(fuse_bals),
@@ -306,7 +334,8 @@ def solve_h_density(wd: WindowData, spec: WindowSpec, pos_s, mass_s, h0_s,
 
 def forces(wd: WindowData, spec: WindowSpec, pos_s, vel_s, mass_s, h_s,
            rho_s, P_s, cs_s, om_s, bf_s, cfg: SPHConfig, grav=None):
-    """Kernel C, in 3D or 2D. Returns (acc_s [Ns, D], du_s [Ns]); ``bf_s``
+    """Kernel C, in 3D or 2D, in place or (spec.cwidth > 0) compact.
+    Returns (acc_s [Ns, D], du_s [Ns]); ``bf_s``
     is read only when cfg.visc_factor_on. ``grav=(rs, eps)`` (3D only) adds
     the screened P3M short range over the same candidates, hard-cut at
     spec.cutoff; ``rs`` is a 0-d tensor on the inputs' device, so no step
@@ -337,13 +366,12 @@ def forces(wd: WindowData, spec: WindowSpec, pos_s, vel_s, mass_s, h_s,
     acc = torch.empty_like(pos_s, memory_format=torch.contiguous_format)
     du = torch.empty_like(h_s, memory_format=torch.contiguous_format)
     fast = bool(cfg.fast_math) and pos_s.dtype == torch.float32
-    args = [_ptr(win), _ptr(wd.w_lo), _ptr(wd.w_nact),
-            spec.n_sorted, spec.tile, spec.group,
-            float(cfg.alpha_visc), float(cfg.beta_visc),
-            float(cfg.eps_visc), int(use_bf), int(fast)]
+    name, tabs, size = _walk("forces" if grav is None else "forces_grav",
+                             wd, spec, dim)
+    args = [_ptr(win), *tabs, *size, float(cfg.alpha_visc),
+            float(cfg.beta_visc), float(cfg.eps_visc), int(use_bf), int(fast)]
     if grav is None:
-        _launch(_kernel_name("forces", dim), pos_s.dtype, *args, _ptr(acc),
-                _ptr(du))
+        _launch(name, pos_s.dtype, *args, _ptr(acc), _ptr(du))
         return acc, du
     rs, eps = grav
     if (not isinstance(rs, torch.Tensor) or rs.device != pos_s.device
@@ -355,6 +383,6 @@ def forces(wd: WindowData, spec: WindowSpec, pos_s, vel_s, mass_s, h_s,
     # the per-pair form needs only these: x = r * sc0,
     # screen = erfc(x) + r * sc1 * exp(-x^2), soft = rsqrt(r^2 + sc2)^3
     gsc = torch.stack([0.5 / rs, 1.0 / (rs * math.sqrt(math.pi)), e * e])
-    _launch("forces_grav", pos_s.dtype, *args, _ptr(gsc), float(cfg.G),
+    _launch(name, pos_s.dtype, *args, _ptr(gsc), float(cfg.G),
             float(spec.cutoff) ** 2, _ptr(acc), _ptr(du))
     return acc, du

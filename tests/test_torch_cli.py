@@ -103,7 +103,7 @@ def test_bad_overrides_raise(kv):
 
 
 @pytest.mark.parametrize("opt", ["shards=2", "shards=2x2", "rungs=2",
-                                 "adaptive=1", "plot=1", "rebuild_every=4"])
+                                 "plot=1", "rebuild_every=4"])
 def test_unported_options_raise(opt, tmp_path):
     with pytest.raises(SystemExit, match="not ported|rebuilds"):
         main(SOD + [opt, f"out={tmp_path}"])

@@ -1,5 +1,6 @@
 """The CUDA kernels A, C (with and without its P3M gravity mode; A and C
-in 3D and in 2D) and G against their plain torch versions, on a card.
+in 3D and in 2D, in place and compact) and G against their plain torch
+versions, on a card.
 
 These tests import no JAX (the machine with the card has none) and skip
 where no CUDA device is visible. Run them on the card without the suite's
@@ -52,10 +53,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(device, dtype, n_side=16, seed=0, periodic=True, dim=3):
+def _inputs(device, dtype, n_side=16, seed=0, periodic=True, dim=3,
+            compact=False):
     """Sorted inputs at the production window geometry, owner-consistent on
     ghost rows, from the turbulence ICs (3D) or the Kelvin-Helmholtz ICs
-    with nx = 4 n_side (2D) and a seeded generator."""
+    with nx = 4 n_side (2D) and a seeded generator; ``compact`` plans the
+    compacted candidate lists (``window.plan_compact``)."""
     ic = (turbulence.build(n_side=n_side) if dim == 3
           else kh.build(nx=4 * n_side))
     st = make_state(*(torch.as_tensor(ic[k], dtype=dtype, device=device)
@@ -63,8 +66,9 @@ def _inputs(device, dtype, n_side=16, seed=0, periodic=True, dim=3):
     dom = box(torch.zeros(dim, dtype=dtype, device=device),
               torch.ones(dim, dtype=dtype, device=device), periodic=periodic)
     h_max = float(st.h.max()) * (1.05 if dim == 3 else 1.3)
-    spec = win.plan_measured(st.pos, dom, h_max=h_max, dim=dim,
-                             **(KNOBS if dim == 3 else KNOBS_2D))
+    plan = win.plan_compact if compact else win.plan_measured
+    spec = plan(st.pos, dom, h_max=h_max, dim=dim,
+                **(KNOBS if dim == 3 else KNOBS_2D))
     wd = win.build(st.pos, dom, spec)
     g = torch.Generator(device=device).manual_seed(seed)
 
@@ -198,6 +202,72 @@ def test_forces_grav_kernel_matches_plain(cuda, dtype, fast):
     _compare(got[1], want[1], wd.is_real, tol, "du")
 
 
+def _launched(n0, key):
+    """Only ``key`` launched, once, since the counts ``n0``."""
+    return {k: wk.LAUNCHES[k] - n0[k] for k in n0} == {
+        k: int(k == key) for k in n0}
+
+
+COMPACT_A = {"cold_newton2": 3, "h_predict": 3, "kh_cold": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(COMPACT_A))
+def test_solve_h_density_compact_kernel_matches_plain(cuda, dtype, case):
+    """Kernel A's compact walk against the compact plain version, and
+    against the in-place kernel on the same inputs (the same pairs)."""
+    dim = COMPACT_A[case]
+    cfg = A_CASES[case] if dim == 3 else A_CASES_2D[case]
+    _, _, spec, wd, f = _inputs(cuda, dtype, dim=dim, compact=True)
+    assert spec.cwidth > 0 and int(wd.overflow) == 0
+    args = (f["pos_s"], f["mass_s"], f["h0_s"])
+    n0 = dict(wk.LAUNCHES)
+    got = wk.solve_h_density(wd, spec, *args, cfg, vel_s=f["vel_s"])
+    torch.cuda.synchronize()
+    assert _launched(n0, wk._kernel_name("solve_h_density_compact", dim))
+    want = wk.solve_h_density_plain(wd, spec, *args, cfg, vel_s=f["vel_s"])
+    inplace = wk.solve_h_density(wd, dataclasses.replace(spec, cwidth=0),
+                                 *args, cfg, vel_s=f["vel_s"])
+    for k, (a, b, c) in enumerate(zip(got, want, inplace)):
+        _compare(a, b, wd.is_real, TOL[dtype], f"{case} output {k}")
+        _compare(a, c, wd.is_real, 3e-5, f"{case} output {k} vs in place")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,fast", [(torch.float32, False),
+                                        (torch.float64, False),
+                                        (torch.float32, True)])
+@pytest.mark.parametrize("mode", ["3d", "2d", "grav"])
+def test_forces_compact_kernel_matches_plain(cuda, dtype, fast, mode):
+    """Kernel C's compact walk (3D, 2D, and the gravity mode, whose
+    screened pairs reach to the cutoff) against the compact plain version,
+    and against the in-place kernel."""
+    dim = 2 if mode == "2d" else 3
+    cfg = {"3d": configs.TURB, "2d": configs.KH, "grav": P3M}[mode]
+    cfg = dataclasses.replace(cfg, fast_math=fast)
+    _, dom, spec, wd, f = _inputs(cuda, dtype, seed=1, dim=dim, compact=True)
+    grav = None
+    if mode == "grav":
+        grav = (pm.rs_traced(cfg, dom, dtype, cutoff=spec.cutoff),
+                cfg.grav_eps)
+    args = [f[k] for k in ("pos_s", "vel_s", "mass_s", "h_s", "rho_s", "P_s",
+                           "cs_s", "om_s", "bf_s")]
+    n0 = dict(wk.LAUNCHES)
+    got = wk.forces(wd, spec, *args, cfg, grav=grav)
+    torch.cuda.synchronize()
+    key = "forces_grav_compact" if grav else wk._kernel_name(
+        "forces_compact", dim)
+    assert _launched(n0, key)
+    want = wk.forces_plain(wd, spec, *args, cfg, grav=grav)
+    inplace = wk.forces(wd, dataclasses.replace(spec, cwidth=0), *args, cfg,
+                        grav=grav)
+    tol = 2e-3 if fast else TOL[dtype]
+    for k, what in ((0, "acc"), (1, "du")):
+        _compare(got[k], want[k], wd.is_real, tol, what)
+        _compare(got[k], inplace[k], wd.is_real, 3e-5, f"{what} vs in place")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n", [1000, 5000])
@@ -224,7 +294,8 @@ def test_cuda_tensor_never_runs_the_plain_version(cuda, monkeypatch):
     """A derived pass on the card launches each kernel of its branch once
     and calls no plain version: no gravity, P3M (kernel C in its gravity
     mode), direct gravity in an open box (kernel G), and the 2D kh
-    configuration (the dim=2 kernels)."""
+    configuration (the dim=2 kernels); and all but the direct one with a
+    compact spec (the compact walks)."""
     def refuse(*a, **k):
         raise AssertionError("plain version called on a CUDA tensor")
 
@@ -233,19 +304,24 @@ def test_cuda_tensor_never_runs_the_plain_version(cuda, monkeypatch):
     monkeypatch.setattr(wengine, "gravity_short_pass", refuse)
     monkeypatch.setattr(dg, "gravity_plain", refuse)
     direct = dataclasses.replace(P3M, grav_solver="direct")
+    base = dataclasses.replace(configs.TURB, newton_iters=1)
     cases = [
-        (dataclasses.replace(configs.TURB, newton_iters=1), True,
-         ("solve_h_density", "forces")),
-        (P3M, True, ("solve_h_density", "forces_grav")),
-        (direct, False, ("solve_h_density", "forces", "gravity")),
-        (configs.KH, True, ("solve_h_density_2d", "forces_2d")),
+        (base, True, False, ("solve_h_density", "forces")),
+        (P3M, True, False, ("solve_h_density", "forces_grav")),
+        (direct, False, False, ("solve_h_density", "forces", "gravity")),
+        (configs.KH, True, False, ("solve_h_density_2d", "forces_2d")),
+        (base, True, True, ("solve_h_density_compact", "forces_compact")),
+        (P3M, True, True, ("solve_h_density_compact",
+                           "forces_grav_compact")),
+        (configs.KH, True, True, ("solve_h_density_compact_2d",
+                                  "forces_compact_2d")),
     ]
-    for cfg, periodic, kernels in cases:
+    for cfg, periodic, compact, kernels in cases:
         st, dom, spec, _, _ = _inputs(cuda, torch.float32, periodic=periodic,
-                                      dim=cfg.dim)
+                                      dim=cfg.dim, compact=compact)
         n0 = dict(wk.LAUNCHES)
         out = wengine.update_derived(st, cfg, dom, spec)
         torch.cuda.synchronize()
         assert {k: wk.LAUNCHES[k] - n0[k] for k in n0} == {
-            k: int(k in kernels) for k in n0}, cfg
+            k: int(k in kernels) for k in n0}, (cfg, compact)
         assert bool(torch.isfinite(out.acc).all())

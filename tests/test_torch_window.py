@@ -1,6 +1,7 @@
 """The port's window structure against ``sphax.neighbors.window``: on the
 same positions and spec the integer tables are EQUAL, the sorted positions
-and shifts are equal, and plan_measured returns an equal spec."""
+and shifts are equal, and plan_measured returns an equal spec. The
+compaction (spec.cwidth > 0) is held in tests/test_torch_compact.py."""
 import dataclasses
 
 import jax
@@ -106,12 +107,3 @@ def test_overflow_detected_when_wseg_too_small():
     tw = twin.build(torch.as_tensor(pos), td, tspec)
     assert int(tw.overflow) > 0
     _assert_same_structure(jw, tw, len(pos))
-
-
-def test_compaction_not_ported():
-    ic = turbulence.build(n_side=8)
-    _, td = _domains()
-    spec = twin.plan_windows(td, h_max=float(ic["h"].max()), n=512, dim=3)
-    with pytest.raises(NotImplementedError):
-        twin.build(torch.as_tensor(ic["pos"]), td,
-                   dataclasses.replace(spec, cwidth=128))
