@@ -5,7 +5,10 @@ configuration, the same with P3M self-gravity, an open box with direct
 gravity, and ``python -m sphax_torch kh n=1024`` (N = 1,572,864, 2D) with
 the rest of the problem suite through the same CLI; then the bench
 configuration with the compact walks of kernels A and C, with drift-gated
-rebuilds, and with both, and the CLI's turb with ``adaptive=8``.
+rebuilds, and with both, and the CLI's turb with ``adaptive=8``; then block
+timesteps, ``python -m sphax_torch sedov n=100 rungs=4`` (kernels A and C on
+masked tables) beside global dt, the Sedov shock-radius gate, and a 1D line
+of 2^20 particles through the dim=1 kernels.
 
     python3 chip_smoke.py
 
@@ -79,6 +82,41 @@ Phases, in order; any failed check raises and exits non-zero:
                inside the support recounted on the compact lists (the same,
                so the same bounds); and one adaptive=8 step with and without
                the drift gate's host read
+ 22. masked    kernels A and C on ``rungs.mask_structure``d tables of the
+     parity    Sedov N = 1e6 structure (``problems.sedov(n=100)``, with a
+               seeded 0.4 N(0,1) velocity on its resting lattice), a ball
+               around the blast centre holding 10 % of the particles
+               closing: against plain on the real rows of active groups,
+               fp32 3e-5 and fp64 1e-10 (d rho/d h, whose terms cancel on
+               the unperturbed lattice, against the size of its terms,
+               dim rho / h); on masked groups h == h0 and the other outputs
+               exactly zero; active groups and tiles of all;
+               ms per launch at this share, unmasked, and with every group
+               masked (the floor of a launch)
+ 23. B = 1     simulate_rungs(n_rungs=1, rebuild_every=1) against
+               wengine.simulate(rebuild_every=1) from the Sedov N = 1e6
+               state, fp32, 2 steps: dts at 1e-6, the state at rtol 5e-5,
+               atol 1e-6
+ 24. rung path ``sedov n=100 rungs=4 max_steps=16`` through the CLI (2 spans
+               of 8 ticks), and again with ``adaptive=8``: overflow 0,
+               finite, h_capped 0, dt_viol under 5 % of the closings,
+               active_frac < 0.5, the energy drift; then the same 16 ticks
+               through simulate_rungs, its adaptive=8 loop and global dt
+               (wengine.simulate), in turns: ms per tick of each, the
+               active fraction per tick, the builds, and kernel A's and C's
+               time per tick against the active groups; the device time
+               of a tick by kind of kernel (profiler) and the idle share
+ 25. Sedov     tests/problems/test_sedov.py on the port's window engine,
+     gate      ``problems.sedov(n=14, fp64)`` (the test's own size) to
+               t = 0.06 at global dt and with rungs=3: shock radius within
+               25 % of R(t), energy within 2e-2 (4e-2 with rungs, as
+               tests/unit/test_rungs.py asks)
+ 26. dim=1     a periodic line of N = 2^20 particles (a lattice jittered by
+               0.2 spacings, seeded velocity noise) through
+               wengine.update_derived and wengine.simulate (4 steps), in
+               place and compact: the ``_1d`` kernels A and C
+               once per pass and step; against plain, fp32 3e-5 and fp64
+               1e-10; ms per launch and bounds
 Each path runs with every launch count set to 0 just before it, and its
 counts are read just after. Each kernel's bound is the larger of its bytes
 over 3.35 TB/s and its operations on the pairs these inputs need (inside
@@ -104,12 +142,14 @@ PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # Operations per pair, counted off sphax_torch/csrc (an FMA is 2, a
 # reciprocal square root, divide, exp or erfc 1): kernel A's Newton walk
-# (3D, 2D) and its final walk with the Balsara sums, kernel C with the
+# (3D, 2D, 1D) and its final walk with the Balsara sums, kernel C with the
 # viscosity factor, C's gravity mode for each pair inside the cutoff and
 # again for the pairs outside both supports (their acceleration update),
 # and kernel G.
-FLOPS = {"A_walk": {3: 31, 2: 28}, "A_final_bals": {3: 59, 2: 43},
-         "C": {3: 69, 2: 62}, "C_grav": 13, "C_grav_outside": 7, "G": 19}
+FLOPS = {"A_walk": {3: 31, 2: 28, 1: 25},
+         "A_final_bals": {3: 59, 2: 43, 1: 32},
+         "C": {3: 69, 2: 62, 1: 55}, "C_grav": 13, "C_grav_outside": 7,
+         "G": 19}
 
 
 def log(*a):
@@ -125,10 +165,13 @@ def main():
     from sphax_torch import _build, bench, configs, make_state, problems
     from sphax_torch import run as run_mod
     from sphax_torch.__main__ import main as cli
+    from sphax_torch.__main__ import rung_chunk
     from sphax_torch.ab_kernels import sorted_fields
     from sphax_torch.core.state import box
+    from sphax_torch.diag import sedov as sedov_diag
     from sphax_torch.ics import kh as kh_ics
-    from sphax_torch.ics import turbulence
+    from sphax_torch.ics import lattice, turbulence
+    from sphax_torch.integrate import rungs
     from sphax_torch.io import checkpoint
     from sphax_torch.neighbors import window as win
     from sphax_torch.physics import direct_gravity as dg
@@ -169,7 +212,7 @@ def main():
         assert not bool(bad.any()), (
             f"{what}: {int(bad.sum())} rows outside rtol=atol/max={tol}; "
             f"max abs err {err:.3g} (scale {scale:.3g})")
-        errs[what] = err / scale
+        errs[what] = err / scale if scale else 0.0
         return err
 
     errs = {}
@@ -1043,12 +1086,459 @@ def main():
         f"({gate_ms[0] - gate_ms[1]:.3f} ms a step); {builds} builds in 16 "
         f"steps")
 
+    # ---- 22. kernels A and C on masked tables (the rung path's) ----------
+    def energy(st):
+        return float((0.5 * st.mass.double()
+                      * st.vel.double().pow(2).sum(-1)).sum()
+                     + (st.mass.double() * st.u.double()).sum())
+
+    prob_s = problems.sedov(n=100)
+    assert prob_s.engine_name == "window" and prob_s.state.n == 100 ** 3
+    st_s, cfg_s, dom_s, spec_s = (prob_s.state, prob_s.cfg, prob_s.domain,
+                                  prob_s.wspec)
+    e0_s = energy(st_s)
+    n_had = int(wk._group_active(win.build(st_s.pos, dom_s, spec_s),
+                                 spec_s).sum())
+    # on the resting lattice the terms of d rho/d h cancel to nearly
+    # nothing, so the kernels are held on positions jittered by a seeded
+    # 0.2 of a spacing (as in phase 26), where every output has a size of
+    # its own; the rung runs below start from the lattice itself
+    gen_s = torch.Generator(device=dev).manual_seed(7)
+    st_j = st_s._replace(pos=dom_s.wrap(st_s.pos + (0.2 / 100) * (
+        2.0 * torch.rand(st_s.pos.shape, generator=gen_s, device=dev)
+        - 1.0)))
+    wd_s = win.build(st_j.pos, dom_s, spec_s)
+    assert int(wd_s.overflow) == 0
+    fs = sorted_fields(st_j, wd_s)
+    # the blast starts at rest: a seeded 0.4 N(0,1) velocity, as in phases
+    # 3 and 4, gives the Balsara sums and the viscosity work
+    fs["vel_s"] = win.gather_sorted(0.4 * torch.randn(
+        st_s.vel.shape, generator=gen_s, device=dev), wd_s)
+    # the ball around the blast centre that holds 10 % of the box's volume
+    r_ball = (0.1 * 3.0 / (4.0 * math.pi)) ** (1.0 / 3.0)
+    close_s = (st_j.pos - 0.5).norm(dim=-1) < r_ball
+    act_rows = win.gather_sorted(close_s.to(st_s.pos.dtype), wd_s) > 0.5
+    wm_s = rungs.mask_structure(wd_s, spec_s, act_rows)
+    none_s = rungs.mask_structure(wd_s, spec_s,
+                                  torch.zeros_like(act_rows))
+    act_g = act_rows.reshape(spec_s.n_groups, spec_s.group).any(1)
+    act_t = act_g.reshape(spec_s.n_tiles, spec_s.rgroups).any(1)
+    act_r = act_g.repeat_interleave(spec_s.group)
+    had = wk._group_active(wd_s, spec_s)
+    assert torch.equal(wk._group_active(wm_s, spec_s), act_g & had)
+    assert not bool(wk._group_active(none_s, spec_s).any())
+    rows_m = act_r & wd_s.is_real
+    mask_e = {}
+    for dtype in (torch.float32, torch.float64):
+        fd = {k: v.to(dtype) for k, v in fs.items()}
+        a_args = [fd[k] for k in A_ARGS]
+        got = wk.solve_h_density(wm_s, spec_s, *a_args, cfg_s,
+                                 vel_s=fd["vel_s"])
+        want = wk.solve_h_density_plain(wm_s, spec_s, *a_args, cfg_s,
+                                        vel_s=fd["vel_s"])
+        torch.cuda.synchronize()
+        e_a = max(compare(a, b, rows_m, TOL[dtype],
+                          f"masked A {dtype} out{k}")
+                  for k, (a, b) in enumerate(zip(got, want)))
+        assert torch.equal(got[0][~act_r], fd["h0_s"][~act_r])
+        assert not any(bool(o[~act_r].any()) for o in got[1:])
+        c_args = [fd[k] for k in C_ARGS]
+        got = wk.forces(wm_s, spec_s, *c_args, cfg_s)
+        want = wk.forces_plain(wm_s, spec_s, *c_args, cfg_s)
+        torch.cuda.synchronize()
+        e_c = max(compare(a, b, rows_m, TOL[dtype],
+                          f"masked C {dtype} out{k}")
+                  for k, (a, b) in enumerate(zip(got, want)))
+        assert not bool(got[0][~act_r].any() | got[1][~act_r].any())
+        mask_e[dtype] = (e_a, e_c)
+        log(f"[22 masked parity] {str(dtype):13s} N={st_s.n} "
+            f"wseg={spec_s.wseg}: A max abs err {e_a:.3g}, max err/scale "
+            f"{worst(f'masked A {dtype}'):.3g}; C {e_c:.3g}, "
+            f"{worst(f'masked C {dtype}'):.3g} (tol {TOL[dtype]}); masked "
+            f"groups: h == h0, every other output 0")
+    del fd, got, want
+    a_args = [fs[k] for k in A_ARGS]
+    c_args = [fs[k] for k in C_ARGS]
+    mtimes = {}
+    for label, w in (("all", wd_s), ("masked", wm_s), ("none", none_s)):
+        a_t = cuda_ms(lambda: wk.solve_h_density(
+            w, spec_s, *a_args, cfg_s, vel_s=fs["vel_s"]), 5)[0]
+        c_t = cuda_ms(lambda: wk.forces(w, spec_s, *c_args, cfg_s), 5)[0]
+        mtimes[label] = (a_t, c_t)
+    mp_a = cuda_ms(lambda: wk.solve_h_density_plain(
+        wm_s, spec_s, *a_args, cfg_s, vel_s=fs["vel_s"]), 1)[0]
+    mp_c = cuda_ms(lambda: wk.forces_plain(wm_s, spec_s, *c_args, cfg_s),
+                   1)[0]
+    pa_m, pc_m, _ = pair_counts(wm_s, spec_s, fs["pos_s"], fs["mass_s"],
+                                fs["h_s"])
+    pa_s, pc_s, _ = pair_counts(wd_s, spec_s, fs["pos_s"], fs["mass_s"],
+                                fs["h_s"])
+    bounds["A masked"] = kernel_bound("A", spec_s, fs["pos_s"], pa_m,
+                                      iters=cfg_s.newton_iters, bals=True,
+                                      masked=wm_s)
+    bounds["C masked"] = kernel_bound("C", spec_s, fs["pos_s"], pc_m,
+                                      bf=True, masked=wm_s)
+    bounds["A sedov"] = kernel_bound("A", spec_s, fs["pos_s"], pa_s,
+                                     iters=cfg_s.newton_iters, bals=True)
+    bounds["C sedov"] = kernel_bound("C", spec_s, fs["pos_s"], pc_s, bf=True)
+    walked_s, _ = candidate_rows(wd_s, spec_s)
+    share = (int((act_g & had).sum()) / int(had.sum()),
+             int(act_t.sum()) / spec_s.n_tiles)
+    log(f"[22 masked parity] closing {int(close_s.sum())} of {st_s.n} "
+        f"particles; active groups {int((act_g & had).sum())} of "
+        f"{int(had.sum())} with candidates ({spec_s.n_groups} in all), "
+        f"tiles {int(act_t.sum())} of {spec_s.n_tiles}; sorted rows that "
+        f"an active group reads {rows_needed(wm_s, spec_s)} of "
+        f"{spec_s.n_sorted}; candidate rows per "
+        f"real row {walked_s:.1f}; A cold ({cfg_s.newton_iters} Newton "
+        f"updates) all / masked / none: "
+        + " / ".join(f"{mtimes[k][0]:.3f}" for k in mtimes)
+        + " ms (plain masked " + f"{mp_a:.1f} ms, bound "
+        f"{bounds['A masked'][0]:.4f} ms masked, {bounds['A sedov'][0]:.4f} "
+        f"all); C exact: "
+        + " / ".join(f"{mtimes[k][1]:.3f}" for k in mtimes)
+        + f" ms (plain masked {mp_c:.1f} ms, bound "
+        f"{bounds['C masked'][0]:.4f} ms masked, {bounds['C sedov'][0]:.4f} "
+        f"all)")
+
+    # ---- 23. B = 1 equals the global-dt loop, on the card ----------------
+    st_g1, _, dts_g1, ovf_g1 = wengine.simulate(st_s, cfg_s, dom_s, spec_s,
+                                                2, rebuild_every=1)
+    st_r1, dts_r1, nact1, ovf_r1, viol1, builds1 = drive(
+        "rungs B=1", lambda: rungs.simulate_rungs(
+            st_s, cfg_s, dom_s, spec_s, nspans=2, n_rungs=1,
+            rebuild_every=1),
+        {"solve_h_density": 3, "forces": 2})
+    assert int(ovf_g1) == 0 and int(ovf_r1) == 0 and int(viol1) == 0
+    assert builds1 == 2 and bool((nact1 == st_s.n).all())
+    torch.testing.assert_close(dts_r1, dts_g1, rtol=1e-6, atol=0.0)
+    b1_err = {}
+    for k in ("pos", "vel", "u", "rho", "h"):
+        a, b = getattr(st_r1, k), getattr(st_g1, k)
+        torch.testing.assert_close(a, b, rtol=5e-5, atol=1e-6, msg=k)
+        b1_err[k] = float((a - b).abs().max())
+    log(f"[23 B=1] simulate_rungs(n_rungs=1) vs wengine.simulate, N="
+        f"{st_s.n}, 2 steps: dts equal at 1e-6, max abs differences "
+        f"{b1_err} (rtol 5e-5, atol 1e-6)")
+
+    # ---- 24. the rung path at full width, through the CLI ----------------
+    rung_recs = {}
+    masks = {}          # per CLI run and tick: groups active, before masking
+    real_mask = rungs.mask_structure
+
+    def counted_mask(wd, spec, act_s):
+        out = real_mask(wd, spec, act_s)
+        masks[label].append((wk._group_active(out, spec).sum(),
+                             wk._group_active(wd, spec).sum()))
+        return out
+
+    for label, extra_args in (("rungs=4 CLI", []),
+                              ("rungs=4 adaptive=8 CLI", ["adaptive=8"])):
+        out = fresh(os.path.join("build", "smoke", label.replace(" ", "_")))
+        masks[label] = []
+        t0 = time.perf_counter()
+        # the set-up's derived pass, the seeding pass of kernel A, then A
+        # and C once per tick
+        rungs.mask_structure = counted_mask
+        try:
+            st_c, t_c, step_c = drive(label, lambda: cli(
+                ["sedov", "n=100", "rungs=4", "max_steps=16", "chunk=16",
+                 f"out={out}"] + extra_args),
+                {"solve_h_density": 18, "forces": 17})
+        finally:
+            rungs.mask_structure = real_mask
+        wall_c = time.perf_counter() - t0
+        masks[label] = [(int(a), int(b)) for a, b in masks[label]]
+        assert len(masks[label]) == 16, masks[label]
+        recs = records(out)
+        assert step_c == 16 and [r["step"] for r in recs] == [16, 16], recs
+        r0 = recs[0]
+        assert all(r["finite"] for r in recs) and r0["h_capped"] == 0, recs
+        for f_ in ("pos", "vel", "h", "rho", "u", "acc", "du_dt"):
+            assert bool(torch.isfinite(getattr(st_c, f_)).all()), f_
+        closings = r0["active_frac"] * st_c.n * 16
+        assert r0["dt_viol"] < 0.05 * closings, r0
+        assert r0["active_frac"] < 0.5, r0
+        if extra_args:
+            assert 1 <= r0["rebuilds"] < 8, r0
+        drift = abs(energy(st_c) - e0_s) / e0_s
+        rung_recs[label] = dict(r0, energy_drift=drift, t=t_c)
+        log(f"[24 {label}] N={st_c.n}: 16 ticks to t={t_c:.4g} in "
+            f"{wall_c:.2f} s with set-up; overflow 0, h_capped 0, "
+            f"active_frac {r0['active_frac']:.4f}, dt_viol {r0['dt_viol']} "
+            f"of {closings:.0f} closings, rebuilds {r0.get('rebuilds')}, "
+            f"energy drift {drift:.3g}, CLI record "
+            f"{r0['particle_steps_per_sec']:.4g} particle-ticks/s")
+
+    # the same 16 ticks three ways, in turns; the host clock around a run
+    # that ends in a synchronise
+    real_build = win.build
+    built = []
+
+    def counted_build(*a, **k):
+        built[-1] += 1
+        return real_build(*a, **k)
+
+    def clocked(fn):
+        built.append(0)
+        win.build = counted_build
+        try:
+            torch.cuda.synchronize()
+            t0_ = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0_) / 16 * 1e3, out
+        finally:
+            win.build = real_build
+
+    ways = {
+        "rungs": lambda: rungs.simulate_rungs(st_s, cfg_s, dom_s, spec_s,
+                                              nspans=2, n_rungs=4),
+        "rungs adaptive=8": lambda: rungs.simulate_rungs(
+            st_s, cfg_s, dom_s, spec_s, nspans=2, n_rungs=4,
+            adaptive_rebuild=8),
+        "global dt": lambda: wengine.simulate(st_s, cfg_s, dom_s, spec_s,
+                                              16),
+    }
+    tick_ms = {k: [] for k in ways}
+    outs, builds = {}, {}       # builds: calls of window.build in the run
+    for k in ("rungs", "rungs adaptive=8", "global dt", "global dt",
+              "rungs adaptive=8", "rungs"):
+        ms, outs[k] = clocked(ways[k])
+        tick_ms[k].append(ms)
+        builds[k] = built[-1]
+    _, dts_r, nact_r, ovf_r, viol_r, builds_r = outs["rungs"]
+    _, dts_a, nact_a, ovf_a, viol_a, builds_a = outs["rungs adaptive=8"]
+    st_gd, _, dts_gd, ovf_gd = outs["global dt"]
+    assert int(ovf_r) == int(ovf_a) == int(ovf_gd) == 0
+    # a rung run builds once more than it reports, for the pass that seeds
+    # the viscosity factor
+    assert (builds["rungs"], builds["rungs adaptive=8"]) == (
+        builds_r + 1, builds_a + 1), builds
+    assert torch.equal(nact_a, nact_r), (nact_a, nact_r)
+    fracs = (nact_r.double() / st_s.n).tolist()
+    rung_ms = {k: float(np.median(v)) for k, v in tick_ms.items()}
+    log(f"[24 ticks] {card} | sedov N={st_s.n}, B=4, 16 ticks, ms per tick "
+        f"(two runs each, in turns): "
+        + "; ".join(f"{k} {v[0]:.2f}, {v[1]:.2f}" for k, v in
+                    tick_ms.items())
+        + f"; builds: rungs {builds_r}, adaptive {builds_a}, global dt "
+        f"{builds['global dt']}; "
+        f"simulated time: rungs {float(dts_r.sum()):.5g}, global dt "
+        f"{float(dts_gd.sum()):.5g}; dt_viol {int(viol_r)}; active fraction "
+        f"per tick " + " ".join(f"{x:.4f}" for x in fracs)
+        + f" (mean {sum(fracs) / 16:.4f}); global-dt energy drift "
+        f"{abs(energy(st_gd) - e0_s) / e0_s:.3g}")
+
+    # one more rung run with CUDA events around every launch of A and C,
+    # and the groups each launch found active
+    launches = []
+    real_a, real_c = wk.solve_h_density, wk.forces
+
+    def timed(fn, name):
+        def inner(wd, spec, *a, **k):
+            e0_, e1_ = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+            e0_.record()
+            out = fn(wd, spec, *a, **k)
+            e1_.record()
+            launches.append((name, wk._group_active(wd, spec).sum(), e0_,
+                             e1_))
+            return out
+        return inner
+
+    wk.solve_h_density, wk.forces = timed(real_a, "A"), timed(real_c, "C")
+    try:
+        ways["rungs"]()
+        torch.cuda.synchronize()
+    finally:
+        wk.solve_h_density, wk.forces = real_a, real_c
+    per_tick = {"A": [], "C": []}
+    for which, groups, e0_, e1_ in launches[1:]:    # [0]: the seeding pass
+        per_tick[which].append((int(groups), e0_.elapsed_time(e1_)))
+    assert len(per_tick["A"]) == len(per_tick["C"]) == 16
+    kern_ms = {k: sum(ms for _, ms in v) / 16 for k, v in per_tick.items()}
+    grp_share = sum(g for g, _ in per_tick["A"]) / (16 * n_had)
+    log(f"[24 kernels] per tick, active groups of {n_had} with candidates "
+        f"and ms: A " + " ".join(f"{g}:{ms:.3f}" for g, ms in per_tick["A"])
+        + "; C " + " ".join(f"{g}:{ms:.3f}" for g, ms in per_tick["C"])
+        + f"; mean per tick A {kern_ms['A']:.3f} ms, C {kern_ms['C']:.3f} "
+        f"ms at a mean active-group share of {grp_share:.4f}")
+
+    # where a rung run's device time goes: the profiler's kernel times by
+    # kind; the idle share is taken against the unprofiled wall above
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ways["rungs"]()
+        torch.cuda.synchronize()
+    kinds = (("kernel A", ("solve_h_density",)), ("kernel C", ("forces_",)),
+             ("sorts", ("RadixSort", "radix_sort", "Onesweep")),
+             ("gathers and scatters", ("index", "gather", "scatter")),
+             ("packing and copies", ("CatArray", "Memcpy", "copy")),
+             ("reductions", ("reduce",)),
+             ("elementwise", ("elementwise",)))
+    dev_ms = {k: 0.0 for k, _ in kinds}
+    dev_ms["other"] = 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        kind = next((k for k, pats in kinds
+                     if any(p_ in e.name for p_ in pats)), "other")
+        dev_ms[kind] += e.time_range.elapsed_us() / 1e3 / 16
+    busy = sum(dev_ms.values())
+    assert dev_ms["kernel A"] > 0 and dev_ms["kernel C"] > 0, dev_ms
+    log(f"[24 profile] device ms per tick by kind (16 ticks, profiler): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in dev_ms.items())
+        + f"; busy {busy:.2f} of {rung_ms['rungs']:.2f} ms a tick unprofiled "
+        f"(idle share {1 - busy / rung_ms['rungs']:.3f})")
+
+    # ---- 25. the Sedov shock-radius gate on the window engine (fp64) -----
+    def sedov_gate(n_rungs):
+        prob = problems.sedov(n=14, dtype=torch.float64)
+        assert prob.engine_name == "window"
+        st, t, n = prob.state, 0.0, 0
+        e0 = energy(st)
+        if n_rungs == 1:
+            st, _, t, n = run_mod.simulate_until(
+                st, prob.cfg, prob.domain, prob.engine, t_end=0.06,
+                chunk=32, max_steps=3000)
+        while n_rungs > 1 and t < 0.06 and n < 6000:
+            st, dts, ovf, _, _, _ = rung_chunk(prob, st, n_rungs, 32)
+            assert int(ovf) == 0
+            t, n = t + float(dts.sum()), n + len(dts)
+        assert bool(torch.isfinite(st.rho).all())
+        ic = dict(E=1.0, rho0=1.0)
+        r_meas = sedov_diag.measured_shock_radius(
+            st.pos.cpu().numpy(), st.rho.cpu().numpy(),
+            np.array([0.5, 0.5, 0.5]), ic["rho0"])
+        r_th = sedov_diag.shock_radius(t, ic["E"], ic["rho0"],
+                                       prob.cfg.gamma)
+        return prob, n, t, r_meas, r_th, abs(energy(st) - e0) / e0
+
+    gate_s = {}
+    for n_rungs, e_tol in ((1, 2e-2), (3, 4e-2)):
+        t0 = time.perf_counter()
+        prob25, n25, t25, r_meas, r_th, de = drive(
+            "sedov gate " + (f"rungs={n_rungs}" if n_rungs > 1
+                             else "global dt"),
+            lambda: sedov_gate(n_rungs),
+            lambda out: ({"solve_h_density": 1 + out[1],
+                          "forces": 1 + out[1]} if n_rungs == 1 else
+                         {"solve_h_density": 1 + out[1] + out[1] // 32,
+                          "forces": 1 + out[1]}))
+        wall25 = time.perf_counter() - t0
+        assert abs(r_meas - r_th) / r_th < 0.25, (r_meas, r_th, t25)
+        assert de < e_tol, de
+        gate_s[n_rungs] = dict(steps=n25, t=t25, r_meas=r_meas, r_th=r_th,
+                               energy_drift=de, wall_s=wall25)
+        log(f"[25 Sedov gate] rungs={n_rungs} N={prob25.state.n} fp64 "
+            f"window engine: {n25} ticks to t={t25:.4f} in {wall25:.2f} s; "
+            f"shock radius {r_meas:.4f} vs R(t) {r_th:.4f} "
+            f"({abs(r_meas - r_th) / r_th:.3f} < 0.25); energy drift "
+            f"{de:.3g} (< {e_tol})")
+
+    # ---- 26. dim=1: a periodic line of 2^20 particles --------------------
+    n1 = 1 << 20
+    cfg1 = configs.SPHConfig(dim=1, gamma=1.4, adaptive_h=True, grad_h=True,
+                             balsara=True, newton_iters=2)
+    gen1 = torch.Generator(device=dev).manual_seed(6)
+    st1 = make_state(
+        torch.as_tensor(lattice.cubic_lattice((n1,), [0.0], [1.0]),
+                        dtype=torch.float32, device=dev)
+        + (0.2 / n1) * (2.0 * torch.rand((n1, 1), generator=gen1,
+                                         device=dev) - 1.0),
+        0.1 * torch.randn((n1, 1), generator=gen1, device=dev),
+        torch.full((n1,), 1.0 / n1, device=dev),
+        torch.ones(n1, device=dev),
+        torch.full((n1,), cfg1.eta / n1, device=dev))
+    dom1 = box(torch.zeros(1, device=dev), torch.ones(1, device=dev))
+    spec1 = win.plan_measured(st1.pos, dom1, h_max=float(st1.h.max()) * 1.3,
+                              dim=1, **KH_KNOBS)
+    spec1c = with_cwidth(spec1, st1.pos, dom1)
+    assert spec1.n_seg == 1
+    line = {}
+    for tag, sp in (("", spec1), ("_compact", spec1c)):
+        keys = {f"solve_h_density{tag}_1d": 1, f"forces{tag}_1d": 1}
+        st1d = drive(f"1d derived{tag}", lambda: wengine.update_derived(
+            st1, cfg1, dom1, sp), keys)
+        t0 = time.perf_counter()
+        st1s, _, dts1, ovf1 = drive(
+            f"1d simulate{tag}", lambda: wengine.simulate(
+                st1d, cfg1, dom1, sp, 4), {k: 4 for k in keys})
+        wall1 = (time.perf_counter() - t0) / 4
+        assert int(ovf1) == 0 and bool((dts1 > 0).all())
+        for f_ in ("pos", "vel", "h", "rho", "u", "acc", "du_dt"):
+            assert bool(torch.isfinite(getattr(st1s, f_)).all()), f_
+        assert int(wengine.capped_count(st1s, sp)) == 0
+        line[tag] = (st1d, wall1 * 1e3)
+    wd1 = win.build(st1.pos, dom1, spec1)
+    wd1c = win.build(st1.pos, dom1, spec1c)
+    assert torch.equal(wd1c.g, wd1.g) and int(wd1c.overflow) == 0
+    f1 = sorted_fields(line[""][0], wd1)
+    times1 = {}
+    for tag, w, sp in (("", wd1, spec1), ("_compact", wd1c, spec1c)):
+        for dtype in (torch.float32, torch.float64):
+            fd = {k: v.to(dtype) for k, v in f1.items()}
+            a_args = [fd[k] for k in A_ARGS]
+            c_args = [fd[k] for k in C_ARGS]
+            reps = 10 if dtype == torch.float32 else 1
+            a_ms1, got = cuda_ms(lambda: wk.solve_h_density(
+                w, sp, *a_args, cfg1, vel_s=fd["vel_s"]), reps)
+            a_pms1, want = cuda_ms(lambda: wk.solve_h_density_plain(
+                w, sp, *a_args, cfg1, vel_s=fd["vel_s"]), 1)
+            e_a = max(compare(a, b, w.is_real, TOL[dtype],
+                              f"A1{tag} {dtype} out{k}")
+                      for k, (a, b) in enumerate(zip(got, want)))
+            assert not bool(got[4][w.is_real].any())
+            c_ms1, got = cuda_ms(lambda: wk.forces(w, sp, *c_args, cfg1),
+                                 reps)
+            c_pms1, want = cuda_ms(lambda: wk.forces_plain(
+                w, sp, *c_args, cfg1), 1)
+            e_c = max(compare(a, b, w.is_real, TOL[dtype],
+                              f"C1{tag} {dtype} out{k}")
+                      for k, (a, b) in enumerate(zip(got, want)))
+            log(f"[26 dim=1] {'compact ' if tag else 'in place'} "
+                f"{str(dtype):13s}: A cold kernel {a_ms1:.3f} ms plain "
+                f"{a_pms1:.1f} ms max abs err {e_a:.3g}, max err/scale "
+                f"{worst(f'A1{tag} {dtype}'):.3g}; C exact kernel "
+                f"{c_ms1:.3f} ms plain {c_pms1:.1f} ms max abs err "
+                f"{e_c:.3g}, {worst(f'C1{tag} {dtype}'):.3g} (tol "
+                f"{TOL[dtype]})")
+            if dtype == torch.float32:
+                times1[tag] = dict(A=(a_ms1, a_pms1, e_a),
+                                   C=(c_ms1, c_pms1, e_c))
+    del fd, got, want
+    walked1, computed1 = candidate_rows(wd1, spec1)
+    pa1, pc1, _ = pair_counts(wd1, spec1, f1["pos_s"], f1["mass_s"],
+                              f1["h_s"])
+    bounds["A1"] = kernel_bound("A", spec1, f1["pos_s"], pa1,
+                                iters=cfg1.newton_iters, bals=True)
+    bounds["C1"] = kernel_bound("C", spec1, f1["pos_s"], pc1, bf=True)
+    cst1 = c_stats(wd1c)
+    log(f"[26 dim=1] {card} | N={n1} wseg={spec1.wseg} group={spec1.group} "
+        f"cwidth={spec1c.cwidth}: {line[''][1]:.2f} ms a step in place, "
+        f"{line['_compact'][1]:.2f} ms compact (4 steps each); candidate "
+        f"rows per real row walked {walked1:.1f}, compacted {cst1[3]:.1f}; pairs inside the "
+        f"support per real row A {pa1 / n1:.2f}, C {pc1 / n1:.2f}; bounds A "
+        f"{bounds['A1'][0]:.4f} ms ({bounds['A1'][1]}), C "
+        f"{bounds['C1'][0]:.4f} ms ({bounds['C1'][1]})")
+
     def total(kernel):
         return sum(p_[kernel] for p_ in paths.values())
 
     src = "sphax_torch/csrc/window_kernels.cu"
     a_ms, a_pms, a_e = times["A h_predict"]
     c_ms, c_pms, c_e = times["C"]
+
+    # the launches at N = 1e6 on the rung path's tables: the two CLI runs
+    # of phase 24, A's seeding pass and the set-up's passes apart (one mask
+    # per tick, one launch of A and of C on it)
+    ticks_m = [m for v in masks.values() for m in v]
+    masked_keys = {
+        "launches": len(ticks_m),
+        "launches_partial_mask": sum(a < b for a, b in ticks_m),
+        "launches_mean_active_group_share":
+            sum(a / b for a, b in ticks_m) / len(ticks_m)}
 
     def bound_keys(key):
         # no single PyTorch call computes these kernels' functions
@@ -1112,6 +1602,37 @@ def main():
                   "max_abs_err": ctimes["C2"][2], "ms": ctimes["C2"][0],
                   "plain_ms": ctimes["C2"][1],
                   "in_place_ms": ctimes["C2"][3], **bound_keys("C2")}},
+        # kernels A and C on the rung path's masked tables: the Sedov
+        # N = 1e6 structure with 10 % of the particles closing (phase 22,
+        # where ms and the bound are taken at active_group_share); launches
+        # are the ticks of the CLI's rung runs at that size (phase 24)
+        {"name": "solve_h_density on masked tables", "route": "cuda",
+         "source": src, "replaces": "sphax/physics/pallas_kernels.py:373",
+         **masked_keys,
+         "max_abs_err": mask_e[torch.float32][0],
+         "ms": mtimes["masked"][0], "plain_ms": mp_a,
+         **bound_keys("A masked"), "active_group_share": share[0],
+         "active_tile_share": share[1], "ms_unmasked": mtimes["all"][0],
+         "bound_ms_unmasked": bounds["A sedov"][0],
+         "ms_all_masked": mtimes["none"][0]},
+        {"name": "forces on masked tables", "route": "cuda", "source": src,
+         "replaces": "sphax/physics/pallas_kernels.py:640",
+         **masked_keys,
+         "max_abs_err": mask_e[torch.float32][1],
+         "ms": mtimes["masked"][1], "plain_ms": mp_c,
+         **bound_keys("C masked"), "active_group_share": share[0],
+         "active_tile_share": share[1], "ms_unmasked": mtimes["all"][1],
+         "bound_ms_unmasked": bounds["C sedov"][0],
+         "ms_all_masked": mtimes["none"][1]},
+        *[{"name": f"{base}{tag}_1d", "route": "cuda", "source": src,
+           "replaces": "sphax/physics/pallas_kernels.py:"
+                       + ("529" if which == "A" else "583"),
+           "launches": total(f"{base}{tag}_1d"),
+           "max_abs_err": times1[tag][which][2],
+           "ms": times1[tag][which][0], "plain_ms": times1[tag][which][1],
+           **bound_keys(f"{which}1"), "n": n1}
+          for tag in ("", "_compact")
+          for which, base in (("A", "solve_h_density"), ("C", "forces"))],
         {"name": "gravity", "route": "cuda",
          "source": "sphax_torch/csrc/gravity_kernel.cu",
          "replaces": "sphax/physics/pallas_kernels.py:808",
@@ -1134,6 +1655,23 @@ def main():
                             "cwidth": v["cwidth"], "rebuilds": v["rebuilds"]}
                         for k, v in bench_modes.items()},
         "adaptive_step_ms_with_without_gate_read": gate_ms,
+        "rungs": {"n": st_s.n, "n_rungs": 4, "ticks": 16,
+                  "ms_per_tick": rung_ms, "ms_per_tick_runs": tick_ms,
+                  "builds": {"rungs": builds_r, "adaptive": builds_a,
+                             "global dt": builds["global dt"]},
+                  "active_frac_per_tick": fracs,
+                  "kernel_ms_per_tick": kern_ms,
+                  "kernel_ticks": per_tick,
+                  "device_ms_per_tick_by_kind": dev_ms,
+                  "active_group_share": grp_share,
+                  "candidate_rows_walked": walked_s,
+                  "cli": rung_recs, "b1_max_abs_diff": b1_err,
+                  "sedov_gate": gate_s},
+        "dim1": {"n": n1, "step_ms": line[""][1],
+                 "step_ms_compact": line["_compact"][1],
+                 "candidate_rows_walked": walked1,
+                 "candidate_rows_computed": computed1,
+                 "c_n_mean_p99_max_per_row": cst1},
         "card": card}
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
@@ -1175,23 +1713,49 @@ def bound(nbytes, flops, dtype):
 
 
 def kernel_bound(kind, spec, pos_s, pairs, iters=0, bals=False, bf=False,
-                 grav_pairs=0):
+                 grav_pairs=0, masked=None):
     """The bound of one launch of kernel A or C: its SoA window, h0 and
     tables read once and its outputs written once; the operations of the
-    ``pairs`` it needs (``pair_counts``), Newton walks included."""
+    ``pairs`` it needs (``pair_counts``), Newton walks included. With
+    ``masked``, a mask_structure'd WindowData, the SoA rows are read only
+    where an active group needs them (its own rows and its windows); the
+    outputs, and kernel A's h0 that masked rows hand back as h, cover
+    every row."""
     dim, ns, size = spec.dim, spec.n_sorted, pos_s.element_size()
     tables = 2 * spec.n_groups * spec.n_seg * 4
+    ns_in = ns if masked is None else rows_needed(masked, spec)
     if kind == "A":
-        rows = (dim + 1 + (dim if bals else 0)) + 1 + (5 if bals else 3)
+        rows_in, rows_all = dim + 1 + (dim if bals else 0), 1 + (
+            5 if bals else 3)
         per = iters * FLOPS["A_walk"][dim] + (
             FLOPS["A_final_bals"][dim] if bals else FLOPS["A_walk"][dim])
         flops = pairs * per
     else:
-        rows = (2 * dim + 8 + (1 if bf else 0)) + dim + 1
+        rows_in, rows_all = 2 * dim + 8 + (1 if bf else 0), dim + 1
         flops = pairs * (FLOPS["C"][dim] - (0 if bf else 3))
         flops += grav_pairs * FLOPS["C_grav"] + max(
             grav_pairs - pairs, 0) * FLOPS["C_grav_outside"]
-    return bound(rows * ns * size + tables, flops, pos_s.dtype)
+    return bound((rows_in * ns_in + rows_all * ns) * size + tables, flops,
+                 pos_s.dtype)
+
+
+def rows_needed(wd, spec):
+    """Sorted rows that some active group of an in-place structure reads:
+    the union of the active groups' own rows and of their segment ranges
+    [w_lo, w_lo + 128 w_nact)."""
+    assert spec.cwidth == 0
+    lo = wd.w_lo.long()
+    hi = lo + 128 * wd.w_nact.long()
+    own = torch.arange(spec.n_groups, device=lo.device) * spec.group
+    own_n = spec.group * (wd.w_nact.sum(1) > 0).long()
+    lo = torch.cat([lo.reshape(-1), own])
+    hi = torch.cat([hi.reshape(-1), own + own_n])
+    # +1 where a range opens, -1 where it closes; a row is needed where the
+    # running sum is positive
+    edge = torch.zeros(spec.n_sorted + 1, dtype=torch.long, device=lo.device)
+    edge.index_add_(0, lo, torch.ones_like(lo))
+    edge.index_add_(0, hi, -torch.ones_like(hi))
+    return int((edge.cumsum(0)[:-1] > 0).sum())
 
 
 def candidate_rows(wd, spec):

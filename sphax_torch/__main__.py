@@ -16,13 +16,22 @@ visible; ``device=cpu`` runs on the CPU. Window-engine problems run through
 through ``run.simulate``. ``adaptive=K`` rebuilds the window structure on
 the drift gate, with at most K steps of staleness, instead of every 2
 steps; each metrics record then carries ``rebuilds``, the builds of its
-chunk. The dense engine ignores it, as the JAX CLI does. Differences from
-the JAX CLI:
+chunk. The dense engine ignores it, as the JAX CLI does.
+
+``rungs=B`` (B > 1) integrates with block timesteps on B power-of-two rungs
+(``integrate.rungs.simulate_rungs``): a chunk is ceil(chunk / 2^(B-1))
+whole spans of 2^(B-1) ticks, a tick counts as a step, ``adaptive=K`` is
+passed through, and each record carries ``dt_viol`` and ``active_frac``. It
+needs the window engine without self-gravity or OU driving, and a run
+aborts when more than a quarter of a chunk's closings wanted a dt below the
+span's. On the CPU every problem is refused: all but ``turb`` take the dense
+engine there, and ``turb`` is driven. Differences from the JAX CLI:
 
 - every fixed-cadence chunk is a whole number of rebuild periods (2
-  steps), an adaptive chunk any number, and the last chunk is clamped to
-  ``max_steps``: ``max_steps=K`` runs K steps, K + 1 for an odd K at the
-  fixed cadence (the JAX CLI runs whole chunks past it);
+  steps), an adaptive chunk any number, a rung chunk a whole number of
+  spans, and the last chunk is clamped to ``max_steps``: ``max_steps=K``
+  runs K steps, K + 1 for an odd K at the fixed cadence, K rounded up to
+  whole spans with ``rungs=B`` (the JAX CLI runs whole chunks past it);
 - bool overrides parse 0/1, true/false, yes/no, on/off, and raise on
   anything else (the JAX CLI reads ``h_predict=false`` as True);
 - ``profile=1`` traces the first chunk of the loop with ``torch.profiler``
@@ -30,9 +39,11 @@ the JAX CLI:
 - the P3M metric ``mesh_fb`` is not logged: it counts the rows that fall
   back from the JAX package's sorted mesh, which the port does not have
   (``ROADMAP.md`` queue 1, item 11);
+- with ``rungs=B`` and ``adaptive=K`` each record carries ``rebuilds``, as
+  the global-dt adaptive loop's do;
 - not ported yet, and refused: ``shards>1`` (the multi-device layer,
-  ROADMAP slice 5), ``rungs>1`` (block timesteps, slice 3), ``plot=1``
-  (``diag/plots.py`` needs matplotlib, which the card's machine lacks).
+  ROADMAP slice 5), ``plot=1`` (``diag/plots.py`` needs matplotlib, which
+  the card's machine lacks).
 """
 from __future__ import annotations
 
@@ -73,15 +84,40 @@ def _refuse_unported(kv):
     if str(kv.pop("shards", 1)) != "1":
         raise SystemExit("shards>1 (the multi-device layer) is not ported "
                          "yet: ROADMAP.md slice 5")
-    if int(kv.pop("rungs", 1)) > 1:
-        raise SystemExit("rungs>1 (block timesteps) is not ported yet: "
-                         "ROADMAP.md slice 3")
     if int(kv.pop("plot", 0)):
         raise SystemExit("plot=1 is not ported: diag/plots.py needs "
                          "matplotlib (ROADMAP.md queue 1)")
     if int(kv.pop("rebuild_every", 2)) != 2:
         raise SystemExit("rebuild_every: the single-device loop rebuilds "
                          "the window structure every 2 steps")
+
+
+def rung_chunk(prob, state, n_rungs: int, chunk: int, adaptive: int = 0):
+    """One chunk of the block-timestep loop on the problem ``prob``:
+    ceil(chunk / 2^(n_rungs-1)) whole spans from ``state``. Returns (state,
+    dts, overflow, dt_viol, active_frac, builds): ``dt_viol`` the closings
+    that wanted a dt below their span's dt_min, ``active_frac`` the closing
+    particles per tick over N. The CFL safety factor absorbs a few such
+    closings; a persistent rate means the rung ladder is too deep for the
+    problem, so above 25 % of the closings this raises rather than integrate
+    past the CFL condition, and above 5 % it warns."""
+    from sphax_torch.integrate import rungs
+
+    span = 1 << (n_rungs - 1)
+    nspans = max(1, -(-chunk // span))
+    state, dts, nacts, ovf, viol, builds = rungs.simulate_rungs(
+        state, prob.cfg, prob.domain, prob.wspec, nspans, n_rungs=n_rungs,
+        rebuild_every=2 if span % 2 == 0 else 1, adaptive_rebuild=adaptive)
+    tot, viol = int(nacts.sum()), int(viol)
+    if viol > 0.25 * tot:
+        raise RuntimeError(
+            f"{viol} dt-violating closings in a chunk of {tot} active "
+            "closings (> 25%); the rung span outruns the CFL condition: "
+            "use fewer rungs")
+    if viol > 0.05 * tot:
+        print(f"  warning: {viol} dt-violating closings (dt wanted < span "
+              "dt_min): consider fewer rungs")
+    return state, dts, ovf, viol, tot / (state.n * len(nacts)), builds
 
 
 def main(argv=None):
@@ -101,6 +137,9 @@ def main(argv=None):
     # adaptive=K: drift-gated window rebuilds, at most K steps of staleness
     # (0: every 2 steps)
     adaptive = int(kv.pop("adaptive", 0))
+    # rungs=B > 1: block timesteps on B rungs (window engine, no gravity or
+    # driving)
+    n_rungs = int(kv.pop("rungs", 1))
     device = torch.device(str(kv.pop("device", "cuda")))
     _refuse_unported(kv)
     if chunk < 1:
@@ -138,9 +177,20 @@ def main(argv=None):
           f"device={card} engine={prob.engine_name}")
 
     gated = adaptive > 0 and prob.wspec is not None
+    if n_rungs > 1 and (prob.wspec is None or prob.cfg.gravity or driven):
+        raise SystemExit(
+            "rungs>1 needs the window engine without self-gravity or OU "
+            "driving (see sphax_torch/integrate/rungs.py scope); on the CPU "
+            "the problems take the dense engine")
+    rung_info = {}
 
     def run_chunk(state, drive, nsteps):
         """(state, drive, dts, overflow, builds of the chunk)."""
+        if n_rungs > 1:
+            state, dts, ovf, viol, frac, builds = rung_chunk(
+                prob, state, n_rungs, nsteps, adaptive)
+            rung_info.update(dt_viol=viol, active_frac=frac)
+            return state, drive, dts, ovf, builds if gated else None
         if driven:
             prob.noise.reseed(prob.seed, step)
         if prob.wspec is not None:
@@ -162,7 +212,7 @@ def main(argv=None):
     nchunks = 0
     while t < t_end and not (max_steps and step >= max_steps):
         nsteps = min(chunk, max_steps - step) if max_steps else chunk
-        if not gated:
+        if not gated and n_rungs == 1:
             nsteps += nsteps % 2             # whole rebuild periods
         trace = (metrics.profile_trace(os.path.join(out, "trace"))
                  if profile and nchunks == 0 else contextlib.nullcontext())
@@ -187,11 +237,15 @@ def main(argv=None):
                                                              prob.wspec))
             if gated:
                 extra["rebuilds"] = builds
+            extra.update(rung_info)
             rec = log.log(state, prob.cfg, t, step, **extra)
             capmsg = (f" h_capped={extra['h_capped']}"
                       if extra.get("h_capped") else "")
             if gated:
                 capmsg += f" rebuilds={builds}"
+            if n_rungs > 1:
+                capmsg += (f" active_frac={rung_info['active_frac']:.2f}"
+                           f" dt_viol={rung_info['dt_viol']}")
             print(f"  t={t:.4f} step={step} "
                   f"pss={rec['particle_steps_per_sec']:.3e} "
                   f"E={rec['e_total']:.5f} mach={rec['mach_rms']:.2f}"

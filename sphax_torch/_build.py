@@ -51,10 +51,10 @@ _ARGTYPES = {
 _ARGTYPES.update({f"{k}_compact": v[:v.index(_D)] + [_I] + v[v.index(_D):]
                   for k, v in tuple(_ARGTYPES.items())
                   if k != "sphax_gravity"})
-# the 2D instantiations of kernels A and C take the same arguments
-_ARGTYPES.update({f"{k}{c}_2d": _ARGTYPES[f"{k}{c}"]
+# the 2D and 1D instantiations of kernels A and C take the same arguments
+_ARGTYPES.update({f"{k}{c}_{d}d": _ARGTYPES[f"{k}{c}"]
                   for k in ("sphax_solve_h_density", "sphax_forces")
-                  for c in ("", "_compact")})
+                  for c in ("", "_compact") for d in (2, 1)})
 
 
 def _nvcc() -> str:

@@ -4,9 +4,10 @@
 //   kernel A  sphax/physics/pallas_kernels.py:315  solve_h_density
 //   kernel C  sphax/physics/pallas_kernels.py:563  forces, with its fused P3M
 //             `grav=(rs, eps)` branch (:592-599, :747-769) as the GRAV mode
-// Both are templates on the dimension DIM, instantiated for DIM = 3 and
-// DIM = 2 (the Pallas kernels' dim-generic code, :337-362, :480-489,
-// :523-531, :583-618). A row-group has NSEG = 3^(DIM-1) pencil segments.
+// Both are templates on the dimension DIM, instantiated for DIM = 3, 2 and
+// 1 (the Pallas kernels' dim-generic code, :337-362, :480-489, :523-531,
+// :583-618). A row-group has NSEG = 3^(DIM-1) pencil segments: one in 1D,
+// where the dedup has nothing to compare and the curl is zero (:529-530).
 // The GRAV mode is 3D only, as the P3M mesh is. Each kernel also has a
 // compact walk (`*_compact_kernel`, the Pallas kernels' spec.cwidth > 0
 // mode, :195-236), described below.
@@ -38,6 +39,11 @@
 // at N = 1,572,864 (kh n=1024, read off w_nact by chip_smoke.py), so the
 // walk is bound, as in 3D, by the distance test of candidates that lie
 // outside the support.
+//
+// In 1D a row has about 5 neighbours inside 2h (4 eta with eta = 1.3) and
+// its group walks one segment of about a group's rows plus the reach on
+// either side plus the alignment, so nearly every candidate fails the
+// support test and the walk is bound by that test, as above.
 //
 // The compact mode (spec.cwidth > 0; the Pallas kernels' `_compact_view`,
 // pallas_kernels.py:195-236, entered at :346-351 and :619-626, dedup
@@ -197,7 +203,8 @@ __device__ __forceinline__ T dot(const T (&a)[DIM], const T (&b)[DIM]) {
 template <typename T, int DIM>
 struct DensSums {
   T rho, drdh, div;
-  T curl[DIM == 3 ? 3 : 1];  // 3D: the curl vector; 2D: its one component
+  // 3D: the curl vector; 2D: its one component; 1D: stays zero
+  T curl[DIM == 3 ? 3 : 1];
 };
 
 // SoA rows of the density window: DIM positions, m (, DIM velocities).
@@ -247,7 +254,7 @@ __device__ __forceinline__ void density_segment(
         acc.curl[0] += mw * (dv[1] * dx[2] - dv[2] * dx[1]);
         acc.curl[1] += mw * (dv[2] * dx[0] - dv[0] * dx[2]);
         acc.curl[2] += mw * (dv[0] * dx[1] - dv[1] * dx[0]);
-      } else {
+      } else if constexpr (DIM == 2) {
         acc.curl[0] += mw * (dv[0] * dx[1] - dv[1] * dx[0]);
       }
     }
@@ -638,7 +645,8 @@ cudaError_t launch_forces(const void* win, const void* tab_lo,
 
 extern "C" {
 
-// Kernel A: sphax_solve_h_density_{f32,f64} (3D), ..._2d_{f32,f64} (2D).
+// Kernel A: sphax_solve_h_density_{f32,f64} (3D), ..._2d_{f32,f64} (2D),
+// ..._1d_{f32,f64} (1D).
 #define SPHAX_A_ENTRY(NAME, T, DIM)                                         \
   cudaError_t NAME(const void* win, const void* h0, const void* w_lo,       \
                    const void* w_nact, int Ns, int tile, int group,         \
@@ -653,11 +661,13 @@ SPHAX_A_ENTRY(sphax_solve_h_density_f32, float, 3)
 SPHAX_A_ENTRY(sphax_solve_h_density_f64, double, 3)
 SPHAX_A_ENTRY(sphax_solve_h_density_2d_f32, float, 2)
 SPHAX_A_ENTRY(sphax_solve_h_density_2d_f64, double, 2)
+SPHAX_A_ENTRY(sphax_solve_h_density_1d_f32, float, 1)
+SPHAX_A_ENTRY(sphax_solve_h_density_1d_f64, double, 1)
 #undef SPHAX_A_ENTRY
 
 // Kernel A's compact walk: sphax_solve_h_density_compact_{f32,f64} (3D),
-// ..._compact_2d_{f32,f64} (2D); the runs c_lo, c_len and cwidth in place
-// of w_lo, w_nact.
+// ..._compact_2d_{f32,f64} (2D), ..._compact_1d_{f32,f64} (1D); the runs
+// c_lo, c_len and cwidth in place of w_lo, w_nact.
 #define SPHAX_AC_ENTRY(NAME, T, DIM)                                        \
   cudaError_t NAME(const void* win, const void* h0, const void* c_lo,       \
                    const void* c_len, int Ns, int tile, int group,          \
@@ -672,9 +682,12 @@ SPHAX_AC_ENTRY(sphax_solve_h_density_compact_f32, float, 3)
 SPHAX_AC_ENTRY(sphax_solve_h_density_compact_f64, double, 3)
 SPHAX_AC_ENTRY(sphax_solve_h_density_compact_2d_f32, float, 2)
 SPHAX_AC_ENTRY(sphax_solve_h_density_compact_2d_f64, double, 2)
+SPHAX_AC_ENTRY(sphax_solve_h_density_compact_1d_f32, float, 1)
+SPHAX_AC_ENTRY(sphax_solve_h_density_compact_1d_f64, double, 1)
 #undef SPHAX_AC_ENTRY
 
-// Kernel C without gravity: sphax_forces_{f32,f64} (3D), ..._2d_* (2D).
+// Kernel C without gravity: sphax_forces_{f32,f64} (3D), ..._2d_* (2D),
+// ..._1d_* (1D).
 #define SPHAX_C_ENTRY(NAME, T, DIM)                                         \
   cudaError_t NAME(const void* win, const void* w_lo, const void* w_nact,   \
                    int Ns, int tile, int group, double alpha, double beta,  \
@@ -688,10 +701,12 @@ SPHAX_C_ENTRY(sphax_forces_f32, float, 3)
 SPHAX_C_ENTRY(sphax_forces_f64, double, 3)
 SPHAX_C_ENTRY(sphax_forces_2d_f32, float, 2)
 SPHAX_C_ENTRY(sphax_forces_2d_f64, double, 2)
+SPHAX_C_ENTRY(sphax_forces_1d_f32, float, 1)
+SPHAX_C_ENTRY(sphax_forces_1d_f64, double, 1)
 #undef SPHAX_C_ENTRY
 
 // Kernel C's compact walk without gravity: sphax_forces_compact_* (3D),
-// ..._compact_2d_* (2D).
+// ..._compact_2d_* (2D), ..._compact_1d_* (1D).
 #define SPHAX_CC_ENTRY(NAME, T, DIM)                                        \
   cudaError_t NAME(const void* win, const void* c_lo, const void* c_len,    \
                    int Ns, int tile, int group, int cwidth, double alpha,   \
@@ -705,6 +720,8 @@ SPHAX_CC_ENTRY(sphax_forces_compact_f32, float, 3)
 SPHAX_CC_ENTRY(sphax_forces_compact_f64, double, 3)
 SPHAX_CC_ENTRY(sphax_forces_compact_2d_f32, float, 2)
 SPHAX_CC_ENTRY(sphax_forces_compact_2d_f64, double, 2)
+SPHAX_CC_ENTRY(sphax_forces_compact_1d_f32, float, 1)
+SPHAX_CC_ENTRY(sphax_forces_compact_1d_f64, double, 1)
 #undef SPHAX_CC_ENTRY
 
 // Kernel C with the fused P3M short range (3D): gsc -> the three split

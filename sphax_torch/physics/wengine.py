@@ -363,9 +363,18 @@ def drift_gate(state: ParticleState, ref, dt, spec: WindowSpec,
     dt (v + dt/2 a) with the carried acceleration, so the end-of-drift
     displacement is exact before the walk. Reads one bool back from the
     device."""
-    disp = state.pos + dt * (state.vel + 0.5 * dt * state.acc) - ref
+    return skin_spent(state.pos + dt * (state.vel + 0.5 * dt * state.acc),
+                      ref, state.h, spec, skin_safety)
+
+
+def skin_spent(pos, ref, h, spec: WindowSpec, skin_safety: float) -> bool:
+    """True when some particle at ``pos`` is far enough from its build
+    position ``ref`` to threaten the Verlet skin: a pair now within 2 h_max
+    was at most 2 max_drift farther apart at build time. Reads one bool
+    back from the device."""
+    disp = pos - ref
     maxd2 = torch.sum(disp * disp, dim=-1).amax()
-    slack = torch.clamp_min(spec.cutoff - 2.0 * state.h.amax(), 0.0)
+    slack = torch.clamp_min(spec.cutoff - 2.0 * h.amax(), 0.0)
     return bool(4.0 * maxd2 >= (skin_safety * slack) ** 2)
 
 

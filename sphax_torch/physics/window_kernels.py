@@ -4,8 +4,9 @@
 and Balsara div/curl sums) and ``forces`` (kernel C: symmetrized pressure
 force, Monaghan viscosity and du/dt, plus the fused screened P3M short-range
 gravity with ``grav=(rs, eps)``) replace the Pallas TPU kernels
-``sphax.physics.pallas_kernels.solve_h_density`` and ``.forces``, in 3D
-and in 2D (the ``kh`` problem); the gravity mode is 3D only.
+``sphax.physics.pallas_kernels.solve_h_density`` and ``.forces``, in 3D,
+in 2D (the ``kh`` problem) and in 1D (one segment per group, no curl); the
+gravity mode is 3D only.
 
 Each wrapper chooses by the device of its input tensors: a CUDA tensor
 launches the hand-written CUDA kernel (``sphax_torch/csrc/window_kernels.cu``,
@@ -43,14 +44,15 @@ from sphax_torch.physics import pairs
 
 # Launches of each CUDA kernel; a wrapper adds one where it launches.
 # "forces_grav" counts kernel C's gravity mode, "forces" its plain SPH mode,
-# "gravity" kernel G (physics/direct_gravity.py); the "_2d" keys count the
-# dim=2 instantiations of kernels A and C, the "_compact" keys their
-# compact walks.
+# "gravity" kernel G (physics/direct_gravity.py); the "_2d" and "_1d" keys
+# count the dim=2 and dim=1 instantiations of kernels A and C, the
+# "_compact" keys their compact walks.
 LAUNCHES = {"solve_h_density": 0, "forces": 0, "forces_grav": 0,
             "gravity": 0, "solve_h_density_2d": 0, "forces_2d": 0,
             "solve_h_density_compact": 0, "forces_compact": 0,
             "forces_grav_compact": 0, "solve_h_density_compact_2d": 0,
-            "forces_compact_2d": 0}
+            "forces_compact_2d": 0, "solve_h_density_1d": 0, "forces_1d": 0,
+            "solve_h_density_compact_1d": 0, "forces_compact_1d": 0}
 
 
 def _newton_iters(cfg: SPHConfig) -> int:
@@ -172,7 +174,7 @@ def solve_h_density_plain(wd: WindowData, spec: WindowSpec, pos_s, mass_s,
             divv_p, curl_p = pairs.balsara_terms(lp.dx, lp.r, dv, lp.own(h),
                                                  mj, dim)
             curl = lp.sum(curl_p, shape)
-            # a vector in 3D, one scalar component in 2D
+            # a vector in 3D, one scalar component in 2D, zero in 1D
             curl_mag = (torch.sqrt(torch.sum(curl * curl, dim=-1))
                         if dim == 3 else torch.abs(curl))
             outs += (lp.sum(divv_p, shape), curl_mag)
@@ -234,9 +236,9 @@ def _ptr(t):
 def _check_cuda(wd: WindowData, spec: WindowSpec, cfg: SPHConfig, ref,
                 tensors, grav=False):
     """Raise on anything the CUDA kernels do not take."""
-    if cfg.dim != spec.dim or cfg.dim not in (2, 3):
+    if cfg.dim != spec.dim or cfg.dim not in (1, 2, 3):
         raise NotImplementedError(f"the CUDA window kernels are built for "
-                                  f"dim 2 and 3 (cfg.dim={cfg.dim}, "
+                                  f"dim 1, 2 and 3 (cfg.dim={cfg.dim}, "
                                   f"spec.dim={spec.dim})")
     if grav and cfg.dim != 3:
         raise NotImplementedError("kernel C's gravity mode is 3D only, as "
@@ -272,8 +274,9 @@ def _tables(spec: WindowSpec):
 
 def _walk(base: str, wd: WindowData, spec: WindowSpec, dim: int):
     """The walk's entry point and launch key (``base``, ``base_2d`` in 2D,
-    ``base_compact[_2d]`` for the compact walk), its two group tables, and
-    its size arguments: n_sorted, tile, group, and cwidth when compact."""
+    ``base_1d`` in 1D, ``base_compact[_2d, _1d]`` for the compact walk),
+    its two group tables, and its size arguments: n_sorted, tile, group,
+    and cwidth when compact."""
     compact = spec.cwidth > 0
     name = _kernel_name(f"{base}_compact" if compact else base, dim)
     tabs = [_ptr(getattr(wd, t)) for t in _tables(spec)]
@@ -283,7 +286,8 @@ def _walk(base: str, wd: WindowData, spec: WindowSpec, dim: int):
 
 
 def _kernel_name(base: str, dim: int) -> str:
-    """The C entry point and launch key: ``base`` in 3D, ``base_2d`` in 2D."""
+    """The C entry point and launch key: ``base`` in 3D, ``base_2d`` in 2D,
+    ``base_1d`` in 1D."""
     return base if dim == 3 else f"{base}_{dim}d"
 
 
@@ -302,7 +306,7 @@ def _launch(fn_name, dtype, *args):
 
 def solve_h_density(wd: WindowData, spec: WindowSpec, pos_s, mass_s, h0_s,
                     cfg: SPHConfig, vel_s=None):
-    """Kernel A, in 3D or 2D, in place or (spec.cwidth > 0) compact.
+    """Kernel A, in 3D, 2D or 1D, in place or (spec.cwidth > 0) compact.
     Returns (h, rho, drho_dh[, div_sum, curl_mag]) per sorted row; the last
     two only when cfg.need_divv and vel_s is given."""
     if pos_s.device.type == "cpu":
@@ -334,7 +338,7 @@ def solve_h_density(wd: WindowData, spec: WindowSpec, pos_s, mass_s, h0_s,
 
 def forces(wd: WindowData, spec: WindowSpec, pos_s, vel_s, mass_s, h_s,
            rho_s, P_s, cs_s, om_s, bf_s, cfg: SPHConfig, grav=None):
-    """Kernel C, in 3D or 2D, in place or (spec.cwidth > 0) compact.
+    """Kernel C, in 3D, 2D or 1D, in place or (spec.cwidth > 0) compact.
     Returns (acc_s [Ns, D], du_s [Ns]); ``bf_s``
     is read only when cfg.visc_factor_on. ``grav=(rs, eps)`` (3D only) adds
     the screened P3M short range over the same candidates, hard-cut at

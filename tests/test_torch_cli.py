@@ -102,8 +102,8 @@ def test_bad_overrides_raise(kv):
         problems._cfg_kw(tconf.KH, kv)
 
 
-@pytest.mark.parametrize("opt", ["shards=2", "shards=2x2", "rungs=2",
-                                 "plot=1", "rebuild_every=4"])
+@pytest.mark.parametrize("opt", ["shards=2", "shards=2x2", "plot=1",
+                                 "rebuild_every=4"])
 def test_unported_options_raise(opt, tmp_path):
     with pytest.raises(SystemExit, match="not ported|rebuilds"):
         main(SOD + [opt, f"out={tmp_path}"])

@@ -1,6 +1,7 @@
 """The CUDA kernels A, C (with and without its P3M gravity mode; A and C
-in 3D and in 2D, in place and compact) and G against their plain torch
-versions, on a card.
+in 3D, 2D and 1D, in place and compact, and on the masked tables of the
+block-timestep path) and G against their plain torch versions, on a card;
+and block timesteps with one rung against the global-dt loop.
 
 These tests import no JAX (the machine with the card has none) and skip
 where no CUDA device is visible. Run them on the card without the suite's
@@ -22,7 +23,8 @@ import torch
 
 from sphax_torch import configs, make_state
 from sphax_torch.core.state import box
-from sphax_torch.ics import kh, turbulence
+from sphax_torch.ics import kh, lattice, turbulence
+from sphax_torch.integrate import rungs
 from sphax_torch.neighbors import window as win
 from sphax_torch.physics import direct_gravity as dg
 from sphax_torch.physics import pm, wengine
@@ -42,6 +44,10 @@ A_CASES_2D = {
     "kh_balsara_off": dataclasses.replace(configs.KH, balsara=False),
 }
 KNOBS_2D = dict(cutoff_scale=1.25, fast_sub=3, rgroups=2)
+# 1D: a periodic line of 2^15 particles, the production window knobs
+CFG_1D = configs.SPHConfig(dim=1, gamma=1.4, adaptive_h=True, grad_h=True,
+                           balsara=True, newton_iters=2)
+N_1D = 1 << 15
 P3M = dataclasses.replace(configs.TURB, newton_iters=1, gravity=True,
                           grav_solver="p3m", grav_mesh=32)
 
@@ -59,14 +65,22 @@ def _inputs(device, dtype, n_side=16, seed=0, periodic=True, dim=3,
     ghost rows, from the turbulence ICs (3D) or the Kelvin-Helmholtz ICs
     with nx = 4 n_side (2D) and a seeded generator; ``compact`` plans the
     compacted candidate lists (``window.plan_compact``)."""
-    ic = (turbulence.build(n_side=n_side) if dim == 3
-          else kh.build(nx=4 * n_side))
+    if dim == 1:
+        ic = dict(pos=lattice.cubic_lattice((N_1D,), [0.0], [1.0]),
+                  vel=0.0, mass=1.0 / N_1D, u=1.0, h=CFG_1D.eta / N_1D)
+        ic = {k: torch.as_tensor(v, dtype=dtype).expand(
+            (N_1D, 1) if k in ("pos", "vel") else (N_1D,)).clone()
+            for k, v in ic.items()}
+    else:
+        ic = (turbulence.build(n_side=n_side) if dim == 3
+              else kh.build(nx=4 * n_side))
     st = make_state(*(torch.as_tensor(ic[k], dtype=dtype, device=device)
                       for k in ("pos", "vel", "mass", "u", "h")))
     dom = box(torch.zeros(dim, dtype=dtype, device=device),
               torch.ones(dim, dtype=dtype, device=device), periodic=periodic)
     h_max = float(st.h.max()) * (1.05 if dim == 3 else 1.3)
     plan = win.plan_compact if compact else win.plan_measured
+    # the 1D line takes the 2D problem's knobs (problems._window_engine's)
     spec = plan(st.pos, dom, h_max=h_max, dim=dim,
                 **(KNOBS if dim == 3 else KNOBS_2D))
     wd = win.build(st.pos, dom, spec)
@@ -270,6 +284,104 @@ def test_forces_compact_kernel_matches_plain(cuda, dtype, fast, mode):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("compact", [False, True])
+def test_1d_kernels_match_plain(cuda, dtype, compact):
+    """The dim=1 instantiations of kernels A (cold, 2 Newton updates; its
+    curl output is zero) and C (exact, and fp32 fast_math), in place and
+    compact, each under its own launch key."""
+    _, _, spec, wd, f = _inputs(cuda, dtype, dim=1, compact=compact)
+    assert spec.n_seg == 1 and bool(spec.cwidth) == compact
+    tag = "_compact" if compact else ""
+    args = (f["pos_s"], f["mass_s"], f["h0_s"])
+    n0 = dict(wk.LAUNCHES)
+    got = wk.solve_h_density(wd, spec, *args, CFG_1D, vel_s=f["vel_s"])
+    torch.cuda.synchronize()
+    assert _launched(n0, f"solve_h_density{tag}_1d")
+    want = wk.solve_h_density_plain(wd, spec, *args, CFG_1D,
+                                    vel_s=f["vel_s"])
+    for k, (a, b) in enumerate(zip(got, want)):
+        _compare(a, b, wd.is_real, TOL[dtype], f"A 1d output {k}")
+    assert not bool(got[4][wd.is_real].any())
+    args = [f[k] for k in ("pos_s", "vel_s", "mass_s", "h_s", "rho_s", "P_s",
+                           "cs_s", "om_s", "bf_s")]
+    want = wk.forces_plain(wd, spec, *args, CFG_1D)
+    for fast in ((False, True) if dtype == torch.float32 else (False,)):
+        n0 = dict(wk.LAUNCHES)
+        got = wk.forces(wd, spec, *args,
+                        dataclasses.replace(CFG_1D, fast_math=fast))
+        torch.cuda.synchronize()
+        assert _launched(n0, f"forces{tag}_1d")
+        assert tuple(got[0].shape) == (spec.n_sorted, 1)
+        tol = 2e-3 if fast else TOL[dtype]
+        _compare(got[0], want[0], wd.is_real, tol, "acc")
+        _compare(got[1], want[1], wd.is_real, tol, "du")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("compact", [False, True])
+def test_masked_kernels_match_plain(cuda, dtype, compact):
+    """Kernels A and C on ``rungs.mask_structure``d tables (the rows within
+    0.25 of the box centre active, about 7 % of the box): against the plain
+    versions on the real rows of active groups; on the masked groups h is
+    h0 and every other output exactly zero."""
+    cfg = A_CASES["cold_newton2"]
+    _, _, spec, wd, f = _inputs(cuda, dtype, compact=compact)
+    act_s = (f["pos_s"] - 0.5).norm(dim=-1) < 0.25
+    wm = rungs.mask_structure(wd, spec, act_s)
+    act = act_s.reshape(spec.n_groups, spec.group).any(1).repeat_interleave(
+        spec.group)
+    assert 0 < int(act.sum()) < act.numel()
+    assert torch.equal(wk._group_active(wm, spec).repeat_interleave(
+        spec.group), act & wk._group_active(wd, spec).repeat_interleave(
+            spec.group))
+    rows = act & wd.is_real
+    args = (f["pos_s"], f["mass_s"], f["h0_s"])
+    got = wk.solve_h_density(wm, spec, *args, cfg, vel_s=f["vel_s"])
+    want = wk.solve_h_density_plain(wm, spec, *args, cfg, vel_s=f["vel_s"])
+    for k, (a, b) in enumerate(zip(got, want)):
+        _compare(a, b, rows, TOL[dtype], f"masked A output {k}")
+    assert torch.equal(got[0][~act], f["h0_s"][~act])
+    assert not any(bool(o[~act].any()) for o in got[1:])
+    args = [f[k] for k in ("pos_s", "vel_s", "mass_s", "h_s", "rho_s", "P_s",
+                           "cs_s", "om_s", "bf_s")]
+    got = wk.forces(wm, spec, *args, cfg)
+    want = wk.forces_plain(wm, spec, *args, cfg)
+    _compare(got[0], want[0], rows, TOL[dtype], "masked acc")
+    _compare(got[1], want[1], rows, TOL[dtype], "masked du")
+    assert not bool(got[0][~act].any()) and not bool(got[1][~act].any())
+
+
+@pytest.mark.gpu
+def test_rungs_b1_matches_simulate_on_the_card(cuda):
+    """Block timesteps with one rung against the global-dt loop from one
+    state, fp32, 2 steps with a rebuild every step: dts at 1e-6, the state
+    at rtol 5e-5 and atol 1e-6 (the two sum in other orders)."""
+    cfg = dataclasses.replace(configs.TURB, newton_iters=2)
+    st, dom, spec, _, f = _inputs(cuda, torch.float32, n_side=28, seed=5)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    st = st._replace(vel=0.3 * torch.randn(st.vel.shape, generator=g,
+                                           device=cuda))
+    st = wengine.update_derived(st, cfg, dom, spec)
+    st_g, _, dts_g, ovf_g = wengine.simulate(st, cfg, dom, spec, 2,
+                                             rebuild_every=1)
+    n0 = dict(wk.LAUNCHES)
+    st_r, dts_r, nact, ovf_r, viol, builds = rungs.simulate_rungs(
+        st, cfg, dom, spec, nspans=2, n_rungs=1, rebuild_every=1)
+    torch.cuda.synchronize()
+    # the seeding pass of kernel A, then A and C once per tick
+    assert {k: wk.LAUNCHES[k] - n0[k] for k in n0} == {
+        k: {"solve_h_density": 3, "forces": 2}.get(k, 0) for k in n0}
+    assert int(ovf_g) == 0 and int(ovf_r) == 0 and int(viol) == 0
+    assert builds == 2 and bool((nact == st.n).all())
+    torch.testing.assert_close(dts_r, dts_g, rtol=1e-6, atol=0.0)
+    for k in ("pos", "vel", "u", "rho", "h"):
+        torch.testing.assert_close(getattr(st_r, k), getattr(st_g, k),
+                                   rtol=5e-5, atol=1e-6, msg=k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n", [1000, 5000])
 def test_gravity_kernel_matches_plain(cuda, dtype, n):
     """Kernel G, with N not a multiple of the column tile."""
@@ -293,9 +405,9 @@ def test_gravity_kernel_matches_plain(cuda, dtype, n):
 def test_cuda_tensor_never_runs_the_plain_version(cuda, monkeypatch):
     """A derived pass on the card launches each kernel of its branch once
     and calls no plain version: no gravity, P3M (kernel C in its gravity
-    mode), direct gravity in an open box (kernel G), and the 2D kh
-    configuration (the dim=2 kernels); and all but the direct one with a
-    compact spec (the compact walks)."""
+    mode), direct gravity in an open box (kernel G), the 2D kh
+    configuration (the dim=2 kernels) and the 1D line (the dim=1 kernels);
+    and all but the direct one with a compact spec (the compact walks)."""
     def refuse(*a, **k):
         raise AssertionError("plain version called on a CUDA tensor")
 
@@ -315,6 +427,9 @@ def test_cuda_tensor_never_runs_the_plain_version(cuda, monkeypatch):
                            "forces_grav_compact")),
         (configs.KH, True, True, ("solve_h_density_compact_2d",
                                   "forces_compact_2d")),
+        (CFG_1D, True, False, ("solve_h_density_1d", "forces_1d")),
+        (CFG_1D, True, True, ("solve_h_density_compact_1d",
+                              "forces_compact_1d")),
     ]
     for cfg, periodic, compact, kernels in cases:
         st, dom, spec, _, _ = _inputs(cuda, torch.float32, periodic=periodic,
