@@ -8,7 +8,10 @@ configuration with the compact walks of kernels A and C, with drift-gated
 rebuilds, and with both, and the CLI's turb with ``adaptive=8``; then block
 timesteps, ``python -m sphax_torch sedov n=100 rungs=4`` (kernels A and C on
 masked tables) beside global dt, the Sedov shock-radius gate, and a 1D line
-of 2^20 particles through the dim=1 kernels.
+of 2^20 particles through the dim=1 kernels; then what the warp cull of
+kernels A and C keeps at each path's shapes, the kernels against plain on
+inputs no lattice gives them, and the derived pass on the card against the
+NumPy reference.
 
     python3 chip_smoke.py
 
@@ -117,12 +120,35 @@ Phases, in order; any failed check raises and exits non-zero:
                place and compact: the ``_1d`` kernels A and C
                once per pass and step; against plain, fp32 3e-5 and fp64
                1e-10; ms per launch and bounds
+ 27. cull      per real row at the bench, P3M, kh, Sedov and 1D shapes, in
+               place and compact: the candidate rows, the survivors of the
+               warp's cull (``window_kernels.cull_stats``, the kernels' rule
+               as plain torch) and the pairs inside the support. Then
+               kernels A (cold, 2 Newton updates) and C against plain, fp32
+               3e-5 and fp64 1e-10, in place and compact, on a clustered
+               state (half of 65,536 particles drawn toward 4 centres, h
+               from the local density, about 10x apart, so that a warp's
+               buffer fills many times in a walk), on an open box of 45^3
+               particles whose last warp mixes real and pad rows
+ 28. reference ``wengine.update_derived`` through the kernels, in place and
+               compact, 3D (13^3) and 2D (44^2), 10 Newton updates with
+               grad-h and Balsara, against ``sphax_torch.reference_cpu`` on
+               the host: fp64 at 1e-8; fp32 h, rho, P, Omega at 1e-5 and
+               acc, du/dt at 3e-5 of the largest value
+ 29. profile   the device time of a step by kind of kernel (profiler) and
+               the idle share against the unprofiled wall, 16 steps each:
+               the bench configuration in place and compact, and kh n=1024
 Each path runs with every launch count set to 0 just before it, and its
 counts are read just after. Each kernel's bound is the larger of its bytes
 over 3.35 TB/s and its operations on the pairs these inputs need (inside
 the support, or the cutoff for the gravity mode) over 67 TFLOP/s fp32
-(34 fp64). The line before the last holds the kernels' record; the last
-line is {"ok": true, "device": {...}}.
+(34 fp64). The line before the last holds the kernels' record: every row
+of kernels A and C also carries the candidates, the survivors and the pairs
+inside the support per real row. The survivors are what the cull's rule
+keeps on this run's inputs, counted by its plain torch statement
+(``window_kernels.cull_stats``); the kernels do not report what they
+staged.
+The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -166,7 +192,9 @@ def main():
     from sphax_torch import run as run_mod
     from sphax_torch.__main__ import main as cli
     from sphax_torch.__main__ import rung_chunk
-    from sphax_torch.ab_kernels import sorted_fields
+    from sphax_torch import reference_cpu
+    from sphax_torch.ab_kernels import (line_inputs, sedov_inputs,
+                                        sorted_fields, with_cwidth)
     from sphax_torch.core.state import box
     from sphax_torch.diag import sedov as sedov_diag
     from sphax_torch.ics import kh as kh_ics
@@ -237,6 +265,19 @@ def main():
             margin, kn = 1.3, KH_KNOBS
         st = make_state(*(torch.as_tensor(ic[k], dtype=dtype, device=dev)
                           for k in ("pos", "vel", "mass", "u", "h")))
+        dom = box(torch.zeros(dim, dtype=dtype, device=dev),
+                  torch.ones(dim, dtype=dtype, device=dev))
+        plan = win.plan_compact if compact else win.plan_measured
+        spec = plan(st.pos, dom, h_max=float(st.h.max()) * margin, dim=dim,
+                    **kn)
+        wd = win.build(st.pos, dom, spec)
+        return cfg, spec, wd, seeded_fields(st, wd, seed)
+
+    def seeded_fields(st, wd, seed):
+        """Sorted kernel inputs for the positions, masses and h of ``st``:
+        a seeded 0.4 N(0,1) velocity and plausible seeded per-particle
+        fields for kernel C, owner-consistent on ghost rows."""
+        dtype = st.pos.dtype
         g = torch.Generator(device=dev).manual_seed(seed)
 
         def rnd(lo, hi, shape=(st.n,)):
@@ -244,12 +285,6 @@ def main():
                                                dtype=dtype, device=dev)
         vel = 0.4 * torch.randn(st.vel.shape, generator=g, dtype=dtype,
                                 device=dev)
-        dom = box(torch.zeros(dim, dtype=dtype, device=dev),
-                  torch.ones(dim, dtype=dtype, device=dev))
-        plan = win.plan_compact if compact else win.plan_measured
-        spec = plan(st.pos, dom, h_max=float(st.h.max()) * margin, dim=dim,
-                    **kn)
-        wd = win.build(st.pos, dom, spec)
         rho = rnd(0.8, 1.2)
         cols = {"vel_s": (vel, 0.0), "mass_s": (st.mass, 0.0),
                 "h0_s": (st.h, 1.0), "h_s": (st.h * rnd(0.95, 1.05), 1.0),
@@ -259,7 +294,7 @@ def main():
         f = {k: win.gather_sorted(v, wd, fill) for k, (v, fill)
              in cols.items()}
         f["pos_s"] = wd.pos_s
-        return cfg, spec, wd, f
+        return f
 
     A_MODES = {
         "cold": dataclasses.replace(configs.TURB, newton_iters=1),
@@ -336,6 +371,10 @@ def main():
         f"err {e:.3g}, max err/scale {worst('derived'):.3g} (tol 3e-5)")
 
     paths = {}
+
+    def _key(base, compact, dim):
+        """The launch key of a walk (window_kernels._walk's)."""
+        return wk._kernel_name(f"{base}_compact" if compact else base, dim)
 
     def drive(name, run, want):
         """Run one path with every launch count set to 0 just before it;
@@ -657,6 +696,31 @@ def main():
                 f"{e:.3g}, max err/scale {worst(f'C2 {tag} {dtype}'):.3g} "
                 f"(tol {tol})")
 
+    KINDS = (("kernel A", ("solve_h_density",)), ("kernel C", ("forces_",)),
+             ("sorts", ("RadixSort", "radix_sort", "Onesweep")),
+             ("gathers and scatters", ("index", "gather", "scatter")),
+             ("packing and copies", ("CatArray", "Memcpy", "copy")),
+             ("reductions", ("reduce",)),
+             ("elementwise", ("elementwise",)))
+
+    def device_ms_by_kind(run, n):
+        """One profiled call of ``run`` (``n`` steps): the device time of
+        its CUDA kernels per step, summed by kind of kernel."""
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        out = {k: 0.0 for k, _ in KINDS}
+        out["other"] = 0.0
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            kind = next((k for k, pats in KINDS
+                         if any(p_ in e.name for p_ in pats)), "other")
+            out[kind] += e.time_range.elapsed_us() / 1e3 / n
+        assert out["kernel A"] > 0 and out["kernel C"] > 0, out
+        return out
+
     def fresh(path):
         """An empty output directory under the checkout's build/."""
         shutil.rmtree(path, ignore_errors=True)
@@ -940,14 +1004,6 @@ def main():
         f"{recs[0]['mach_rms']:.4g}")
 
     # ---- 21. compact times at the N = 1e6 shapes, beside in-place -------
-    def with_cwidth(spec, pos, dom_):
-        """``spec`` with plan_compact's width for these positions (its
-        probe build at cwidth 128): the same sort and windows, so the same
-        sorted inputs serve both walks."""
-        probe = win.build(pos, dom_, dataclasses.replace(spec, cwidth=128))
-        cw = int(math.ceil(int(probe.c_max) * 1.2 / 128) * 128)
-        return dataclasses.replace(spec, cwidth=max(cw, 128))
-
     def turns(fa, fb, reps=10, rounds=2):
         """Median ms of two launch functions timed in turns a, b, b, a."""
         ta, tb = [], []
@@ -1092,33 +1148,22 @@ def main():
                       * st.vel.double().pow(2).sum(-1)).sum()
                      + (st.mass.double() * st.u.double()).sum())
 
-    prob_s = problems.sedov(n=100)
+    # on the resting lattice the terms of d rho/d h cancel to nearly
+    # nothing, so the kernels are held on positions jittered by a seeded
+    # 0.2 of a spacing (as in phase 26), with a seeded 0.4 N(0,1) velocity
+    # for the Balsara sums and the viscosity (ab_kernels.sedov_inputs); the
+    # rung runs below start from the lattice itself. Closing: the ball
+    # around the blast centre that holds 10 % of the box's volume
+    prob_s, st_j, wd_s, fs, close_s, masks_s = sedov_inputs(dev)
     assert prob_s.engine_name == "window" and prob_s.state.n == 100 ** 3
     st_s, cfg_s, dom_s, spec_s = (prob_s.state, prob_s.cfg, prob_s.domain,
                                   prob_s.wspec)
     e0_s = energy(st_s)
     n_had = int(wk._group_active(win.build(st_s.pos, dom_s, spec_s),
                                  spec_s).sum())
-    # on the resting lattice the terms of d rho/d h cancel to nearly
-    # nothing, so the kernels are held on positions jittered by a seeded
-    # 0.2 of a spacing (as in phase 26), where every output has a size of
-    # its own; the rung runs below start from the lattice itself
-    gen_s = torch.Generator(device=dev).manual_seed(7)
-    st_j = st_s._replace(pos=dom_s.wrap(st_s.pos + (0.2 / 100) * (
-        2.0 * torch.rand(st_s.pos.shape, generator=gen_s, device=dev)
-        - 1.0)))
-    wd_s = win.build(st_j.pos, dom_s, spec_s)
     assert int(wd_s.overflow) == 0
-    fs = sorted_fields(st_j, wd_s)
-    # the blast starts at rest: a seeded 0.4 N(0,1) velocity, as in phases
-    # 3 and 4, gives the Balsara sums and the viscosity work
-    fs["vel_s"] = win.gather_sorted(0.4 * torch.randn(
-        st_s.vel.shape, generator=gen_s, device=dev), wd_s)
-    # the ball around the blast centre that holds 10 % of the box's volume
-    r_ball = (0.1 * 3.0 / (4.0 * math.pi)) ** (1.0 / 3.0)
-    close_s = (st_j.pos - 0.5).norm(dim=-1) < r_ball
     act_rows = win.gather_sorted(close_s.to(st_s.pos.dtype), wd_s) > 0.5
-    wm_s = rungs.mask_structure(wd_s, spec_s, act_rows)
+    wm_s = masks_s["tenth"]
     none_s = rungs.mask_structure(wd_s, spec_s,
                                   torch.zeros_like(act_rows))
     act_g = act_rows.reshape(spec_s.n_groups, spec_s.group).any(1)
@@ -1160,7 +1205,8 @@ def main():
     a_args = [fs[k] for k in A_ARGS]
     c_args = [fs[k] for k in C_ARGS]
     mtimes = {}
-    for label, w in (("all", wd_s), ("masked", wm_s), ("none", none_s)):
+    for label, w in (("all", wd_s), ("masked", wm_s), ("none", none_s),
+                     ("4 groups", masks_s["4 groups"])):
         a_t = cuda_ms(lambda: wk.solve_h_density(
             w, spec_s, *a_args, cfg_s, vel_s=fs["vel_s"]), 5)[0]
         c_t = cuda_ms(lambda: wk.forces(w, spec_s, *c_args, cfg_s), 5)[0]
@@ -1192,12 +1238,14 @@ def main():
         f"{spec_s.n_sorted}; candidate rows per "
         f"real row {walked_s:.1f}; A cold ({cfg_s.newton_iters} Newton "
         f"updates) all / masked / none: "
-        + " / ".join(f"{mtimes[k][0]:.3f}" for k in mtimes)
-        + " ms (plain masked " + f"{mp_a:.1f} ms, bound "
+        + " / ".join(f"{mtimes[k][0]:.3f}" for k in ("all", "masked", "none"))
+        + f" ms, 4 groups {mtimes['4 groups'][0]:.3f} ms (plain masked "
+        f"{mp_a:.1f} ms, bound "
         f"{bounds['A masked'][0]:.4f} ms masked, {bounds['A sedov'][0]:.4f} "
         f"all); C exact: "
-        + " / ".join(f"{mtimes[k][1]:.3f}" for k in mtimes)
-        + f" ms (plain masked {mp_c:.1f} ms, bound "
+        + " / ".join(f"{mtimes[k][1]:.3f}" for k in ("all", "masked", "none"))
+        + f" ms, 4 groups {mtimes['4 groups'][1]:.3f} ms (plain masked "
+        f"{mp_c:.1f} ms, bound "
         f"{bounds['C masked'][0]:.4f} ms masked, {bounds['C sedov'][0]:.4f} "
         f"all)")
 
@@ -1367,26 +1415,8 @@ def main():
 
     # where a rung run's device time goes: the profiler's kernel times by
     # kind; the idle share is taken against the unprofiled wall above
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        ways["rungs"]()
-        torch.cuda.synchronize()
-    kinds = (("kernel A", ("solve_h_density",)), ("kernel C", ("forces_",)),
-             ("sorts", ("RadixSort", "radix_sort", "Onesweep")),
-             ("gathers and scatters", ("index", "gather", "scatter")),
-             ("packing and copies", ("CatArray", "Memcpy", "copy")),
-             ("reductions", ("reduce",)),
-             ("elementwise", ("elementwise",)))
-    dev_ms = {k: 0.0 for k, _ in kinds}
-    dev_ms["other"] = 0.0
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        kind = next((k for k, pats in kinds
-                     if any(p_ in e.name for p_ in pats)), "other")
-        dev_ms[kind] += e.time_range.elapsed_us() / 1e3 / 16
+    dev_ms = device_ms_by_kind(ways["rungs"], 16)
     busy = sum(dev_ms.values())
-    assert dev_ms["kernel A"] > 0 and dev_ms["kernel C"] > 0, dev_ms
     log(f"[24 profile] device ms per tick by kind (16 ticks, profiler): "
         + ", ".join(f"{k} {v:.3f}" for k, v in dev_ms.items())
         + f"; busy {busy:.2f} of {rung_ms['rungs']:.2f} ms a tick unprofiled "
@@ -1438,22 +1468,8 @@ def main():
             f"{de:.3g} (< {e_tol})")
 
     # ---- 26. dim=1: a periodic line of 2^20 particles --------------------
-    n1 = 1 << 20
-    cfg1 = configs.SPHConfig(dim=1, gamma=1.4, adaptive_h=True, grad_h=True,
-                             balsara=True, newton_iters=2)
-    gen1 = torch.Generator(device=dev).manual_seed(6)
-    st1 = make_state(
-        torch.as_tensor(lattice.cubic_lattice((n1,), [0.0], [1.0]),
-                        dtype=torch.float32, device=dev)
-        + (0.2 / n1) * (2.0 * torch.rand((n1, 1), generator=gen1,
-                                         device=dev) - 1.0),
-        0.1 * torch.randn((n1, 1), generator=gen1, device=dev),
-        torch.full((n1,), 1.0 / n1, device=dev),
-        torch.ones(n1, device=dev),
-        torch.full((n1,), cfg1.eta / n1, device=dev))
-    dom1 = box(torch.zeros(1, device=dev), torch.ones(1, device=dev))
-    spec1 = win.plan_measured(st1.pos, dom1, h_max=float(st1.h.max()) * 1.3,
-                              dim=1, **KH_KNOBS)
+    st1, cfg1, dom1, spec1 = line_inputs(dev)
+    n1 = st1.n
     spec1c = with_cwidth(spec1, st1.pos, dom1)
     assert spec1.n_seg == 1
     line = {}
@@ -1523,6 +1539,248 @@ def main():
         f"{bounds['A1'][0]:.4f} ms ({bounds['A1'][1]}), C "
         f"{bounds['C1'][0]:.4f} ms ({bounds['C1'][1]})")
 
+    # ---- 27. the cull: survivors per row, and parity off the lattice -----
+    def survivors(wd, spec, f, h_key="h_s", rcut=None):
+        """(candidate rows, survivors) per real row of kernel A's and of
+        kernel C's cull (``rcut``: C's gravity mode)."""
+        a = wk.cull_stats(wd, spec, f["pos_s"], f["mass_s"], f[h_key])
+        c = wk.cull_stats(wd, spec, f["pos_s"], f["mass_s"], f["h_s"],
+                          pair_h=True, rcut=rcut)
+        return {"candidates": a[0], "A": a[1], "C": c[1]}
+
+    n_b, n_s = int(real_b.sum()), int(wd_s.is_real.sum())
+    surv = {
+        "bench": survivors(wd_b, spec_main, fb, "h0_s"),
+        "bench compact": survivors(wd_c, spec_c, fb, "h0_s"),
+        "P3M grav": survivors(wd_g, spec_g, fg, rcut=spec_g.cutoff),
+        "P3M grav compact": survivors(wd_gc, spec_gc, fg,
+                                      rcut=spec_gc.cutoff),
+        "kh": survivors(wd2, spec2, f2, "h0_s"),
+        "kh compact": survivors(wd2c, spec2c, f2, "h0_s"),
+        "sedov": survivors(wd_s, spec_s, fs, "h0_s"),
+        "1d": survivors(wd1, spec1, f1, "h0_s"),
+        "1d compact": survivors(wd1c, spec1c, f1, "h0_s"),
+    }
+    inside = {"bench": (pa / n_b, pc / n_b), "bench compact": (pa / n_b,
+                                                               pc / n_b),
+              "P3M grav": (None, pg_g / st_g.n),
+              "P3M grav compact": (None, pg_g / st_g.n),
+              "kh": (pa2 / n_real2, pc2 / n_real2),
+              "kh compact": (pa2 / n_real2, pc2 / n_real2),
+              "sedov": (pa_s / n_s, pc_s / n_s),
+              "1d": (pa1 / n1, pc1 / n1), "1d compact": (pa1 / n1, pc1 / n1)}
+    for k, v in surv.items():
+        v["inside_A"], v["inside_C"] = inside[k]
+        log(f"[27 cull] {k:17s} per real row: {v['candidates']:.1f} "
+            f"candidates, the warp's cull keeps {v['A']:.1f} (A) and "
+            f"{v['C']:.1f} (C); pairs inside the support "
+            + (f"{v['inside_A']:.1f} (A), " if v["inside_A"] else "")
+            + f"{v['inside_C']:.1f} (C"
+            + (", inside the cutoff)" if "grav" in k else ")"))
+        assert v["A"] <= v["candidates"] and v["C"] <= v["candidates"]
+        assert v["C"] >= v["inside_C"] * 0.999, v
+
+    def parity(tag, wd, spec, f, cfg, rows, dtype, grav=None):
+        """Kernels A and C against plain on ``rows``; the largest absolute
+        errors."""
+        fd = {k: v.to(dtype) for k, v in f.items()}
+        a_args = [fd[k] for k in A_ARGS]
+        got = wk.solve_h_density(wd, spec, *a_args, cfg, vel_s=fd["vel_s"])
+        want = wk.solve_h_density_plain(wd, spec, *a_args, cfg,
+                                        vel_s=fd["vel_s"])
+        torch.cuda.synchronize()
+        assert all(bool(torch.isfinite(o).all()) for o in got), tag
+        e_a = max(compare(a, b, rows, TOL[dtype], f"{tag} A {dtype} out{k}")
+                  for k, (a, b) in enumerate(zip(got, want)))
+        c_args = [fd[k] for k in C_ARGS]
+        got = wk.forces(wd, spec, *c_args, cfg, grav=grav)
+        want = wk.forces_plain(wd, spec, *c_args, cfg, grav=grav)
+        torch.cuda.synchronize()
+        assert all(bool(torch.isfinite(o).all()) for o in got), tag
+        e_c = max(compare(a, b, rows, TOL[dtype], f"{tag} C {dtype} out{k}")
+                  for k, (a, b) in enumerate(zip(got, want)))
+        log(f"[27 {tag}] {str(dtype):13s}: A max abs err {e_a:.3g}, max "
+            f"err/scale {worst(f'{tag} A {dtype}'):.3g}; C {e_c:.3g}, "
+            f"{worst(f'{tag} C {dtype}'):.3g} (tol {TOL[dtype]})")
+        return e_a, e_c
+
+    # a clustered state: half the particles on a jittered lattice, half
+    # drawn toward 4 centres (sigma 0.02), h from the local density (a 64^3
+    # histogram) so that it varies about 10x, also inside one warp at a
+    # cluster's edge; a cluster's cells hold thousands of rows, so a warp's
+    # buffer fills and is walked many times within one walk
+    gen_c = torch.Generator(device=dev).manual_seed(11)
+    n_lat = 32
+    lat = torch.as_tensor(lattice.cubic_lattice((n_lat,) * 3, [0.0] * 3,
+                                                [1.0] * 3),
+                          dtype=torch.float32, device=dev)
+    lat = (lat + (0.3 / n_lat) * (2.0 * torch.rand(
+        lat.shape, generator=gen_c, device=dev) - 1.0)) % 1.0
+    centres = torch.tensor([[0.3, 0.3, 0.35], [0.7, 0.35, 0.6],
+                            [0.4, 0.7, 0.65], [0.65, 0.68, 0.3]], device=dev)
+    blob = (centres[torch.randint(4, (lat.shape[0],), generator=gen_c,
+                                  device=dev)]
+            + 0.02 * torch.randn(lat.shape, generator=gen_c, device=dev))
+    pos_c = torch.cat([lat, blob.clamp(0.05, 0.95)])
+    n_c = pos_c.shape[0]
+    bins = (pos_c * 64).long().clamp(0, 63)
+    flat = (bins[:, 0] * 64 + bins[:, 1]) * 64 + bins[:, 2]
+    count = torch.bincount(flat, minlength=64 ** 3)[flat].float()
+    h_lat = 1.3 / n_lat
+    h_c = (1.3 * (count * 64 ** 3) ** (-1.0 / 3.0)).clamp(h_lat / 12, h_lat)
+    st_c = make_state(pos_c, torch.zeros_like(pos_c),
+                      torch.full((n_c,), 1.0 / n_c, device=dev),
+                      torch.ones(n_c, device=dev), h_c)
+    dom_c = box(torch.zeros(3, device=dev), torch.ones(3, device=dev))
+    cfg_c = dataclasses.replace(configs.TURB, newton_iters=2)
+    off_lattice = {}
+    for compact in (False, True):
+        plan = win.plan_compact if compact else win.plan_measured
+        spec_k = plan(st_c.pos, dom_c, h_max=h_lat * 1.05, dim=3, **knobs)
+        wd_k = win.build(st_c.pos, dom_c, spec_k)
+        assert int(wd_k.overflow) == 0
+        f_k = seeded_fields(st_c, wd_k, seed=12)
+        hs = f_k["h_s"][wd_k.is_real].reshape(-1)
+        warp_h = f_k["h0_s"].reshape(-1, 32)
+        warp_m = f_k["mass_s"].reshape(-1, 32) > 0
+        ratio = (torch.where(warp_m, warp_h, 0.0).amax(1)
+                 / torch.where(warp_m, warp_h, 9.0).amin(1))
+        st_k = survivors(wd_k, spec_k, f_k, "h0_s")
+        tag = "clustered compact" if compact else "clustered"
+        log(f"[27 {tag}] N={n_c} wseg={spec_k.wseg} cwidth={spec_k.cwidth}:"
+            f" h from {float(hs.min()):.4g} to {float(hs.max()):.4g}, up "
+            f"to {float(ratio[warp_m.any(1)].max()):.1f}x inside one warp; "
+            f"{st_k['candidates']:.0f} candidates and {st_k['A']:.0f} (A), "
+            f"{st_k['C']:.0f} (C) survivors per real row (a warp stages "
+            f"128 at a time in A and 96 in C in fp32, half that in fp64)")
+        assert st_k["A"] > 256, st_k     # several flushes a walk
+        assert float(ratio[warp_m.any(1)].max()) > 3.0
+        for dtype in (torch.float32, torch.float64):
+            off_lattice[(tag, dtype)] = parity(tag, wd_k, spec_k, f_k, cfg_c,
+                                               wd_k.is_real, dtype)
+    del lat, blob, pos_c, bins, flat, count, f_k, wd_k
+
+    # the boundary between rows with and without mass: an open box, so the
+    # sort ends on real rows, and N = 45^3 is no multiple of 32, so the
+    # last warp with real rows also holds pad rows (position 0, h = 1)
+    ic = turbulence.build(n_side=45)
+    st_e = make_state(*(torch.as_tensor(ic[k], dtype=torch.float32,
+                                        device=dev)
+                        for k in ("pos", "vel", "mass", "u", "h")))
+    dom_e = box(torch.zeros(3, device=dev), torch.ones(3, device=dev),
+                periodic=False)
+    for compact in (False, True):
+        plan = win.plan_compact if compact else win.plan_measured
+        spec_e = plan(st_e.pos, dom_e, h_max=float(st_e.h.max()) * 1.05,
+                      dim=3, **knobs)
+        wd_e = win.build(st_e.pos, dom_e, spec_e)
+        f_e = seeded_fields(st_e, wd_e, seed=13)
+        warp_m = (f_e["mass_s"] > 0).reshape(-1, 32)
+        mixed = warp_m.any(1) & ~warp_m.all(1)
+        assert int(mixed.sum()) == 1 and int(wd_e.overflow) == 0
+        edge = mixed.repeat_interleave(32) & wd_e.is_real
+        assert bool(edge.any())
+        tag = "edge warp compact" if compact else "edge warp"
+        for dtype in (torch.float32, torch.float64):
+            off_lattice[(tag, dtype)] = parity(tag, wd_e, spec_e, f_e, cfg_c,
+                                               wd_e.is_real, dtype)
+            # and on the mixed warp's own real rows alone
+            parity(tag + " rows", wd_e, spec_e, f_e, cfg_c, edge, dtype)
+
+    # ---- 28. the derived pass on the card against reference_cpu ----------
+    # fp64 at 1e-8: both sides converge h in 10 Newton updates, and what is
+    # left is summation order. fp32: h, rho, P and Omega are sums of 20 to
+    # 70 positive terms and a converged Newton root, each rounded at 6e-8,
+    # held at 1e-5; acc and du/dt are sums of signed pair terms several
+    # times larger than the result, held at 3e-5 of the largest value.
+    REF_TOL = {torch.float64: (1e-8, 1e-8), torch.float32: (1e-5, 3e-5)}
+    ref_err = {}
+    for dim_, n_side_ in ((3, 13), (2, 44)):
+        rng = np.random.default_rng(3)
+        ax = (np.arange(n_side_) + 0.5) / n_side_
+        pos_r = np.stack([g_.ravel() for g_ in np.meshgrid(
+            *([ax] * dim_), indexing="ij")], axis=-1)
+        pos_r = np.mod(pos_r + 0.2 / n_side_
+                       * rng.standard_normal(pos_r.shape), 1.0)
+        n_r = len(pos_r)
+        vel_r = 0.3 * rng.standard_normal((n_r, dim_))
+        mass_r = np.full(n_r, 1.0 / n_r)
+        u_r = 1.0 + 0.5 * rng.random(n_r)
+        h_r = np.full(n_r, 1.3 / n_side_)
+        cfg_r = configs.SPHConfig(dim=dim_, adaptive_h=True, grad_h=True,
+                                  balsara=True, newton_iters=10)
+        t0 = time.perf_counter()
+        der = reference_cpu.update_derived(pos_r, vel_r, mass_r, u_r, h_r,
+                                           cfg_r, box=np.ones(dim_))
+        ref_s = time.perf_counter() - t0
+        for dtype in (torch.float64, torch.float32):
+            st_r = make_state(*(torch.as_tensor(a, dtype=dtype, device=dev)
+                                for a in (pos_r, vel_r, mass_r, u_r, h_r)))
+            dom_r = box(torch.zeros(dim_, dtype=dtype, device=dev),
+                        torch.ones(dim_, dtype=dtype, device=dev))
+            for compact in (False, True):
+                plan = win.plan_compact if compact else win.plan_measured
+                spec_r = plan(st_r.pos, dom_r, h_max=float(h_r.max()) * 1.25,
+                              dim=dim_, **KH_KNOBS)
+                tag = f"{dim_}D{' compact' if compact else ''}"
+                keys = {_key("solve_h_density", compact, dim_): 1,
+                        _key("forces", compact, dim_): 1}
+                out = drive(f"reference {tag} {dtype}",
+                            lambda: wengine.update_derived(
+                                st_r, cfg_r, dom_r, spec_r), keys)
+                assert int(wengine.capped_count(out, spec_r)) == 0
+                every = torch.ones(n_r, dtype=torch.bool, device=dev)
+                tol_s, tol_v = REF_TOL[dtype]
+                errs_r = {}
+                for k in ("h", "rho", "P", "omega", "acc", "du_dt"):
+                    want = torch.as_tensor(der[k], dtype=torch.float64,
+                                           device=dev)
+                    name_ = f"reference {tag} {dtype} {k}"
+                    if k in ("acc", "du_dt"):
+                        compare(getattr(out, k), want, every, tol_v, name_)
+                    else:
+                        torch.testing.assert_close(
+                            getattr(out, k).double(), want, rtol=tol_s,
+                            atol=0.0, msg=name_)
+                        errs[name_] = float(((getattr(out, k).double()
+                                              - want).abs() / want.abs())
+                                            .max())
+                    errs_r[k] = errs[name_]
+                ref_err[f"{tag} {dtype}"] = errs_r
+                log(f"[28 reference_cpu] {tag:10s} {str(dtype):13s} N={n_r}"
+                    f" (reference {ref_s:.1f} s on the host): largest "
+                    f"relative error "
+                    + ", ".join(f"{k} {v:.2g}" for k, v in errs_r.items())
+                    + f" (h, rho, P, omega at {tol_s}; acc, du_dt at "
+                    f"{tol_v} of the largest value)")
+
+
+    # ---- 29. where a step's device time goes ----------------------------
+    def step_profile(tag, run):
+        run()                                   # warm
+        torch.cuda.synchronize()
+        t0_ = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0_) / 16 * 1e3
+        ms = device_ms_by_kind(run, 16)
+        busy_ = sum(ms.values())
+        log(f"[29 profile] {tag}: device ms per step by kind (16 steps, "
+            "profiler): " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+            + f"; busy {busy_:.2f} of {wall_ms:.2f} ms a step unprofiled "
+            f"(idle share {1 - busy_ / wall_ms:.3f})")
+        return dict(ms, busy=busy_, wall_ms=wall_ms)
+
+    where = {
+        "bench": step_profile("bench in place", lambda: wengine.simulate(
+            st_main, cfg_b, dom_main, spec_main, 16)),
+        "bench compact": step_profile(
+            "bench compact", lambda: wengine.simulate(
+                st_main, cfg_b, dom_main, spec_c, 16)),
+        "kh": step_profile("kh n=1024", lambda: wengine.simulate(
+            st_ck, prob_kh.cfg, prob_kh.domain, prob_kh.wspec, 16)),
+    }
+
     def total(kernel):
         return sum(p_[kernel] for p_ in paths.values())
 
@@ -1540,6 +1798,16 @@ def main():
         "launches_mean_active_group_share":
             sum(a / b for a, b in ticks_m) / len(ticks_m)}
 
+    def cull_keys(shapes, which):
+        """What the cull's rule keeps at a row's shapes, by the plain
+        ``cull_stats`` on this run's inputs. Every row takes the
+        cull-and-walk body."""
+        v = surv[shapes]
+        return {"survivors_per_row": v[which],
+                "survivors_from": "window_kernels.cull_stats (plain torch)",
+                "candidates_per_row": v["candidates"],
+                "pairs_inside_per_row": v[f"inside_{which}"]}
+
     def bound_keys(key):
         # no single PyTorch call computes these kernels' functions
         return {"bound_ms": bounds[key][0], "bound_by": bounds[key][1],
@@ -1550,32 +1818,37 @@ def main():
          "replaces": "sphax/physics/pallas_kernels.py:315",
          "launches": total("solve_h_density"), "max_abs_err": a_e,
          "ms": a_ms, "plain_ms": a_pms, **bound_keys("A"),
+         **cull_keys("bench", "A"),
          "ms_cold": times["A cold"][0], "plain_ms_cold": times["A cold"][1],
          "bound_ms_cold": bounds["A cold"][0],
          "dim2": {"replaces": "sphax/physics/pallas_kernels.py:480",
                   "launches": total("solve_h_density_2d"),
                   "max_abs_err": a2_e, "ms": a2_ms, "plain_ms": a2_pms,
-                  **bound_keys("A2"), "n": st_kh.n}},
+                  **bound_keys("A2"), **cull_keys("kh", "A"),
+                  "n": st_kh.n}},
         {"name": "forces", "route": "cuda", "source": src,
          "replaces": "sphax/physics/pallas_kernels.py:563",
          "launches": total("forces") + total("forces_grav"),
          "launches_grav": total("forces_grav"), "max_abs_err": c_e,
          "ms": c_ms, "plain_ms": c_pms, **bound_keys("C"),
+         **cull_keys("bench", "C"),
          "grav": {"replaces": "sphax/physics/pallas_kernels.py:747",
                   "ms": cg["with"][0], "plain_ms": cg["with"][1],
                   "max_abs_err": cg["with"][2], **bound_keys("C grav"),
+                  **cull_keys("P3M grav", "C"),
                   "ms_without_grav": cg["without"][0],
                   "plain_ms_without_grav": cg["without"][1]},
          "dim2": {"replaces": "sphax/physics/pallas_kernels.py:583",
                   "launches": total("forces_2d"), "max_abs_err": c2_e,
                   "ms": c2_ms, "plain_ms": c2_pms, **bound_keys("C2"),
-                  "n": st_kh.n}},
+                  **cull_keys("kh", "C"), "n": st_kh.n}},
         {"name": "solve_h_density_compact", "route": "cuda", "source": src,
          "replaces": "sphax/physics/pallas_kernels.py:195",
          "launches": total("solve_h_density_compact"),
          "max_abs_err": ctimes["A h_predict"][2],
          "ms": ctimes["A h_predict"][0], "plain_ms": ctimes["A h_predict"][1],
-         **bound_keys("A"), "in_place_ms": ctimes["A h_predict"][3],
+         **bound_keys("A"), **cull_keys("bench compact", "A"),
+         "in_place_ms": ctimes["A h_predict"][3],
          "ms_cold": ctimes["A cold"][0],
          "plain_ms_cold": ctimes["A cold"][1],
          "in_place_ms_cold": ctimes["A cold"][3],
@@ -1585,6 +1858,7 @@ def main():
                   "max_abs_err": ctimes["A2"][2], "ms": ctimes["A2"][0],
                   "plain_ms": ctimes["A2"][1],
                   "in_place_ms": ctimes["A2"][3], **bound_keys("A2"),
+                  **cull_keys("kh compact", "A"),
                   "c_n_mean_p99_max_per_row": cst2}},
         {"name": "forces_compact", "route": "cuda", "source": src,
          "replaces": "sphax/physics/pallas_kernels.py:619",
@@ -1592,16 +1866,19 @@ def main():
          "launches_grav": total("forces_grav_compact"),
          "max_abs_err": ctimes["C"][2], "ms": ctimes["C"][0],
          "plain_ms": ctimes["C"][1], **bound_keys("C"),
+         **cull_keys("bench compact", "C"),
          "in_place_ms": ctimes["C"][3],
          "grav": {"ms": ctimes["C grav"][0], "plain_ms": ctimes["C grav"][1],
                   "max_abs_err": ctimes["C grav"][2],
                   "in_place_ms": ctimes["C grav"][3],
                   **bound_keys("C grav"),
+                  **cull_keys("P3M grav compact", "C"),
                   "c_n_mean_p99_max_per_row": cst_g},
          "dim2": {"launches": total("forces_compact_2d"),
                   "max_abs_err": ctimes["C2"][2], "ms": ctimes["C2"][0],
                   "plain_ms": ctimes["C2"][1],
-                  "in_place_ms": ctimes["C2"][3], **bound_keys("C2")}},
+                  "in_place_ms": ctimes["C2"][3], **bound_keys("C2"),
+                  **cull_keys("kh compact", "C")}},
         # kernels A and C on the rung path's masked tables: the Sedov
         # N = 1e6 structure with 10 % of the particles closing (phase 22,
         # where ms and the bound are taken at active_group_share); launches
@@ -1611,26 +1888,31 @@ def main():
          **masked_keys,
          "max_abs_err": mask_e[torch.float32][0],
          "ms": mtimes["masked"][0], "plain_ms": mp_a,
-         **bound_keys("A masked"), "active_group_share": share[0],
+         **bound_keys("A masked"), **cull_keys("sedov", "A"),
+         "active_group_share": share[0],
          "active_tile_share": share[1], "ms_unmasked": mtimes["all"][0],
          "bound_ms_unmasked": bounds["A sedov"][0],
-         "ms_all_masked": mtimes["none"][0]},
+         "ms_all_masked": mtimes["none"][0],
+         "ms_4_groups": mtimes["4 groups"][0]},
         {"name": "forces on masked tables", "route": "cuda", "source": src,
          "replaces": "sphax/physics/pallas_kernels.py:640",
          **masked_keys,
          "max_abs_err": mask_e[torch.float32][1],
          "ms": mtimes["masked"][1], "plain_ms": mp_c,
-         **bound_keys("C masked"), "active_group_share": share[0],
+         **bound_keys("C masked"), **cull_keys("sedov", "C"),
+         "active_group_share": share[0],
          "active_tile_share": share[1], "ms_unmasked": mtimes["all"][1],
          "bound_ms_unmasked": bounds["C sedov"][0],
-         "ms_all_masked": mtimes["none"][1]},
+         "ms_all_masked": mtimes["none"][1],
+         "ms_4_groups": mtimes["4 groups"][1]},
         *[{"name": f"{base}{tag}_1d", "route": "cuda", "source": src,
            "replaces": "sphax/physics/pallas_kernels.py:"
                        + ("529" if which == "A" else "583"),
            "launches": total(f"{base}{tag}_1d"),
            "max_abs_err": times1[tag][which][2],
            "ms": times1[tag][which][0], "plain_ms": times1[tag][which][1],
-           **bound_keys(f"{which}1"), "n": n1}
+           **bound_keys(f"{which}1"),
+           **cull_keys("1d compact" if tag else "1d", which), "n": n1}
           for tag in ("", "_compact")
           for which, base in (("A", "solve_h_density"), ("C", "forces"))],
         {"name": "gravity", "route": "cuda",
@@ -1672,6 +1954,12 @@ def main():
                  "candidate_rows_walked": walked1,
                  "candidate_rows_computed": computed1,
                  "c_n_mean_p99_max_per_row": cst1},
+        "cull": surv,
+        "off_lattice_max_abs_err": {f"{k} {d}": v
+                                    for (k, d), v in off_lattice.items()},
+        "reference_cpu_max_rel_err": ref_err,
+        "device_ms_per_step_by_kind": where,
+        "build_s": _build.BUILD_INFO["seconds"],
         "card": card}
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

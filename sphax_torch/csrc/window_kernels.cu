@@ -10,67 +10,97 @@
 // where the dedup has nothing to compare and the curl is zero (:529-530).
 // The GRAV mode is 3D only, as the P3M mesh is. Each kernel also has a
 // compact walk (`*_compact_kernel`, the Pallas kernels' spec.cwidth > 0
-// mode, :195-236), described below.
+// mode, :195-236): the same body over another candidate table.
 //
 // Contract (sphax_torch/physics/window_kernels.py): one thread owns one
 // sorted row i; a block covers one tile of `tile` rows, i.e. tile/group
-// row-groups of `group` >= 32 rows, so a warp never straddles two groups and
-// every lane of a warp walks the same candidate rows: the candidate loads
-// are warp-uniform and served as L1 broadcasts, with no shared-memory
-// staging. Group g's candidates are, per segment s < NSEG, the rows
-// k in [w_lo[g,s], w_lo[g,s] + 128 w_nact[g,s]); a row already inside an
-// earlier segment's range is skipped (first-occurrence dedup). Candidate
-// fields are SoA [F, Ns]. A group whose w_nact row is all zero writes
-// h = h0 and zeros for every other output.
+// row-groups of `group` >= 32 rows, so a warp never straddles two groups
+// and its 32 rows share one candidate set. Group g's candidates are, per
+// segment s < NSEG, the rows k in [w_lo[g,s], w_lo[g,s] + 128 w_nact[g,s]);
+// a row already inside an earlier segment's range is skipped
+// (first-occurrence dedup). The non-empty ranges of a group start in rising
+// order, w_lo[g,s] >= w_lo[g,s'] for s' < s, as the window build makes them
+// (its cell table is monotone and its pencil offsets rise) and masking
+// keeps them (it only empties ranges). In the compact walk they are the
+// disjoint runs
+// [c_lo[g,s], c_lo[g,s] + c_len[g,s]) in segment order, cut at cwidth rows
+// in all, unaligned, with no dedup. Candidate fields are SoA [F, Ns]. A
+// group whose table row is all zero writes h = h0 and zeros for every
+// other output.
 //
-// What bounds it: pair arithmetic. The kernels visit every candidate row
-// of a group's windows: 2,224 candidate rows per real row, read off the
-// built structure (w_nact) at N = 1e6 in the bench configuration
-// (fast_sub=3, rgroups=2), against ~74 neighbours inside 2h (eta = 1.3).
-// The per-candidate distance test and the per-pair math dominate; the
-// operands arrive as warp-uniform broadcasts that hit L1/L2. What the
-// design does about it: the compact mode below walks about half the rows.
-// Finer groups and staging the candidates in shared memory are later work.
+// What bounds it: instruction throughput (the warp schedulers' slots), not
+// bytes or arithmetic (each input read once over 3.35 TB/s, or the
+// operations of the pairs inside the support over 67 TFLOP/s, come to a
+// fifteenth to a twenty-fifth of the kernels' times). A group's windows
+// hold 2,224 candidate rows per row at N = 1e6 in the bench configuration
+// (1,075 compact, 4,299 on the Sedov path, 753 in 2D, 256 in 1D) against
+// 74 (3D), 21 (2D) and 5 (1D) inside the support 2h. A walk in which every
+// thread visits every candidate spends its time on rejections: four
+// warp-uniform loads, up to eight dedup compares, r^2 and a reciprocal
+// square root, 32 lanes wide, for a row that 97 % of the time then fails
+// the support test. With the cull below about 490 rows survive per row at
+// the bench shapes (100 in 2D, 37 in 1D), and what takes the slots is,
+// largest first: the pair arithmetic, which runs for the whole warp
+// whenever a survivor is a neighbour of one of its 32 rows; the first test
+// of every survivor; the cull itself.
 //
-// In 2D (the Kelvin-Helmholtz problem) a row has about 21 neighbours inside
-// 2h (pi (2 eta)^2 with eta = 1.3), and its group walks 3 segments, each
-// about a group's rows plus the fast axis's reach of 2 fast_sub + 1 fine
-// cells plus up to 128 rows of alignment: 753 candidate rows per real row
-// at N = 1,572,864 (kh n=1024, read off w_nact by chip_smoke.py), so the
-// walk is bound, as in 3D, by the distance test of candidates that lie
-// outside the support.
-//
-// In 1D a row has about 5 neighbours inside 2h (4 eta with eta = 1.3) and
-// its group walks one segment of about a group's rows plus the reach on
-// either side plus the alignment, so nearly every candidate fails the
-// support test and the walk is bound by that test, as above.
-//
-// The compact mode (spec.cwidth > 0; the Pallas kernels' `_compact_view`,
-// pallas_kernels.py:195-236, entered at :346-351 and :619-626, dedup
-// skipped at :446 and :691) walks each group's compacted candidate list
-// instead: the disjoint runs [c_lo[g,s], c_lo[g,s] + c_len[g,s]) in
-// segment order, cut at cwidth rows in all, as window.compact_index cuts
-// its table. The runs are walked in place in the same SoA [F, Ns] arrays,
-// unaligned, with no dedup compares and no gathered buffer (the Pallas
-// path gathers a [F, n_groups * cwidth] copy, 1.9 GB a call at N = 1e6).
-// Same pairs as the in-place walk, so the same bound; at the bench
-// configuration a group walks about 1,064 rows per row instead of 2,217.
-// The in-place and compact kernels are separate __global__ templates over
-// one __forceinline__ row body, so the in-place kernels keep their names
-// and their code.
+// What the design does about it: each warp culls its candidates
+// cooperatively, then walks only the survivors.
+//   1. Cull. The warp takes the axis-aligned box of its 32 rows' positions
+//      and the largest of their h, over the lanes that carry mass (pad rows
+//      sit at 0 with h = 1 and unused ghost slots anywhere; they must not
+//      widen the box). The lanes then read 32 different candidates a step,
+//      one coalesced load a field, and each tests its candidate's distance
+//      to the box against the reach: 2 h_max in kernel A, 2 max(h_max, h_j)
+//      in kernel C, at least the cutoff in C's GRAV mode; 1e-3 wider, so
+//      that rounding never drops a live pair. A candidate without mass
+//      adds exact zeros and is dropped too. The first-occurrence dedup
+//      happens here, once a candidate: the ranges rise with the segment
+//      (the contract above), so it is a clip of each segment's start at
+//      the earlier segments' largest end.
+//   2. Stage. Survivors go to the warp's own buffer in shared memory, in
+//      candidate order (__ballot_sync and a prefix __popc): one 16-byte
+//      entry (32 in fp64) with what the exact test needs, (x, y, z, m) for
+//      A and (x, y, z, 1/h_j) for C, and beside it the fields that only a
+//      passing pair reads, as further 16-byte vectors: the velocity for
+//      A's Balsara sums (staged for the last walk only), velocity, m, h,
+//      rho, cs, ci, gc1, gc2 and bf for C (three vectors). A lane reads
+//      them for its own kept candidate, so these loads are coalesced too.
+//      The buffer holds CAP entries (in fp32 128 in A and 96 in C, half
+//      that in fp64: 4 KB a warp in A, 6 KB in C); when another step might
+//      not fit, the warp walks
+//      what it has and goes on culling, so no input can overflow it and
+//      nothing is dropped.
+//   3. Walk. Every lane reads each entry as one broadcast 16-byte shared
+//      load and tests r^2 against its support before any reciprocal
+//      square root; a passing pair reads its further vectors the same way
+//      (with the j-fields read from global memory by row index instead,
+//      kernel C spent a third of its pair arithmetic on addresses and
+//      loads: 2.60 against 1.90 ms at the bench shapes). The pair
+//      arithmetic is what it was. Candidate order is kept, so each row's
+//      sums are taken in the order they were.
+//   4. Kernel A culls afresh before each of its Newton walks with the
+//      warp's current h_max: h moves by up to half an update, and a list
+//      made for one h is no superset for the next.
+// Only warp-level synchronisation is used (two row-groups of a tile have
+// different candidates, and either may be masked). Of Hopper this uses
+// shared memory as the staging buffer, ballots and shuffles, and 16-byte
+// shared loads. It does not use wgmma: r^2 as |x_i|^2 + |x_j|^2 - 2 x_i.x_j
+// cancels catastrophically in fp32 at neighbour distances of 1e-2 of the
+// box, and what follows the cull is not a matrix product. It does not use
+// TMA: the cull's loads are 32-row strips, coalesced already.
 //
 // Kernel C's GRAV mode adds the screened P3M short range
 // G m_j S(r) (r^2 + eps^2)^-3/2 dx for every candidate with 0 < r^2 <=
 // cutoff^2, ahead of the SPH support exit: the screened force reaches to
-// 4.5 r_s <= cutoff, well past 2h, so most of its pairs lie outside both
-// supports. It uses the native erfc (the TPU needed a polynomial) and one
-// exp shared with the derivative term, and it always divides exactly. The
-// three split scalars (0.5/rs, 1/(rs sqrt(pi)), eps^2) come from a device
-// pointer, because rs is a device tensor; G and cutoff^2 are static. The
-// mode adds an erfc, an exp and an rsqrt to every candidate within the
-// cutoff, not only to those within the support.
+// 4.5 r_s <= cutoff, well past 2h, so its cull keeps every candidate within
+// the cutoff of the box. It uses the native erfc (the TPU needed a
+// polynomial) and one exp shared with the derivative term, and it always
+// divides exactly. The three split scalars (0.5/rs, 1/(rs sqrt(pi)),
+// eps^2) come from a device pointer, because rs is a device tensor; G and
+// cutoff^2 are static.
 //
-// Every launcher returns cudaGetLastError() right after its launch.
+// Every launcher returns the first CUDA error of its launch.
 
 #include <cuda_runtime.h>
 
@@ -80,16 +110,26 @@
 namespace {
 
 constexpr int BLK = 128;  // rows per w_nact block
+constexpr unsigned FULL = 0xffffffffu;
 
 // 3^(dim-1) pencil segments per row-group
 __host__ __device__ constexpr int nseg(int dim) {
   return dim <= 1 ? 1 : 3 * nseg(dim - 1);
 }
 
+// Survivors a warp stages before a walk: 128 in fp32 and 64 in fp64 (2 KB a
+// staged vector), three quarters of that in kernel C, whose 1 + 3 vectors a
+// survivor would otherwise leave a SM room for 24 warps where its
+// registers allow 32 (6 KB a warp instead of 8; measured 5 % faster at the
+// bench shapes).
+template <typename T, int NV>
+constexpr int CAP = (NV == 3 ? 384 : 512) / int(sizeof(T));
+
 template <typename T> struct Num;
 
 template <> struct Num<float> {
   static constexpr float tiny = 1e-30f;
+  static constexpr float big = 1e18f;  // big^2 * 3 is finite
   static __device__ __forceinline__ float rsqrt(float x) { return rsqrtf(x); }
   static __device__ __forceinline__ float sqrt(float x) { return sqrtf(x); }
   static __device__ __forceinline__ float exp(float x) { return expf(x); }
@@ -102,6 +142,7 @@ template <> struct Num<float> {
 
 template <> struct Num<double> {
   static constexpr double tiny = 1e-300;
+  static constexpr double big = 1e150;
   static __device__ __forceinline__ double rsqrt(double x) { return ::rsqrt(x); }
   static __device__ __forceinline__ double sqrt(double x) { return ::sqrt(x); }
   static __device__ __forceinline__ double exp(double x) { return ::exp(x); }
@@ -112,69 +153,22 @@ template <> struct Num<double> {
   }
 };
 
-// The group's candidate ranges; returns the total active block count.
-template <int NSEG>
-__device__ __forceinline__ int load_windows(const int* __restrict__ w_lo,
-                                            const int* __restrict__ w_nact,
-                                            int g, int (&lo)[NSEG],
-                                            int (&hi)[NSEG]) {
-  int total = 0;
-#pragma unroll
-  for (int s = 0; s < NSEG; ++s) {
-    const int na = w_nact[g * NSEG + s];
-    lo[s] = w_lo[g * NSEG + s];
-    hi[s] = lo[s] + BLK * na;
-    total += na;
-  }
-  return total;
-}
-
-// The group's compacted runs, cut at cwidth rows in all; returns the
-// total row count.
-template <int NSEG>
-__device__ __forceinline__ int load_runs(const int* __restrict__ c_lo,
-                                         const int* __restrict__ c_len,
-                                         int g, int cwidth, int (&lo)[NSEG],
-                                         int (&hi)[NSEG]) {
-  int total = 0;
-#pragma unroll
-  for (int s = 0; s < NSEG; ++s) {
-    const int len = min(c_len[g * NSEG + s], cwidth - total);
-    lo[s] = c_lo[g * NSEG + s];
-    hi[s] = lo[s] + len;
-    total += len;
-  }
-  return total;
-}
-
-// The group's candidate ranges of either walk; returns the count that
-// says whether the group has any candidate.
-template <bool COMPACT, int NSEG>
-__device__ __forceinline__ int load_ranges(const int* __restrict__ tab_lo,
-                                           const int* __restrict__ tab_n,
-                                           int g, int cwidth,
-                                           int (&lo)[NSEG],
-                                           int (&hi)[NSEG]) {
-  if constexpr (COMPACT)
-    return load_runs(tab_lo, tab_n, g, cwidth, lo, hi);
-  else
-    return load_windows(tab_lo, tab_n, g, lo, hi);
-}
-
-// True when row k lies in a segment before s (already counted).
-template <int S, int NSEG>
-__device__ __forceinline__ bool seen_before(int k, const int (&lo)[NSEG],
-                                            const int (&hi)[NSEG]) {
-  bool dup = false;
-#pragma unroll
-  for (int sp = 0; sp < S; ++sp) dup |= (k >= lo[sp]) & (k < hi[sp]);
-  return dup;
-}
+// The relative margins of the cull and of the walk's first test. A pair is
+// live when r < 2 h; the cull keeps a candidate within 2.002 h_max of the
+// warp's box, and the walk leaves a pair before its rsqrt only when
+// r^2 / h^2 >= 4.0001, so the exact test q < 2 that follows decides every
+// pair it decided before.
+template <typename T>
+struct Margin {
+  static constexpr T reach = T(2.002);        // 2 * 1.001
+  static constexpr T reach2 = T(4.008004);    // (2 * 1.001)^2
+  static constexpr T rcut2 = T(1.002001);     // 1.001^2
+  static constexpr T support2 = T(4.0001);
+};
 
 // The per-axis work is straight-line code, never a loop: a loop in a
 // walk's body, even one of constant trip count, changes how nvcc unrolls
-// the walk around it, and the 3D kernels would no longer compile to the
-// code they had before the template.
+// the walk around it.
 template <int N> using Axes = std::make_integer_sequence<int, N>;
 
 // f(0), f(1), ..., f(N - 1)
@@ -196,6 +190,216 @@ __device__ __forceinline__ T dot(const T (&a)[DIM], const T (&b)[DIM]) {
   return dot_(a, b, Axes<DIM>{});
 }
 
+template <typename T>
+__device__ __forceinline__ T warp_min(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const T u = __shfl_xor_sync(FULL, v, o);
+    v = u < v ? u : v;
+  }
+  return v;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_max(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const T u = __shfl_xor_sync(FULL, v, o);
+    v = u > v ? u : v;
+  }
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// the warp's candidate ranges, its box, and the cull into shared memory
+// ---------------------------------------------------------------------------
+
+// Lane s < NSEG holds segment s's rows [lo, hi); the other lanes hold an
+// empty range. `count` says whether the group has any candidate.
+struct Ranges {
+  int lo, hi, count;
+};
+
+// Reads the group's table row (every lane reads all of it: warp-uniform
+// loads). In place the ranges are [w_lo, w_lo + 128 w_nact) and overlap;
+// each non-empty range starts at or after the ones before it (the
+// contract), so a row of segment s was seen before exactly when it lies
+// below the largest end of the earlier segments, and the dedup is a clip of
+// the start. Compact, they are the runs [c_lo, c_lo + c_len) cut at cwidth
+// rows in all, disjoint already.
+template <bool COMPACT, int NSEG>
+__device__ __forceinline__ Ranges load_ranges(const int* __restrict__ tab_lo,
+                                              const int* __restrict__ tab_n,
+                                              int g, int cwidth, int lane) {
+  Ranges r{0, 0, 0};
+  int clip = 0, max_hi = 0;
+#pragma unroll
+  for (int s = 0; s < NSEG; ++s) {
+    const int lo = tab_lo[g * NSEG + s];
+    const int n = tab_n[g * NSEG + s];
+    const int len = COMPACT ? min(n, cwidth - r.count) : BLK * n;
+    r.count += len;
+    if (lane == s) {
+      r.lo = lo;
+      r.hi = lo + len;
+      clip = max_hi;
+    }
+    if (!COMPACT && len > 0) max_hi = max(max_hi, lo + len);
+  }
+  if (!COMPACT) r.lo = max(r.lo, clip);
+  return r;
+}
+
+// The axis-aligned box of the warp's rows that carry mass (empty, and then
+// far from everything, when none does).
+template <typename T, int DIM>
+struct Box {
+  T lo[DIM], hi[DIM];
+
+  static __device__ __forceinline__ Box of(const T (&x)[DIM], bool has_mass) {
+    Box b;
+    each_axis(Axes<DIM>{}, [&](int d) {
+      b.lo[d] = warp_min(has_mass ? x[d] : Num<T>::big);
+      b.hi[d] = warp_max(has_mass ? x[d] : -Num<T>::big);
+    });
+    return b;
+  }
+
+  // squared distance from p to the box, 0 inside; never more than the
+  // squared distance from p to a row of the warp, in floating point too
+  // (rounding is monotone)
+  __device__ __forceinline__ T gap2(const T (&p)[3]) const {
+    T g2 = T(0);
+    each_axis(Axes<DIM>{}, [&](int d) {
+      const T below = lo[d] - p[d], above = p[d] - hi[d];
+      T g = below > above ? below : above;
+      g = g > T(0) ? g : T(0);
+      g2 += g * g;
+    });
+    return g2;
+  }
+};
+
+// Four values moved as 16-byte accesses (two in fp64).
+template <typename T>
+struct alignas(16) Vec4 {
+  T a, b, c, d;
+};
+
+__device__ __forceinline__ Vec4<float> load_vec(const Vec4<float>* p) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  return {v.x, v.y, v.z, v.w};
+}
+
+__device__ __forceinline__ Vec4<double> load_vec(const Vec4<double>* p) {
+  const double2 lo = reinterpret_cast<const double2*>(p)[0];
+  const double2 hi = reinterpret_cast<const double2*>(p)[1];
+  return {lo.x, lo.y, hi.x, hi.y};
+}
+
+__device__ __forceinline__ void store_vec(Vec4<float>* p,
+                                          const Vec4<float>& v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v.a, v.b, v.c, v.d);
+}
+
+__device__ __forceinline__ void store_vec(Vec4<double>* p,
+                                          const Vec4<double>& v) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(v.a, v.b);
+  reinterpret_cast<double2*>(p)[1] = make_double2(v.c, v.d);
+}
+
+// What the walk's first test needs of a candidate: its position (DIM of
+// the three axes) and one more field.
+template <typename T>
+struct Entry {
+  T p[3];
+  T w;
+};
+
+// The warp's slice of the block's dynamic shared memory: CAP entries, one
+// vector each, and NV more vectors an entry with the fields that only a
+// passing pair reads (rest[slot * NV + v]).
+template <typename T, int NV>
+struct Stage {
+  Vec4<T>* ent;
+  Vec4<T>* rest;
+};
+
+template <typename T, int NV>
+__device__ __forceinline__ Stage<T, NV> warp_stage() {
+  extern __shared__ __align__(16) unsigned char stage_raw[];
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  Vec4<T>* base = reinterpret_cast<Vec4<T>*>(stage_raw);
+  return {base + warp * CAP<T, NV>,
+          base + nwarps * CAP<T, NV> + warp * (CAP<T, NV> * NV)};
+}
+
+template <typename T, int NV>
+size_t stage_bytes(int tile) {
+  return size_t(tile / 32) * CAP<T, NV> * (1 + NV) * sizeof(Vec4<T>);
+}
+
+// One walk of a warp over its candidates. `entry(k, e)` reads candidate
+// row k's entry, `near(e, k)` says whether the warp keeps it, `fill(k, r)`
+// reads a kept candidate's NV further vectors (staged only `with_rest`),
+// and `pair(e, slot)` is one lane's work on one survivor. The lanes cull 32
+// candidates a step and append the survivors in candidate order; whenever
+// another step might not fit, every lane walks the staged entries and the
+// warp goes on. All control flow here is warp-uniform; `pair` may diverge
+// inside.
+template <typename T, int NSEG, int NV, typename Read, typename Near,
+          typename Fill, typename Pair>
+__device__ __forceinline__ void cull_and_walk(const Ranges& rg, int lane,
+                                              const Stage<T, NV>& stage,
+                                              bool with_rest, Read&& entry,
+                                              Near&& near, Fill&& fill,
+                                              Pair&& pair) {
+  int s = 0;
+  int k0 = __shfl_sync(FULL, rg.lo, 0);
+  int kend = __shfl_sync(FULL, rg.hi, 0);
+  for (;;) {
+    int n = 0;
+    while (s < NSEG && n <= CAP<T, NV> - 32) {
+      if (k0 >= kend) {  // next segment (lane NSEG's range is empty)
+        ++s;
+        k0 = __shfl_sync(FULL, rg.lo, s);
+        kend = __shfl_sync(FULL, rg.hi, s);
+        continue;
+      }
+      const int k = k0 + lane;
+      bool keep = k < kend;
+      Entry<T> e{};
+      if (keep) {
+        entry(k, e);
+        keep = near(e, k);
+      }
+      const unsigned kept = __ballot_sync(FULL, keep);
+      if (keep) {
+        const int slot = n + __popc(kept & ((1u << lane) - 1u));
+        store_vec(stage.ent + slot, Vec4<T>{e.p[0], e.p[1], e.p[2], e.w});
+        if constexpr (NV > 0) {
+          if (with_rest) {
+            Vec4<T> r[NV];
+            fill(k, r);
+#pragma unroll
+            for (int v = 0; v < NV; ++v)
+              store_vec(stage.rest + slot * NV + v, r[v]);
+          }
+        }
+      }
+      n += __popc(kept);
+      k0 += 32;
+    }
+    if (n == 0) break;
+    __syncwarp();
+    for (int slot = 0; slot < n; ++slot) {
+      const Vec4<T> v = load_vec(stage.ent + slot);
+      pair(Entry<T>{{v.a, v.b, v.c}, v.d}, slot);
+    }
+    __syncwarp();
+  }
+}
+
 // ---------------------------------------------------------------------------
 // kernel A: Newton-h + density + d rho/d h (+ Balsara div/curl sums)
 // ---------------------------------------------------------------------------
@@ -206,85 +410,6 @@ struct DensSums {
   // 3D: the curl vector; 2D: its one component; 1D: stays zero
   T curl[DIM == 3 ? 3 : 1];
 };
-
-// SoA rows of the density window: DIM positions, m (, DIM velocities).
-// DEDUP skips rows of earlier segments (the in-place windows overlap; the
-// compact runs do not).
-template <typename T, int DIM, bool BALS, bool DEDUP, int S>
-__device__ __forceinline__ void density_segment(
-    const T* __restrict__ win, int Ns, const int (&lo)[nseg(DIM)],
-    const int (&hi)[nseg(DIM)], const T (&xi)[DIM], const T (&vi)[DIM],
-    T invh, T sigd, DensSums<T, DIM>& acc) {
-  const T* X[DIM];
-  each_axis(Axes<DIM>{}, [&](int d) { X[d] = win + d * (size_t)Ns; });
-  const T* M = win + DIM * (size_t)Ns;
-  for (int k = lo[S]; k < hi[S]; ++k) {
-    if constexpr (DEDUP) {
-      if (seen_before<S>(k, lo, hi)) continue;
-    }
-    T dx[DIM];
-    each_axis(Axes<DIM>{}, [&](int d) { dx[d] = xi[d] - X[d][k]; });
-    const T r2 = dot(dx, dx);
-    const T invr = Num<T>::rsqrt(r2 + Num<T>::tiny);
-    const T q = r2 * invr * invh;
-    if (q >= T(2)) continue;  // outside the support: every term is 0
-    const T m = M[k];
-    const T t = T(2) - q;
-    T f, df;
-    if (q < T(1)) {
-      f = T(1) + q * q * (T(0.75) * q - T(1.5));
-      df = q * (T(2.25) * q - T(3));
-    } else {
-      f = T(0.25) * t * t * t;
-      df = T(-0.75) * t * t;
-    }
-    const T w = sigd * f;
-    const T dwdq = sigd * df;
-    acc.rho += m * w;
-    acc.drdh += m * (-(T(DIM) * w + q * dwdq) * invh);
-    if (BALS) {
-      const T* V[DIM];
-      each_axis(Axes<DIM>{},
-                [&](int d) { V[d] = win + (DIM + 1 + d) * (size_t)Ns; });
-      const T mw = m * (dwdq * invh * invr);
-      T dv[DIM];
-      each_axis(Axes<DIM>{}, [&](int d) { dv[d] = vi[d] - V[d][k]; });
-      acc.div += mw * dot(dv, dx);
-      if constexpr (DIM == 3) {
-        acc.curl[0] += mw * (dv[1] * dx[2] - dv[2] * dx[1]);
-        acc.curl[1] += mw * (dv[2] * dx[0] - dv[0] * dx[2]);
-        acc.curl[2] += mw * (dv[0] * dx[1] - dv[1] * dx[0]);
-      } else if constexpr (DIM == 2) {
-        acc.curl[0] += mw * (dv[0] * dx[1] - dv[1] * dx[0]);
-      }
-    }
-  }
-}
-
-// every segment in order, unrolled at compile time
-template <typename T, int DIM, bool BALS, bool DEDUP, int... S>
-__device__ __forceinline__ void density_segments(
-    std::integer_sequence<int, S...>, const T* __restrict__ win, int Ns,
-    const int (&lo)[nseg(DIM)], const int (&hi)[nseg(DIM)],
-    const T (&xi)[DIM], const T (&vi)[DIM], T invh, T sigd,
-    DensSums<T, DIM>& acc) {
-  (density_segment<T, DIM, BALS, DEDUP, S>(win, Ns, lo, hi, xi, vi, invh,
-                                           sigd, acc), ...);
-}
-
-template <typename T, int DIM, bool BALS, bool DEDUP>
-__device__ __forceinline__ DensSums<T, DIM> density_walk(
-    const T* __restrict__ win, int Ns, const int (&lo)[nseg(DIM)],
-    const int (&hi)[nseg(DIM)], const T (&xi)[DIM], const T (&vi)[DIM], T h,
-    T sig) {
-  const T invh = T(1) / h;
-  T sigd = sig;  // sig / h^DIM
-  each_axis(Axes<DIM>{}, [&](int) { sigd *= invh; });
-  DensSums<T, DIM> a{};
-  density_segments<T, DIM, BALS, DEDUP>(Axes<nseg(DIM)>{}, win, Ns, lo, hi,
-                                        xi, vi, invh, sigd, a);
-  return a;
-}
 
 // pallas_kernels.py newton_update: same clamps and thresholds.
 template <typename T, int DIM>
@@ -304,9 +429,12 @@ __device__ __forceinline__ T newton_update(T h, T rho, T drdh, T m_safe,
   return hn < hcap ? hn : hcap;
 }
 
-// One sorted row of kernel A. The tables are (w_lo, w_nact) in the
+// One sorted row of kernel A. SoA rows of the density window: DIM
+// positions, m (, DIM velocities). The tables are (w_lo, w_nact) in the
 // in-place walk and (c_lo, c_len) in the compact one; cwidth is read only
-// by the compact walk.
+// by the compact walk. `iters` Newton walks, then the walk that writes the
+// sums, with the Balsara sums when BALS; each culls at the warp's current
+// h_max.
 template <typename T, int DIM, bool BALS, bool COMPACT>
 __device__ __forceinline__ void solve_h_density_row(
     const T* __restrict__ win, const T* __restrict__ h0,
@@ -316,14 +444,13 @@ __device__ __forceinline__ void solve_h_density_row(
     T* __restrict__ drdh_out, T* __restrict__ div_out,
     T* __restrict__ curl_out) {
   constexpr int NSEG = nseg(DIM);
-  constexpr bool DEDUP = !COMPACT;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= Ns) return;
-  int lo[NSEG], hi[NSEG];
-  const int active =
-      load_ranges<COMPACT>(tab_lo, tab_n, i / group, cwidth, lo, hi);
+  if (i >= Ns) return;  // Ns is a multiple of the tile: whole warps only
+  const int lane = threadIdx.x & 31;
+  const Ranges rg =
+      load_ranges<COMPACT, NSEG>(tab_lo, tab_n, i / group, cwidth, lane);
   T h = h0[i];
-  if (active == 0) {
+  if (rg.count == 0) {
     h_out[i] = h;
     rho_out[i] = T(0);
     drdh_out[i] = T(0);
@@ -333,31 +460,103 @@ __device__ __forceinline__ void solve_h_density_row(
     }
     return;
   }
-  T xi[DIM], vi[DIM];
-  each_axis(Axes<DIM>{}, [&](int d) { xi[d] = win[(size_t)d * Ns + i]; });
-  const T mi = win[DIM * (size_t)Ns + i];
-  const T m_safe = mi > T(1e-30) ? mi : T(1e-30);
+  const T* X[DIM];
+  const T* V[DIM];  // read only when BALS
   each_axis(Axes<DIM>{}, [&](int d) {
-    vi[d] = BALS ? win[(DIM + 1 + d) * (size_t)Ns + i] : T(0);
+    X[d] = win + d * (size_t)Ns;
+    V[d] = BALS ? win + (DIM + 1 + d) * (size_t)Ns : win;
   });
-  for (int it = 0; it < iters; ++it) {
-    const DensSums<T, DIM> a =
-        density_walk<T, DIM, false, DEDUP>(win, Ns, lo, hi, xi, vi, h, sig);
-    h = newton_update<T, DIM>(h, a.rho, a.drdh, m_safe, eta_d, hcap);
-  }
-  const DensSums<T, DIM> a =
-      density_walk<T, DIM, BALS, DEDUP>(win, Ns, lo, hi, xi, vi, h, sig);
-  h_out[i] = h;
-  rho_out[i] = a.rho;
-  drdh_out[i] = a.drdh;
-  if (BALS) {
-    div_out[i] = a.div;
-    if constexpr (DIM == 3)
-      curl_out[i] = Num<T>::sqrt(a.curl[0] * a.curl[0] +
-                                 a.curl[1] * a.curl[1] +
-                                 a.curl[2] * a.curl[2]);
-    else
-      curl_out[i] = fabs(a.curl[0]);
+  const T* M = win + DIM * (size_t)Ns;
+  T xi[DIM], vi[DIM];
+  each_axis(Axes<DIM>{}, [&](int d) {
+    xi[d] = X[d][i];
+    vi[d] = BALS ? V[d][i] : T(0);
+  });
+  const T mi = M[i];
+  const T m_safe = mi > T(1e-30) ? mi : T(1e-30);
+  const bool has_mass = mi > T(0);
+  const Box<T, DIM> box = Box<T, DIM>::of(xi, has_mass);
+  constexpr int NV = BALS ? 1 : 0;  // the velocities, for the last walk
+  const Stage<T, NV> stage = warp_stage<T, NV>();
+  auto velocity = [&](int k) {
+    T v[3] = {T(0), T(0), T(0)};
+    each_axis(Axes<DIM>{}, [&](int d) { v[d] = V[d][k]; });
+    return Vec4<T>{v[0], v[1], v[2], T(0)};
+  };
+  for (int it = 0; it <= iters; ++it) {
+    const bool last = it == iters;
+    const T invh = T(1) / h;
+    const T invh2 = invh * invh;
+    T sigd = sig;  // sig / h^DIM
+    each_axis(Axes<DIM>{}, [&](int) { sigd *= invh; });
+    DensSums<T, DIM> acc{};
+    auto entry = [&](int k, Entry<T>& e) {
+      each_axis(Axes<DIM>{}, [&](int d) { e.p[d] = X[d][k]; });
+      e.w = M[k];
+    };
+    auto pair = [&](const Entry<T>& c, int slot) {
+      T dx[DIM];
+      each_axis(Axes<DIM>{}, [&](int d) { dx[d] = xi[d] - c.p[d]; });
+      const T r2 = dot(dx, dx);
+      if (r2 * invh2 >= Margin<T>::support2) return;
+      const T invr = Num<T>::rsqrt(r2 + Num<T>::tiny);
+      const T q = r2 * invr * invh;
+      if (q >= T(2)) return;  // outside the support: every term is 0
+      const T m = c.w;
+      const T t = T(2) - q;
+      T f, df;
+      if (q < T(1)) {
+        f = T(1) + q * q * (T(0.75) * q - T(1.5));
+        df = q * (T(2.25) * q - T(3));
+      } else {
+        f = T(0.25) * t * t * t;
+        df = T(-0.75) * t * t;
+      }
+      const T w = sigd * f;
+      const T dwdq = sigd * df;
+      acc.rho += m * w;
+      acc.drdh += m * (-(T(DIM) * w + q * dwdq) * invh);
+      if constexpr (BALS) {
+        if (!last) return;
+        const Vec4<T> vj = load_vec(stage.rest + slot);
+        const T vjd[3] = {vj.a, vj.b, vj.c};
+        const T mw = m * (dwdq * invh * invr);
+        T dv[DIM];
+        each_axis(Axes<DIM>{}, [&](int d) { dv[d] = vi[d] - vjd[d]; });
+        acc.div += mw * dot(dv, dx);
+        if constexpr (DIM == 3) {
+          acc.curl[0] += mw * (dv[1] * dx[2] - dv[2] * dx[1]);
+          acc.curl[1] += mw * (dv[2] * dx[0] - dv[0] * dx[2]);
+          acc.curl[2] += mw * (dv[0] * dx[1] - dv[1] * dx[0]);
+        } else if constexpr (DIM == 2) {
+          acc.curl[0] += mw * (dv[0] * dx[1] - dv[1] * dx[0]);
+        }
+      }
+    };
+    const T reach = Margin<T>::reach * warp_max(has_mass ? h : T(0));
+    const T reach2 = reach * reach;
+    cull_and_walk<T, NSEG, NV>(
+        rg, lane, stage, /*with_rest=*/last, entry,
+        [&](const Entry<T>& e, int) {
+          return e.w > T(0) && box.gap2(e.p) < reach2;
+        },
+        [&](int k, Vec4<T> (&r)[1]) { r[0] = velocity(k); }, pair);
+    if (!last) {
+      h = newton_update<T, DIM>(h, acc.rho, acc.drdh, m_safe, eta_d, hcap);
+      continue;
+    }
+    h_out[i] = h;
+    rho_out[i] = acc.rho;
+    drdh_out[i] = acc.drdh;
+    if (BALS) {
+      div_out[i] = acc.div;
+      if constexpr (DIM == 3)
+        curl_out[i] = Num<T>::sqrt(acc.curl[0] * acc.curl[0] +
+                                   acc.curl[1] * acc.curl[1] +
+                                   acc.curl[2] * acc.curl[2]);
+      else
+        curl_out[i] = fabs(acc.curl[0]);
+    }
   }
 }
 
@@ -401,6 +600,17 @@ struct FRow {
                        GC2 = M + 7, BF = M + 8;
 };
 
+// The FRow row behind value i of a candidate's staged further fields: DIM
+// velocities, then m h rho cs ci gc1 gc2 bf (1/h is in its entry); -1 past
+// them.
+template <int DIM>
+__host__ __device__ constexpr int rest_field(int i) {
+  using R = FRow<DIM>;
+  if (i < DIM) return R::V + i;
+  const int j = i - DIM;
+  return j == 0 ? R::M : j == 1 ? R::H : j < 8 ? R::RHO + (j - 2) : -1;
+}
+
 template <typename T, int DIM>
 struct ForceSums {
   T a[DIM];
@@ -430,79 +640,10 @@ __device__ __forceinline__ T grav_coef(T r2, T r, const Grav<T>& g) {
   return g.G * screen * (tg * tg * tg);
 }
 
-template <typename T, int DIM, bool BF, bool FAST, bool GRAV, bool DEDUP,
-          int S>
-__device__ __forceinline__ void force_segment(
-    const T* __restrict__ win, int Ns, const int (&lo)[nseg(DIM)],
-    const int (&hi)[nseg(DIM)], const Own<T, DIM>& o, T alpha, T beta,
-    T epsv, const Grav<T>& g, ForceSums<T, DIM>& acc) {
-  using R = FRow<DIM>;
-  auto F = [&](int f, int k) { return win[(size_t)f * Ns + k]; };
-  for (int k = lo[S]; k < hi[S]; ++k) {
-    if constexpr (DEDUP) {
-      if (seen_before<S>(k, lo, hi)) continue;
-    }
-    T dx[DIM];
-    each_axis(Axes<DIM>{}, [&](int d) { dx[d] = o.x[d] - F(R::X + d, k); });
-    const T r2 = dot(dx, dx);
-    const T invr = Num<T>::rsqrt(r2 + Num<T>::tiny);
-    const T r = r2 * invr;
-    const T gco = GRAV ? grav_coef(r2, r, g) : T(0);
-    const T qi = r * o.invh;
-    const T qj = r * F(R::INVH, k);
-    if (qi >= T(2) && qj >= T(2)) {  // both gradients vanish
-      if (GRAV) {
-        const T fcoef = F(R::M, k) * gco;
-        each_axis(Axes<DIM>{}, [&](int d) { acc.a[d] -= fcoef * dx[d]; });
-      }
-      continue;
-    }
-    const T ti = T(2) - qi, tj = T(2) - qj;
-    T gi = qi < T(1) ? o.gc2 * (T(2.25) * qi - T(3))
-                     : T(-0.75) * o.gc1 * (ti * ti) * invr;
-    gi = qi < T(2) ? gi : T(0);
-    T gj = qj < T(1) ? F(R::GC2, k) * (T(2.25) * qj - T(3))
-                     : T(-0.75) * F(R::GC1, k) * (tj * tj) * invr;
-    gj = qj < T(2) ? gj : T(0);
-    const T gbar = T(0.5) * (gi + gj);
-
-    T dv[DIM];
-    each_axis(Axes<DIM>{}, [&](int d) { dv[d] = o.v[d] - F(R::V + d, k); });
-    const T vdotr = dot(dv, dx);
-    const T hbar = T(0.5) * (o.h + F(R::H, k));
-    const T mu_den = r2 + epsv * hbar * hbar;
-    T mu = Num<T>::template div<FAST>(hbar * vdotr, mu_den);
-    mu = vdotr < T(0) ? mu : T(0);
-    const T cbar = T(0.5) * (o.cs + F(R::CS, k));
-    const T rhobar = T(0.5) * (o.rho + F(R::RHO, k));
-    T Pi = Num<T>::template div<FAST>((beta * mu - alpha * cbar) * mu,
-                                      rhobar);
-    if (BF) Pi = Pi * (T(0.5) * (o.bf + F(R::BF, k)));
-
-    const T m = F(R::M, k);
-    const T cigi = o.ci * gi;
-    const T pigb = Pi * gbar;
-    T fsum = cigi + F(R::CI, k) * gj + pigb;
-    if (GRAV) fsum += gco;
-    const T fcoef = m * fsum;
-    each_axis(Axes<DIM>{}, [&](int d) { acc.a[d] -= fcoef * dx[d]; });
-    acc.du += m * (cigi + T(0.5) * pigb) * vdotr;
-  }
-}
-
-template <typename T, int DIM, bool BF, bool FAST, bool GRAV, bool DEDUP,
-          int... S>
-__device__ __forceinline__ void force_segments(
-    std::integer_sequence<int, S...>, const T* __restrict__ win, int Ns,
-    const int (&lo)[nseg(DIM)], const int (&hi)[nseg(DIM)],
-    const Own<T, DIM>& o, T alpha, T beta, T epsv, const Grav<T>& g,
-    ForceSums<T, DIM>& acc) {
-  (force_segment<T, DIM, BF, FAST, GRAV, DEDUP, S>(win, Ns, lo, hi, o, alpha,
-                                                   beta, epsv, g, acc),
-   ...);
-}
-
-// One sorted row of kernel C; the tables as in solve_h_density_row.
+// One sorted row of kernel C; the tables as in solve_h_density_row. A pair
+// counts when r < 2 h_i or r < 2 h_j (or, GRAV, 0 < r <= cutoff), so the
+// cull keeps candidate j within 2 max(h_max, h_j) of the warp's box (at
+// least the cutoff, GRAV), and stages 1/h_j for the walk's first test.
 template <typename T, int DIM, bool BF, bool FAST, bool GRAV, bool COMPACT>
 __device__ __forceinline__ void forces_row(
     const T* __restrict__ win, const int* __restrict__ tab_lo,
@@ -513,36 +654,131 @@ __device__ __forceinline__ void forces_row(
   using R = FRow<DIM>;
   constexpr int NSEG = nseg(DIM);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= Ns) return;
-  int lo[NSEG], hi[NSEG];
-  const int active =
-      load_ranges<COMPACT>(tab_lo, tab_n, i / group, cwidth, lo, hi);
-  ForceSums<T, DIM> a{};
-  if (active > 0) {
-    auto F = [&](int f) { return win[(size_t)f * Ns + i]; };
+  if (i >= Ns) return;  // Ns is a multiple of the tile: whole warps only
+  const int lane = threadIdx.x & 31;
+  const Ranges rg =
+      load_ranges<COMPACT, NSEG>(tab_lo, tab_n, i / group, cwidth, lane);
+  ForceSums<T, DIM> acc{};
+  if (rg.count > 0) {
+    auto F = [&](int f, int k) { return win[(size_t)f * Ns + k]; };
     Own<T, DIM> o;
-    each_axis(Axes<DIM>{}, [&](int d) { o.x[d] = F(R::X + d); });
-    each_axis(Axes<DIM>{}, [&](int d) { o.v[d] = F(R::V + d); });
-    o.h = F(R::H);
-    o.invh = F(R::INVH);
-    o.rho = F(R::RHO);
-    o.cs = F(R::CS);
-    o.ci = F(R::CI);
-    o.gc1 = F(R::GC1);
-    o.gc2 = F(R::GC2);
-    o.bf = BF ? F(R::BF) : T(0);
+    each_axis(Axes<DIM>{}, [&](int d) { o.x[d] = F(R::X + d, i); });
+    each_axis(Axes<DIM>{}, [&](int d) { o.v[d] = F(R::V + d, i); });
+    o.h = F(R::H, i);
+    o.invh = F(R::INVH, i);
+    o.rho = F(R::RHO, i);
+    o.cs = F(R::CS, i);
+    o.ci = F(R::CI, i);
+    o.gc1 = F(R::GC1, i);
+    o.gc2 = F(R::GC2, i);
+    o.bf = BF ? F(R::BF, i) : T(0);
     Grav<T> g{T(0), T(0), T(0), G, rcut2};
     if (GRAV) {
       g.x_scale = gsc[0];
       g.sp = gsc[1];
       g.eps2 = gsc[2];
     }
-    force_segments<T, DIM, BF, FAST, GRAV, !COMPACT>(
-        Axes<NSEG>{}, win, Ns, lo, hi, o, alpha, beta, epsv, g, a);
+    const T invh2 = o.invh * o.invh;
+    constexpr int NV = 3;  // DIM + 8 <= 12 further fields of a candidate
+    const Stage<T, NV> stage = warp_stage<T, NV>();
+    // vector v of candidate row k's further fields, from the SoA rows
+    auto gather = [&](int k, int v) {
+      T t[4];
+      each_axis(Axes<4>{}, [&](int c) {
+        const int f = rest_field<DIM>(4 * v + c);
+        t[c] = f >= 0 && (BF || f != R::BF) ? F(f, k) : T(0);
+      });
+      return Vec4<T>{t[0], t[1], t[2], t[3]};
+    };
+    // the same of the survivor staged at `slot`
+    auto rest = [&](int slot, int v) {
+      return load_vec(stage.rest + slot * NV + v);
+    };
+    auto entry = [&](int k, Entry<T>& e) {
+      each_axis(Axes<DIM>{}, [&](int d) { e.p[d] = F(R::X + d, k); });
+      e.w = F(R::INVH, k);
+    };
+    auto pair = [&](const Entry<T>& c, int slot) {
+      T dx[DIM];
+      each_axis(Axes<DIM>{}, [&](int d) { dx[d] = o.x[d] - c.p[d]; });
+      const T r2 = dot(dx, dx);
+      const T invhj = c.w;
+      if (r2 * invh2 >= Margin<T>::support2 &&
+          r2 * invhj * invhj >= Margin<T>::support2 &&
+          !(GRAV && r2 <= g.rcut2))
+        return;
+      const T invr = Num<T>::rsqrt(r2 + Num<T>::tiny);
+      const T r = r2 * invr;
+      const T gco = GRAV ? grav_coef(r2, r, g) : T(0);
+      const T qi = r * o.invh;
+      const T qj = r * invhj;
+      if (qi >= T(2) && qj >= T(2)) {  // both gradients vanish
+        if (GRAV) {
+          // m_j: further field DIM of j, and GRAV is 3D
+          const T fcoef = rest(slot, 0).d * gco;
+          each_axis(Axes<DIM>{}, [&](int d) { acc.a[d] -= fcoef * dx[d]; });
+        }
+        return;
+      }
+      const Vec4<T> j0 = rest(slot, 0), j1 = rest(slot, 1),
+                    j2 = rest(slot, 2);
+      const T j[12] = {j0.a, j0.b, j0.c, j0.d, j1.a, j1.b,
+                       j1.c, j1.d, j2.a, j2.b, j2.c, j2.d};
+      const T mj = j[DIM], hj = j[DIM + 1], rhoj = j[DIM + 2],
+              csj = j[DIM + 3], cij = j[DIM + 4], gc1j = j[DIM + 5],
+              gc2j = j[DIM + 6], bfj = j[DIM + 7];
+      const T ti = T(2) - qi, tj = T(2) - qj;
+      T gi = qi < T(1) ? o.gc2 * (T(2.25) * qi - T(3))
+                       : T(-0.75) * o.gc1 * (ti * ti) * invr;
+      gi = qi < T(2) ? gi : T(0);
+      T gj = qj < T(1) ? gc2j * (T(2.25) * qj - T(3))
+                       : T(-0.75) * gc1j * (tj * tj) * invr;
+      gj = qj < T(2) ? gj : T(0);
+      const T gbar = T(0.5) * (gi + gj);
+
+      T dv[DIM];
+      each_axis(Axes<DIM>{}, [&](int d) { dv[d] = o.v[d] - j[d]; });
+      const T vdotr = dot(dv, dx);
+      const T hbar = T(0.5) * (o.h + hj);
+      const T mu_den = r2 + epsv * hbar * hbar;
+      T mu = Num<T>::template div<FAST>(hbar * vdotr, mu_den);
+      mu = vdotr < T(0) ? mu : T(0);
+      const T cbar = T(0.5) * (o.cs + csj);
+      const T rhobar = T(0.5) * (o.rho + rhoj);
+      T Pi = Num<T>::template div<FAST>((beta * mu - alpha * cbar) * mu,
+                                        rhobar);
+      if (BF) Pi = Pi * (T(0.5) * (o.bf + bfj));
+
+      const T cigi = o.ci * gi;
+      const T pigb = Pi * gbar;
+      T fsum = cigi + cij * gj + pigb;
+      if (GRAV) fsum += gco;
+      const T fcoef = mj * fsum;
+      each_axis(Axes<DIM>{}, [&](int d) { acc.a[d] -= fcoef * dx[d]; });
+      acc.du += mj * (cigi + T(0.5) * pigb) * vdotr;
+    };
+    const bool has_mass = F(R::M, i) > T(0);
+    const Box<T, DIM> box = Box<T, DIM>::of(o.x, has_mass);
+    const T reach = Margin<T>::reach * warp_max(has_mass ? o.h : T(0));
+    const T reach2 = reach * reach;
+    const T gcut2 = rcut2 * Margin<T>::rcut2;
+    cull_and_walk<T, NSEG, NV>(
+        rg, lane, stage, /*with_rest=*/true, entry,
+        [&](const Entry<T>& e, int k) {
+          if (!(F(R::M, k) > T(0))) return false;
+          const T g2 = box.gap2(e.p);
+          bool in = g2 < reach2 || g2 * e.w * e.w < Margin<T>::reach2;
+          if (GRAV) in = in || g2 <= gcut2;
+          return in;
+        },
+        [&](int k, Vec4<T> (&r)[NV]) {
+          each_axis(Axes<NV>{}, [&](int v) { r[v] = gather(k, v); });
+        },
+        pair);
   }
   each_axis(Axes<DIM>{},
-            [&](int d) { acc_out[DIM * (size_t)i + d] = a.a[d]; });
-  du_out[i] = a.du;
+            [&](int d) { acc_out[DIM * (size_t)i + d] = acc.a[d]; });
+  du_out[i] = acc.du;
 }
 
 template <typename T, int DIM, bool BF, bool FAST, bool GRAV>
@@ -569,6 +805,33 @@ __global__ void forces_compact_kernel(
                                            rcut2, acc_out, du_out);
 }
 
+// The kernel, block size and dynamic shared memory of the newest launch,
+// for sphax_last_launch.
+struct LastLaunch {
+  const void* kernel = nullptr;
+  int threads = 0;
+  size_t smem = 0;
+};
+LastLaunch last_launch;
+
+// Launches `kernel` on one block a tile with the warps' staging buffers as
+// dynamic shared memory (above 48 KB a block only after the attribute is
+// raised: tiles of more than about 600 rows in fp64).
+template <typename T, int NV, typename K, typename... Args>
+cudaError_t launch_tiles(K kernel, int Ns, int tile, void* stream,
+                         Args... args) {
+  const size_t smem = stage_bytes<T, NV>(tile);
+  last_launch = {reinterpret_cast<const void*>(kernel), tile, smem};
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<dim3(Ns / tile), dim3(tile), smem,
+           static_cast<cudaStream_t>(stream)>>>(args...);
+  return cudaGetLastError();
+}
+
 // The compact kernels take cwidth after group; `cw` is empty for the
 // in-place ones.
 template <typename T, int DIM, bool COMPACT>
@@ -579,15 +842,14 @@ cudaError_t launch_solve_h_density(const void* win, const void* h0,
                                    int iters, int bals, void* h, void* rho,
                                    void* drdh, void* div, void* curl,
                                    void* stream) {
-  const dim3 grid(Ns / tile), block(tile);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
   auto run = [&](auto kernel, auto... cw) {
-    kernel<<<grid, block, 0, st>>>(
-        static_cast<const T*>(win), static_cast<const T*>(h0),
-        static_cast<const int*>(tab_lo), static_cast<const int*>(tab_n), Ns,
-        group, cw..., T(sig), T(eta_d), T(hcap), iters, static_cast<T*>(h),
-        static_cast<T*>(rho), static_cast<T*>(drdh), static_cast<T*>(div),
-        static_cast<T*>(curl));
+    err = launch_tiles<T, 1>(
+        kernel, Ns, tile, stream, static_cast<const T*>(win),
+        static_cast<const T*>(h0), static_cast<const int*>(tab_lo),
+        static_cast<const int*>(tab_n), Ns, group, cw..., T(sig), T(eta_d),
+        T(hcap), iters, static_cast<T*>(h), static_cast<T*>(rho),
+        static_cast<T*>(drdh), static_cast<T*>(div), static_cast<T*>(curl));
   };
   auto args = [&](auto bals_c) {
     constexpr bool B = decltype(bals_c)::value;
@@ -600,7 +862,7 @@ cudaError_t launch_solve_h_density(const void* win, const void* h0,
     args(std::true_type{});
   else
     args(std::false_type{});
-  return cudaGetLastError();
+  return err;
 }
 
 // fast_math (approximate divides) applies to fp32 only.
@@ -610,14 +872,14 @@ cudaError_t launch_forces(const void* win, const void* tab_lo,
                           int cwidth, double alpha, double beta, double epsv,
                           int use_bf, int fast, const void* gsc, double G,
                           double rcut2, void* acc, void* du, void* stream) {
-  const dim3 grid(Ns / tile), block(tile);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
   auto run = [&](auto kernel, auto... cw) {
-    kernel<<<grid, block, 0, st>>>(
-        static_cast<const T*>(win), static_cast<const int*>(tab_lo),
-        static_cast<const int*>(tab_n), Ns, group, cw..., T(alpha), T(beta),
-        T(epsv), static_cast<const T*>(gsc), T(G), T(rcut2),
-        static_cast<T*>(acc), static_cast<T*>(du));
+    err = launch_tiles<T, 3>(
+        kernel, Ns, tile, stream, static_cast<const T*>(win),
+        static_cast<const int*>(tab_lo), static_cast<const int*>(tab_n), Ns,
+        group, cw..., T(alpha), T(beta), T(epsv),
+        static_cast<const T*>(gsc), T(G), T(rcut2), static_cast<T*>(acc),
+        static_cast<T*>(du));
   };
   auto args = [&](auto bf_c, auto fast_c) {
     constexpr bool B = decltype(bf_c)::value, F = decltype(fast_c)::value;
@@ -638,7 +900,7 @@ cudaError_t launch_forces(const void* win, const void* tab_lo,
     args(No{}, Fast{});
   else
     args(No{}, No{});
-  return cudaGetLastError();
+  return err;
 }
 
 }  // namespace
@@ -754,6 +1016,29 @@ SPHAX_CG_ENTRY(sphax_forces_grav_f64, double)
 SPHAX_CGC_ENTRY(sphax_forces_grav_compact_f32, float)
 SPHAX_CGC_ENTRY(sphax_forces_grav_compact_f64, double)
 #undef SPHAX_CGC_ENTRY
+
+// What the runtime reports of the kernel A or C launched last: out[0]
+// registers a thread, out[1] static and out[2] dynamic shared memory in
+// bytes a block, out[3] local memory in bytes a thread, out[4] threads a
+// block, out[5] the blocks of that launch a SM can hold at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+cudaError_t sphax_last_launch(int* out) {
+  if (last_launch.kernel == nullptr) return cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, last_launch.kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, last_launch.kernel, last_launch.threads, last_launch.smem);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = int(attr.sharedSizeBytes);
+  out[2] = int(last_launch.smem);
+  out[3] = int(attr.localSizeBytes);
+  out[4] = last_launch.threads;
+  out[5] = blocks;
+  return cudaSuccess;
+}
 
 const char* sphax_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -17,6 +17,10 @@ contract and is what the kernels are held against on the card.
 The contract per sorted row i of row-group g: the candidates are, for each
 segment s, the rows k in [w_lo[g,s], w_lo[g,s] + 128 w_nact[g,s]), each
 counted once (a row already inside an earlier segment's range is skipped).
+A group's non-empty ranges start in rising order, w_lo[g,s] >= w_lo[g,s']
+for s' < s: ``window.build`` makes them so and ``rungs.mask_structure``
+keeps them so, and the CUDA kernels rely on it (they skip the repeated rows
+by clipping each range's start at the largest end before it).
 Every candidate outside the true neighbour set lies beyond the kernel
 support or has zero mass, so any convention that counts each row of the
 union once gives the same sums up to summation order. A group whose w_nact
@@ -29,6 +33,12 @@ with no dedup; the plain versions sum over the group's slice of
 ``window.gather_cands``' buffer, the CUDA kernels walk the runs in place. A
 group with c_n == 0 writes h = h0 and zeros. The same pairs as the in-place
 walk, in another order.
+
+The CUDA kernels do not give every row every candidate: a warp of 32 sorted
+rows first culls its group's candidates against the box of its own rows,
+then walks the survivors. ``cull_plain`` states that rule in plain torch
+(the same box, mass rule, reach and margins), ``cull_stats`` counts what it
+keeps; the tests hold that it drops no pair inside the support.
 """
 from __future__ import annotations
 
@@ -121,6 +131,116 @@ class _LivePairs:
         out = vals.new_zeros((self.rows,) + vals.shape[1:])
         return out.index_add_(0, self.row, vals).reshape(
             shape + vals.shape[1:])
+
+
+# ---------------------------------------------------------------------------
+# the warp cull of the CUDA kernels, as plain torch
+# ---------------------------------------------------------------------------
+
+# The margins of csrc/window_kernels.cu's Margin: 2 * 1.001, its square,
+# and 1.001^2 on the squared gravity cutoff.
+CULL_REACH, CULL_REACH2_J, CULL_RCUT2 = 2.002, 4.008004, 1.002001
+
+
+def candidate_table(wd: WindowData, spec: WindowSpec, groups):
+    """The candidate rows of the row-groups ``groups`` in ``_tile_pass``'s
+    window layout: (idx [n, W] int64 sorted rows, valid [n, W] bool). In
+    place W = n_seg * wseg, segment s at columns [s wseg, (s + 1) wseg),
+    valid inside the segment's 128 w_nact rows and outside the earlier
+    segments' (a row's first occurrence in the kernels' walk; ``_tile_pass``
+    dedups on the static width wseg instead, so a row the two count once
+    each may sit at different columns); compact W = cwidth,
+    ``window.compact_index``, valid below c_n. The CUDA kernels visit the
+    valid entries, in this order."""
+    from sphax_torch.neighbors import window as win
+
+    if spec.cwidth > 0:
+        idx = win.compact_index(wd, spec, groups).long()
+        ar = torch.arange(spec.cwidth, device=idx.device)
+        return idx, ar < torch.clamp_max(wd.c_n[groups], spec.cwidth)[:, None]
+    S, n_seg = spec.wseg, spec.n_seg
+    ar = torch.arange(S, dtype=torch.int64, device=wd.w_lo.device)
+    lo = wd.w_lo[groups].long()                            # [n, n_seg]
+    hi = lo + 128 * wd.w_nact[groups].long()
+    k = lo[..., None] + ar                                 # [n, n_seg, S]
+    valid = k < hi[..., None]
+    for s in range(1, n_seg):
+        for sp in range(s):
+            valid[:, s] &= ~((k[:, s] >= lo[:, sp, None])
+                             & (k[:, s] < hi[:, sp, None]))
+    return k.reshape(-1, n_seg * S), valid.reshape(-1, n_seg * S)
+
+
+def _cull_blocks(wd: WindowData, spec: WindowSpec, pos_s, mass_s, h_s,
+                 pair_h: bool, rcut):
+    """Yield (groups, idx, valid, keep [n, warps, W]) over blocks of the
+    row-groups with candidates; see ``cull_plain``."""
+    T = spec.group
+    nw = T // 32
+    width = spec.cwidth if spec.cwidth > 0 else spec.n_seg * spec.wseg
+    TB = max(1, 4_000_000 // (width * nw * spec.dim))
+    gids = torch.nonzero(_group_active(wd, spec)).reshape(-1)
+    ar_t = torch.arange(T, dtype=torch.int64, device=gids.device)
+    inf = float("inf")
+    for b0 in range(0, gids.numel(), TB):
+        g = gids[b0:b0 + TB]
+        idx, valid = candidate_table(wd, spec, g)
+        rows = (g[:, None] * T + ar_t).reshape(-1, nw, 32)
+        has = (mass_s[rows] > 0)[..., None]
+        x = pos_s[rows]                                    # [n, nw, 32, D]
+        lo = torch.where(has, x, inf).amin(2)[:, :, None]  # [n, nw, 1, D]
+        hi = torch.where(has, x, -inf).amax(2)[:, :, None]
+        h_max = torch.where(has[..., 0], h_s[rows], 0.0).amax(2)
+        pj = pos_s[idx][:, None]                           # [n, 1, W, D]
+        gap = torch.clamp_min(torch.maximum(lo - pj, pj - hi), 0.0)
+        g2 = torch.sum(gap * gap, dim=-1)                  # [n, nw, W]
+        keep = g2 < ((CULL_REACH * h_max) ** 2)[..., None]
+        if pair_h:
+            inv_hj = (1.0 / h_s[idx])[:, None]
+            keep |= g2 * inv_hj * inv_hj < CULL_REACH2_J
+        if rcut is not None:
+            keep |= g2 <= float(rcut) ** 2 * CULL_RCUT2
+        keep &= (valid & (mass_s[idx] > 0))[:, None]
+        yield g, idx, valid, keep
+
+
+def cull_plain(wd: WindowData, spec: WindowSpec, pos_s, mass_s, h_s,
+               pair_h: bool = False, rcut=None):
+    """Which candidates each warp of the CUDA kernels stages for its walk.
+
+    A warp is 32 consecutive sorted rows of one row-group. It takes the
+    axis-aligned box of its rows that carry mass and the largest of their
+    ``h_s``, and keeps a candidate row j of its group's table when j
+    carries mass and its distance to the box is below the reach: 2 h_max
+    (kernel A, at the h of the walk), with ``pair_h`` 2 max(h_max, h_j)
+    (kernel C), with ``rcut`` at least that cutoff (C's gravity mode); all
+    1e-3 wider. A warp without a row that carries mass keeps nothing.
+
+    Returns (groups [G], idx [G, W], valid [G, W], keep [G, group // 32,
+    W]) over the row-groups with candidates, in ``candidate_table``'s
+    layout. For the tests and small inputs: it holds every group at once.
+    """
+    parts = list(_cull_blocks(wd, spec, pos_s, mass_s, h_s, pair_h, rcut))
+    return tuple(torch.cat([p[k] for p in parts]) for k in range(4))
+
+
+def cull_stats(wd: WindowData, spec: WindowSpec, pos_s, mass_s, h_s,
+               pair_h: bool = False, rcut=None):
+    """(candidates, survivors) per real row: the mean, over the rows that
+    are real particles, of the valid entries of their group's candidate
+    table and of the entries their warp stages (``cull_plain``), one block
+    of groups at a time."""
+    T = spec.group
+    ar_t = torch.arange(T, dtype=torch.int64, device=pos_s.device)
+    cand = surv = real = 0
+    for g, idx, valid, keep in _cull_blocks(wd, spec, pos_s, mass_s, h_s,
+                                            pair_h, rcut):
+        rows = (g[:, None] * T + ar_t).reshape(-1, T // 32, 32)
+        n_real = wd.is_real[rows].sum(2)                   # [n, nw]
+        real += int(n_real.sum())
+        cand += int((valid.sum(1)[:, None] * n_real).sum())
+        surv += int((keep.sum(2) * n_real).sum())
+    return cand / max(real, 1), surv / max(real, 1)
 
 
 # ---------------------------------------------------------------------------
