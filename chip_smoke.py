@@ -36,8 +36,10 @@ Phases, in order; any failed check raises and exits non-zero:
   9. kernel C  gravity mode (fused P3M short range, split scalars from
      + grav    pm.rs_traced at grav_mesh=128) vs plain, n_side=48,
                fp32 (3e-5) and fp64 (1e-10)
- 10. kernel G  CUDA vs plain at N = 5000 and N = 64^3, fp32 (1e-4) and
-               fp64 (1e-10)
+ 10. kernel G  CUDA vs plain at N = 1, 255, 257, 5000, 65537 and 64^3
+               (across the column tile and the split into slices), fp32
+               (1e-4) and fp64 (1e-10); a second launch bitwise equal; the
+               runtime's registers and blocks a SM against the plan's
  11. P3M path  the driven configuration with gravity=1 grav_solver=p3m
                grav_mesh=128 at N = 1e6, 4 steps: kernel C in its gravity
                mode every step, and the momentum of one derived pass
@@ -45,8 +47,9 @@ Phases, in order; any failed check raises and exits non-zero:
      path      N = 1e6, one update_derived: kernel G once; its output pulls
                toward the centre and matches the plain sum on sampled rows
  13. times     kernel C with and without gravity at the path-11 shapes,
-               kernel G at N = 1e6 and, with its plain version, at 64^3,
-               and pm.mesh_accel at N = 1e6, M = 128
+               kernel G at N = 4096, 65536 and 64^3 (fp32 and fp64) and 1e6
+               (fp32) beside its bound and plan, and with its plain version
+               at 64^3, and pm.mesh_accel at N = 1e6, M = 128
  14. 2D        kernels A (cold Newton, configs.KH) and C (exact and
      kernels   fast_math) in their dim=2 instantiation vs plain at the kh
                geometry (kh.build(nx=64), is_real rows): fp32 3e-5, fp64
@@ -163,19 +166,8 @@ import time
 
 import torch
 
-# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, non-tensor FLOP/s
-PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
-# Operations per pair, counted off sphax_torch/csrc (an FMA is 2, a
-# reciprocal square root, divide, exp or erfc 1): kernel A's Newton walk
-# (3D, 2D, 1D) and its final walk with the Balsara sums, kernel C with the
-# viscosity factor, C's gravity mode for each pair inside the cutoff and
-# again for the pairs outside both supports (their acceleration update),
-# and kernel G.
-FLOPS = {"A_walk": {3: 31, 2: 28, 1: 25},
-         "A_final_bals": {3: 59, 2: 43, 1: 32},
-         "C": {3: 69, 2: 62, 1: 55}, "C_grav": 13, "C_grav_outside": 7,
-         "G": 19}
+# the peak rates and operations a pair behind every bound
+from sphax_torch.bounds import FLOPS, bound, gravity_bound
 
 
 def log(*a):
@@ -193,8 +185,9 @@ def main():
     from sphax_torch.__main__ import main as cli
     from sphax_torch.__main__ import rung_chunk
     from sphax_torch import reference_cpu
-    from sphax_torch.ab_kernels import (line_inputs, sedov_inputs,
-                                        sorted_fields, with_cwidth)
+    from sphax_torch.ab_kernels import (cloud, last_launch, line_inputs,
+                                        sedov_inputs, sorted_fields,
+                                        with_cwidth)
     from sphax_torch.core.state import box
     from sphax_torch.diag import sedov as sedov_diag
     from sphax_torch.ics import kh as kh_ics
@@ -515,25 +508,31 @@ def main():
     # ---- 10. kernel G parity ---------------------------------------------
     G_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
     cfg_gt = configs.SPHConfig(gravity=True, G=1.4, grav_eps=0.03)
-
-    def cloud(n, dtype, seed=3):
-        g = torch.Generator(device=dev).manual_seed(seed)
-        pos = torch.rand((n, 3), generator=g, dtype=dtype, device=dev)
-        return pos, (torch.rand(n, generator=g, dtype=dtype,
-                                device=dev) + 0.5) / n
-
-    for n in (5000, 64 ** 3):
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    g_launch = {}
+    for n in (1, 255, 257, 5000, 65537, 64 ** 3):
         for dtype in (torch.float32, torch.float64):
-            pos, mass = cloud(n, dtype)
+            pos, mass = cloud(dev, n, dtype)
             got = dg.gravity(pos, mass, cfg_gt)
+            again = dg.gravity(pos, mass, cfg_gt)
             want = dg.gravity_plain(pos, mass, cfg_gt)
             torch.cuda.synchronize()
+            assert torch.equal(got, again), (
+                f"G {n} {dtype}: two launches differ")
             every = torch.ones(n, dtype=torch.bool, device=dev)
             e = compare(got, want, every, G_TOL[dtype], f"G {n} {dtype}")
-            log(f"[10 kernel G] N={n:7d} {str(dtype):13s}: max abs err "
-                f"{e:.3g}, max err/scale {worst(f'G {n} {dtype}'):.3g} "
-                f"(tol {G_TOL[dtype]})")
-    del pos, mass, got, want
+            plan = dg.gravity_plan(n, sm_count)
+            g_launch[str(dtype)] = last_launch(_build.load(),
+                                              "sphax_gravity_last_launch")
+            log(f"[10 kernel G] N={n:7d} {str(dtype):13s} plan (rows a "
+                f"thread, threads, slices, columns a slice) {plan}: max abs "
+                f"err {e:.3g}, max err/scale {worst(f'G {n} {dtype}'):.3g} "
+                f"(tol {G_TOL[dtype]}); a second launch bitwise equal")
+    for k, v in g_launch.items():
+        # gravity_plan counts on the blocks a SM its __launch_bounds__ keep
+        assert v["blocks_per_sm"] >= dg.BLOCKS_PER_SM, (k, v)
+        log(f"[10 kernel G] {k} at N = 64^3, the runtime: {v}")
+    del pos, mass, got, again, want
 
     # ---- 11. P3M path: the driven configuration with self-gravity --------
     cfg_g = p3m_cfg(cfg_d)
@@ -644,13 +643,34 @@ def main():
         f"bound of C with gravity {bounds['C grav'][0]:.4f} ms "
         f"({bounds['C grav'][1]})")
     g_ms_1e6, _ = cuda_ms(lambda: dg.gravity(st_o.pos, st_o.mass, cfg_dir), 2)
-    pos, mass = cloud(64 ** 3, torch.float32)
+    g_by_n = {}
+    for n_g, dtype in ((4096, torch.float32), (65536, torch.float32),
+                       (64 ** 3, torch.float32), (10 ** 6, torch.float32),
+                       (4096, torch.float64), (65536, torch.float64),
+                       (64 ** 3, torch.float64)):
+        if n_g == 10 ** 6:      # the direct path's lattice, timed above
+            ms, pos = g_ms_1e6, st_o.pos
+        else:
+            pos, mass = cloud(dev, n_g, dtype)
+            ms, _ = cuda_ms(lambda: dg.gravity(pos, mass, cfg_gt),
+                            2 if n_g == 64 ** 3 and dtype == torch.float64
+                            else 5)
+        size = pos.element_size()
+        b_ms, b_by = gravity_bound(n_g, dtype)
+        rows_g, _, slices_g, _ = dg.gravity_plan(n_g, sm_count)
+        g_by_n[f"{'fp32' if size == 4 else 'fp64'} N={n_g}"] = {
+            "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+            "rows_per_thread": rows_g, "slices": slices_g}
+        log(f"[13 times] G {str(dtype):13s} N={n_g:7d}: kernel {ms:.3f} ms, "
+            f"bound {b_ms:.3f} ms ({b_by}), {b_ms / ms:.2f} of it; "
+            f"{rows_g} rows a thread, {slices_g} slices")
+    pos, mass = cloud(dev, 64 ** 3, torch.float32)
     g_ms, got = cuda_ms(lambda: dg.gravity(pos, mass, cfg_gt), 5)
     g_pms, want = cuda_ms(lambda: dg.gravity_plain(pos, mass, cfg_gt), 1)
     compare(got, want, torch.ones(pos.shape[0], dtype=torch.bool,
                                   device=dev), 1e-4, "G timed 64^3")
     n_g = pos.shape[0]
-    bounds["G"] = bound(28 * n_g, FLOPS["G"] * n_g * n_g, torch.float32)
+    bounds["G"] = gravity_bound(n_g, torch.float32)
     log(f"[13 times] G fp32: N=1e6 kernel {g_ms_1e6:.2f} ms; N=64^3 kernel "
         f"{g_ms:.3f} ms  plain {g_pms:.1f} ms  bound {bounds['G'][0]:.3f} ms "
         f"({bounds['G'][1]})")
@@ -1920,7 +1940,13 @@ def main():
          "replaces": "sphax/physics/pallas_kernels.py:808",
          "launches": total("gravity"), "max_abs_err": g_e,
          "ms": g_ms, "plain_ms": g_pms, **bound_keys("G"), "n": 64 ** 3,
-         "ms_n1e6": g_ms_1e6},
+         "ms_n1e6": g_ms_1e6,
+         "ms_by_n": {k: v["ms"] for k, v in g_by_n.items()},
+         "bound_ms_by_n": {k: v["bound_ms"] for k, v in g_by_n.items()},
+         "rows_per_thread": {k: v["rows_per_thread"]
+                             for k, v in g_by_n.items()},
+         "slices": {k: v["slices"] for k, v in g_by_n.items()},
+         "runtime_at_64_cubed": g_launch},
     ], "launches_by_path": paths, "mesh_accel_ms": mesh_ms,
         "mesh_accel_device_ms": mesh_dev_ms,
         "p3m_step_ms": step_g * 1e3, "rs_mesh_cells": rs_cells,
@@ -1991,13 +2017,6 @@ def pair_counts(wd, spec, pos_s, mass_s, h_s, cutoff=None):
     outs = _tile_pass(kfn, wd, spec, (pos_s, mass_s, h_s),
                       (pos_s, mass_s, h_s), mass_axis=1)
     return tuple(int(o[wd.is_real].sum()) for o in outs)
-
-
-def bound(nbytes, flops, dtype):
-    """(ms, what binds): the larger of bytes over the memory rate and
-    operations over the peak rate of ``dtype``."""
-    t_b, t_f = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
-    return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
 def kernel_bound(kind, spec, pos_s, pairs, iters=0, bals=False, bf=False,

@@ -43,8 +43,9 @@ _ARGTYPES = {
     # acc, du, stream
     "sphax_forces_grav": [_P, _P, _P, _I, _I, _I, _D, _D, _D, _I, _I, _P,
                           _D, _D, _P, _P, _P],
-    # src [4, n], n, eps^2, G, acc, stream
-    "sphax_gravity": [_P, _I, _D, _D, _P, _P],
+    # src [n, 4], n, eps^2, G, rows_per_thread, slices, cols_per_slice,
+    # work [slices, 3, n], acc, stream
+    "sphax_gravity": [_P, _I, _D, _D, _I, _I, _I, _P, _P, _P],
 }
 # the compact walks take c_lo, c_len in place of w_lo, w_nact, and cwidth
 # right after group (before the first double)

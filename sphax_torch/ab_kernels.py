@@ -1,5 +1,5 @@
-"""Kernels A and C built from two source trees, timed in one process on one
-card.
+"""Kernels A, C and G built from two source trees, timed in one process on
+one card.
 
     python -m sphax_torch.ab_kernels OTHER_CSRC [ROUNDS]
 
@@ -14,39 +14,67 @@ and C (exact) at the ``kh n=1024`` shapes (phase 18); A (cold, 6 Newton
 updates) and C (exact) on the ``sedov n=100`` structure, unmasked, masked
 with a tenth of the particles closing and masked down to 4 active groups
 (phases 22 and 24); in 1D, A (cold) and C (exact) on a line of 2^20
-particles (phase 26). The versions take turns in the order this, other,
-other, this, for ROUNDS rounds (default 3); each time is CUDA events over 10
-launches. Prints what ptxas reports for both builds, the kernels present in
-both whose registers differ, what ``torch.profiler`` records for one launch
-of A and of C from this tree at the bench shapes (the kernel's name and
-device time) beside what the CUDA runtime reports of that very launch
-(``sphax_last_launch``: registers, shared and local memory, and the blocks a
-SM holds at once), and one JSON line with each version's median ms per
-case. The machine's counters (scheduler slots, stall reasons, achieved
-occupancy) need Nsight Compute, which this script does not drive.
+particles (phase 26). Kernel G runs on seeded uniform clouds, fp32 at
+N = 4,096, 20,000, 65,536, 64^3 and 1e6 and fp64 at 64^3, each tree with
+its own C signature (the one before G's redesign took a [4, N] pack and no
+plan).
+The versions take turns in the order this, other, other, this, for ROUNDS
+rounds (default 3); each time is CUDA events over 10 launches (2 for G at
+N = 1e6, 5 for G in fp64). Prints what ptxas reports for both builds, the
+kernels present in both whose registers differ, what ``torch.profiler``
+records for one launch of A, C and G (at N = 4,096, 20,000 and 64^3) from
+this tree (the kernel's name and device time) beside what the CUDA runtime
+reports of that very launch (``sphax_last_launch``,
+``sphax_gravity_last_launch``: registers, shared and local memory, and the
+blocks a SM holds at once). For G it also times this tree's kernel under
+other plans (``g_plans``: from one slice to one tile a slice), by events
+and by its kernels' device time,
+and counts the instructions of each G kernel's inner loop in
+``cuobjdump -sass`` of both builds (per pair: the
+smallest loop that holds a reciprocal square root, over the pairs it
+holds), with the floor that count sets at the card's top SM clock: a
+computed time, not a measured one; and the SM clock and board power that
+``nvidia-smi`` samples while G runs at N = 1e6. The last line is one JSON
+record with each version's median ms per case. The machine's counters
+(scheduler slots, stall reasons, achieved occupancy) need Nsight Compute,
+which this script does not drive.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import json
 import math
 import re
 import statistics
+import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
 from sphax_torch import _build, bench, configs, make_state, problems
+from sphax_torch.bounds import gravity_bound
 from sphax_torch.core.state import box
 from sphax_torch.ics import lattice
 from sphax_torch.integrate import rungs
 from sphax_torch.neighbors import window as win
+from sphax_torch.physics import direct_gravity as dg
 from sphax_torch.physics import pm, wengine
 from sphax_torch.physics import window_kernels as wk
 
 BASES = tuple(k for k in _build._ARGTYPES if k != "sphax_gravity")
+# kernel G before its redesign: src [4, n], n, eps^2, G, acc, stream
+G_ARGTYPES_SOA = [_build._P, _build._I, _build._D, _build._D, _build._P,
+                  _build._P]
+G_CFG = configs.SPHConfig(gravity=True, G=1.4, grav_eps=0.03)
+# (N, dtype, launches a time)
+G_SHAPES = ((4096, torch.float32, 10), (20000, torch.float32, 10),
+            (65536, torch.float32, 10), (64 ** 3, torch.float32, 10),
+            (64 ** 3, torch.float64, 5), (10 ** 6, torch.float32, 2))
+# the sizes at which g_sweep times other plans beside gravity_plan's
+G_SWEEP_N = (4096, 10000, 20000, 32768, 65536, 64 ** 3, 10 ** 6)
 
 
 def registers(ptxas: str) -> dict:
@@ -141,6 +169,153 @@ def line_inputs(dev, n=1 << 20):
     return st, cfg, dom, spec
 
 
+def declare_gravity(lib):
+    """Declare kernel G's entry points of ``lib`` with the signature its
+    source has: with a plan (``sphax_gravity_last_launch`` is exported) or
+    the [4, N] pack of before."""
+    args = (_build._ARGTYPES["sphax_gravity"] if planned(lib)
+            else G_ARGTYPES_SOA)
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"sphax_gravity_{suffix}")
+        fn.argtypes, fn.restype = args, ctypes.c_int
+
+
+def planned(lib) -> bool:
+    return hasattr(lib, "sphax_gravity_last_launch")
+
+
+def gravity_soa(pos, mass, cfg):
+    """Kernel G through the [4, N] signature it had before its redesign,
+    packed as its wrapper packed it, on the library now loaded."""
+    acc = torch.empty_like(pos)
+    src = torch.cat([pos.T, mass[None]]).contiguous()
+    wk._launch("gravity", pos.dtype, wk._ptr(src), pos.shape[0],
+               float(cfg.grav_eps) ** 2, float(cfg.G), wk._ptr(acc))
+    return acc
+
+
+def gravity_any(pos, mass, cfg):
+    """Kernel G of whichever library ``_build`` has loaded."""
+    fn = dg.gravity if planned(_build._lib) else gravity_soa
+    return fn(pos, mass, cfg)
+
+
+def cloud(dev, n, dtype, seed=3):
+    """N seeded uniform positions in the unit cube and masses (0.5 to 1.5)
+    / N, as ``chip_smoke.py`` phase 10 makes them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pos = torch.rand((n, 3), generator=g, dtype=dtype, device=dev)
+    return pos, (torch.rand(n, generator=g, dtype=dtype, device=dev)
+                 + 0.5) / n
+
+
+def g_cases(dev):
+    """name -> (a function that launches kernel G on a fixed cloud, its
+    launches a time)."""
+    cases = {}
+    for n, dtype, reps in G_SHAPES:
+        pos, mass = cloud(dev, n, dtype)
+        tag = "fp32" if dtype == torch.float32 else "fp64"
+        cases[f"G {tag} N={n}"] = (
+            lambda p=pos, m=mass: gravity_any(p, m, G_CFG), reps)
+    return cases
+
+
+def sass_per_pair(lib_path) -> dict:
+    """Kernel G's inner loop in ``cuobjdump -sass`` of a built library, per
+    kernel instantiation: the instructions of the smallest loop (a backward
+    branch and its target) that holds a reciprocal square root
+    (``MUFU.RSQ``, ``MUFU.RSQ64H`` in fp64; one a pair), over the pairs it
+    holds, in all and by opcode."""
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(lib_path)], check=True,
+                         capture_output=True, text=True).stdout
+    res = {}
+    for func in re.split(r"\n\s*Function : ", out)[1:]:
+        name = func.split("\n", 1)[0].strip()
+        # the rows a thread, a template argument since the redesign (1 before)
+        m = re.search(r"14gravity_kernelI([fd])(?:Li(\d)E)?", name)
+        if not m:
+            continue
+        ops, addr, labels, pending = [], [], {}, []
+        for line in func.splitlines():
+            lab = re.match(r"\s*(\.L_x_\d+):", line)
+            if lab:
+                pending.append(lab.group(1))
+                continue
+            ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                            r"([A-Z][A-Z0-9_.]*)(.*)", line)
+            if not ins:
+                continue
+            a = int(ins.group(1), 16)
+            labels.update({k: a for k in pending})
+            pending = []
+            ops.append((ins.group(2), ins.group(3)))
+            addr.append(a)
+        loops = []
+        for b, (op, rest) in enumerate(ops):
+            tgt = re.search(r"\(([.\w]+)\)|(0x[0-9a-f]+)", rest)
+            if not op.startswith("BRA") or not tgt:
+                continue
+            t = (labels.get(tgt.group(1)) if tgt.group(1)
+                 else int(tgt.group(2), 16))
+            if t is None or t > addr[b] or t not in addr:
+                continue
+            body = [o for o, _ in ops[addr.index(t):b + 1]]
+            pairs = sum(o.startswith("MUFU.RSQ") for o in body)
+            if pairs:
+                loops.append((len(body), body, pairs))
+        if not loops:
+            continue
+        _, body, pairs = min(loops, key=lambda x: x[0])
+        count = collections.Counter(o.split(".")[0] for o in body)
+        per = {k: v / pairs for k, v in sorted(count.items())}
+        res[f"{'f32' if m.group(1) == 'f' else 'f64'} R={m.group(2) or 1}"] = {
+            "pairs_in_loop": pairs, "per_pair": len(body) / pairs,
+            "fp32_per_pair": sum(per.get(k, 0) for k in ("FADD", "FMUL",
+                                                         "FFMA")),
+            "fp64_per_pair": sum(per.get(k, 0) for k in ("DADD", "DMUL",
+                                                         "DFMA")),
+            "by_opcode": per}
+    return res
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], check=True,
+                         capture_output=True, text=True).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def clocks_during(fn) -> list:
+    """(SM MHz, board W) that ``nvidia-smi`` samples every 250 ms while
+    ``fn`` runs on the card."""
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "250"],
+                           stdout=subprocess.PIPE, text=True)
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+    return [tuple(float(x) for x in line.split(","))
+            for line in smi.communicate()[0].splitlines()
+            if re.fullmatch(r"[\d.]+, *[\d.]+", line.strip())]
+
+
+def sass_floor_ms(per, n, sm_count, clock_hz) -> dict:
+    """The time N^2 pairs take at ``per`` (one ``sass_per_pair`` entry) if
+    every SM issues 4 warp-instructions a clock (128 thread-instructions),
+    and if the fp32 (128 lanes), fp64 (64) and special-function (16) pipes
+    each run at their rate: computed, not measured."""
+    pairs = float(n) * n / (sm_count * clock_hz) * 1e3
+    by = per["by_opcode"]
+    return {"issue": pairs * per["per_pair"] / 128,
+            "fp32_pipe": pairs * per["fp32_per_pair"] / 128,
+            "fp64_pipe": pairs * per["fp64_per_pair"] / 64,
+            "mufu_pipe": pairs * by.get("MUFU", 0) / 16}
+
+
 def _cases(dev):
     """name -> a function that launches one kernel on fixed inputs."""
     a_args = ("pos_s", "mass_s", "h0_s")
@@ -229,17 +404,19 @@ def _ms(fn, reps=10):
     return a.elapsed_time(b) / reps
 
 
-def last_launch(lib) -> dict:
-    """What the CUDA runtime reports of the kernel A or C that ``lib``
-    launched last (``cudaFuncGetAttributes`` and
+def last_launch(lib, entry="sphax_last_launch") -> dict:
+    """What the CUDA runtime reports of the kernel A or C (``entry``
+    ``sphax_gravity_last_launch``: G) that ``lib`` launched last
+    (``cudaFuncGetAttributes`` and
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at the launch's block
     size and dynamic shared memory)."""
     out = (ctypes.c_int * 6)()
-    lib.sphax_last_launch.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.sphax_last_launch.restype = ctypes.c_int
-    err = lib.sphax_last_launch(out)
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    err = fn(out)
     if err != 0:
-        raise RuntimeError("sphax_last_launch failed: "
+        raise RuntimeError(f"{entry} failed: "
                            + lib.sphax_error_string(err).decode())
     regs, static, dynamic, local, threads, blocks = out
     return {"registers": regs, "static_smem_bytes": static,
@@ -248,29 +425,92 @@ def last_launch(lib) -> dict:
             "warps_per_sm": blocks * threads // 32}
 
 
-def profile(cases, lib, names=("A h_predict", "C fast_math")) -> dict:
-    """One profiled launch of each of ``names``: the CUDA kernel's name and
-    device microseconds from ``torch.profiler``, and ``last_launch`` of
-    it."""
+def profile(cases, lib, names=("A h_predict", "C fast_math", "G fp32 N=4096",
+                                "G fp32 N=20000", "G fp32 N=262144")) -> dict:
+    """One profiled launch of each of ``names``: the CUDA kernels' names
+    and device microseconds from ``torch.profiler`` (G: its main kernel and,
+    with slices, the reduction), and ``last_launch`` of it."""
     out = {}
     for name in names:
+        g = name.startswith("G")
         cases[name]()
         torch.cuda.synchronize()
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             cases[name]()
             torch.cuda.synchronize()
-        rec = last_launch(lib)
+        rec = last_launch(lib, "sphax_gravity_last_launch" if g
+                          else "sphax_last_launch")
+        keys = (("gravity_kernel", "reduce_slices") if g
+                else ("solve_h_density", "forces"))
         ev = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and ("solve_h_density" in e.name or "forces" in e.name)]
+              and any(k in e.name for k in keys)]
         if ev:
-            rec.update(kernel=ev[0].name[:100],
-                       device_us=ev[0].time_range.elapsed_us())
+            rec.update(kernel=[e.name[:100] for e in ev],
+                       device_us=[e.time_range.elapsed_us() for e in ev])
         else:
             rec.update(kernel="the profiler recorded no kernel")
         out[name] = rec
     return out
+
+
+def g_plans(n, sm_count) -> dict:
+    """name -> kernel G plans at N: ``gravity_plan``'s own, then one slice,
+    half the plan's slices, twice as many and one tile a slice (whole
+    tiles, as even as tiles allow; a workspace over 1 GiB is left out)."""
+    plan = dg.gravity_plan(n, sm_count)
+    tiles = -(-n // dg.TILE)
+    plans = {"plan": plan}
+    for want in (1, plan[2] // 2, 2 * plan[2], tiles):
+        per = -(-tiles // min(max(want, 1), tiles))
+        slices = -(-tiles // per)
+        if slices != plan[2] and (slices == 1
+                                  or slices * 3 * n * 4 <= 1 << 30):
+            plans[f"slices={slices}"] = (dg.ROWS, dg.THREADS, slices,
+                                         per * dg.TILE)
+    return plans
+
+
+def g_device_us(fn, calls) -> float:
+    """Device microseconds a call of ``fn`` spends in kernel G's kernels
+    (the main one and the slices' reduction), from ``torch.profiler`` over
+    ``calls`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and ("gravity_kernel" in e.name
+                    or "reduce_slices" in e.name)) / calls
+
+
+def g_sweep(dev, rounds=2) -> dict:
+    """This tree's kernel G (fp32) at ``G_SWEEP_N`` under each of
+    ``g_plans``, in turns: the median ms of CUDA events over 10 launches (2
+    at N = 1e6), and the median device ms of its kernels (``g_device_us``
+    over the same launches), which at small N is far below the events' time
+    because the host's launches take longer than the kernels."""
+    sm = dg._sm_count(dev)
+    times = {}
+    for n in G_SWEEP_N:
+        pos, mass = cloud(dev, n, torch.float32)
+        plans = g_plans(n, sm)
+        reps = 2 if n >= 10 ** 6 else 10
+        got = {k: ([], []) for k in plans}
+        for _ in range(rounds):
+            for k, p in plans.items():
+                fn = lambda p=p: dg._launch(pos, mass, G_CFG, p)
+                got[k][0].append(_ms(fn, reps))
+                got[k][1].append(g_device_us(fn, reps) / 1e3)
+        times[n] = {k: {"plan": plans[k], "ms": statistics.median(ev),
+                        "device_ms": statistics.median(d)}
+                    for k, (ev, d) in got.items()}
+    return times
 
 
 def main(argv=None):
@@ -282,15 +522,18 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     other = Path(argv[0])
     rounds = int(argv[1]) if len(argv) > 1 else 3
-    libs, regs = {}, {}
+    libs, regs, sass = {}, {}, {}
     for tag, sources in (("this", _build.SOURCES),
                          ("other", tuple(other / s.name
                                          for s in _build.SOURCES))):
         # built afresh, so that ptxas reports on both
         _build.library_path(sources).unlink(missing_ok=True)
         _build.BUILD_INFO.update(ptxas="")
-        libs[tag] = _build.open_library(_build.build(sources), BASES)
+        path = _build.build(sources)
+        libs[tag] = _build.open_library(path, BASES)
+        declare_gravity(libs[tag])
         regs[tag] = registers(_build.BUILD_INFO["ptxas"])
+        sass[tag] = sass_per_pair(path)
     for tag in regs:
         for name, n in sorted(regs[tag].items()):
             print(f"{tag:5s} {n:4d} registers  {name}")
@@ -298,25 +541,56 @@ def main(argv=None):
     moved = [k for k in both if regs["this"][k] != regs["other"][k]]
     print(f"{len(both)} kernels in both builds; registers differ in "
           f"{len(moved)}: {moved}")
-    cases = _cases(torch.device("cuda"))
+    dev = torch.device("cuda")
+    cases = {k: (fn, 10) for k, fn in _cases(dev).items()}
+    cases.update(g_cases(dev))
     times = {tag: {name: [] for name in cases} for tag in libs}
     try:
         for _ in range(rounds):
             for tag in ("this", "other", "other", "this"):
                 _build._lib = libs[tag]
-                for name, fn in cases.items():
-                    times[tag][name].append(_ms(fn))
+                for name, (fn, reps) in cases.items():
+                    times[tag][name].append(_ms(fn, reps))
     finally:
         _build._lib = None
     _build._lib = libs["this"]
     try:
-        prof = profile(cases, libs["this"])
+        prof = profile({k: fn for k, (fn, _) in cases.items()},
+                       libs["this"])
+        sweep = g_sweep(dev)
+        g_1e6 = cases["G fp32 N=1000000"][0]
+        clocks = clocks_during(lambda: [g_1e6() for _ in range(6)])
     finally:
         _build._lib = None
     for name, rec in prof.items():
         print(f"profile {name}: {rec}")
+    for n, rec in sweep.items():
+        for k, v in rec.items():
+            print(f"G sweep N={n} {k:18s} {v['plan']}: {v['ms']:.4f} ms, "
+                  f"device {v['device_ms']:.4f} ms")
+    print(f"SM MHz, board W under G at N = 1e6: {clocks}")
+    sm, clock = dg._sm_count(dev), max_sm_clock_hz()
+    g_keys = {f"{'fp32' if d == torch.float32 else 'fp64'} N={n}": (n, d)
+              for n, d, _ in G_SHAPES}
+    floors = {}
+    for tag, per_kernel in sass.items():
+        for k, per in per_kernel.items():
+            print(f"{tag:5s} sass {k}: {per['per_pair']:.2f} instructions "
+                  f"a pair ({per['fp32_per_pair']:.2f} fp32, "
+                  f"{per['fp64_per_pair']:.2f} fp64) {per['by_opcode']}")
+            dt = torch.float32 if k.startswith("f32") else torch.float64
+            floors[f"{tag} {k}"] = {
+                n: sass_floor_ms(per, n, sm, clock)
+                for n, d, _ in G_SHAPES if d == dt}
     print(json.dumps({
         "card": bench.card(), "rounds": rounds, "profile": prof,
+        "g_plans": {k: dg.gravity_plan(n, sm)
+                    for k, (n, d) in g_keys.items()},
+        "g_bound_ms": {k: gravity_bound(n, d)[0]
+                       for k, (n, d) in g_keys.items()},
+        "g_sweep": sweep, "g_sass": sass, "g_sass_floor_ms": floors,
+        "sm_count": sm, "max_sm_clock_hz": clock,
+        "sm_mhz_board_w_under_g_1e6": clocks,
         "registers_differ": moved,
         "median_ms": {tag: {k: statistics.median(v) for k, v in t.items()}
                       for tag, t in times.items()},

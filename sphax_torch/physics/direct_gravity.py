@@ -9,9 +9,12 @@ needs ``grav_eps > 0``.
 A CUDA tensor launches the hand-written kernel
 (``sphax_torch/csrc/gravity_kernel.cu``) or raises; a CPU tensor runs the
 plain torch version beside it, ``gravity_plain``, which is also what the
-kernel is held against on the card.
+kernel is held against on the card. ``gravity_plan`` cuts the launch into
+row blocks and column slices for a card's SM count.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -47,6 +50,43 @@ def gravity_plain(pos, mass, cfg: SPHConfig, rows=None):
                     max(1, min(n, (1 << 24) // max(n, 1))))
 
 
+# csrc/gravity_kernel.cu: threads a block, columns a staged tile, the
+# blocks a SM that its __launch_bounds__ keep room for, and the rows a
+# thread it is instantiated for
+THREADS = 128
+TILE = 256
+BLOCKS_PER_SM = 4
+ROWS = 4
+# resident blocks' worth of grid the plan asks for where N allows
+WAVES = 8
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def gravity_plan(n: int, sm_count: int):
+    """(rows_per_thread, threads, slices, cols_per_slice) of a kernel G
+    launch on N particles. The grid is (row blocks of threads *
+    rows_per_thread rows) x (slices of cols_per_slice columns, whole tiles,
+    the last one ragged). It takes the fewest slices that let the grid
+    hold ``WAVES`` times the blocks the card keeps resident, as even as
+    whole tiles allow; where N is too small for that, one tile a slice."""
+    target = WAVES * sm_count * BLOCKS_PER_SM
+    n_tiles = max(1, _cdiv(n, TILE))
+    row_blocks = max(1, _cdiv(n, THREADS * ROWS))
+    # tiles a slice
+    per = max(1, _cdiv(n_tiles, max(1, _cdiv(target, row_blocks))))
+    while per > 1 and row_blocks * _cdiv(n_tiles, per) < target:
+        per -= 1
+    return ROWS, THREADS, _cdiv(n_tiles, per), per * TILE
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def gravity(pos, mass, cfg: SPHConfig):
     """Kernel G. pos [N, 3], mass [N] -> acc [N, 3]."""
     _check_eps(cfg)
@@ -64,11 +104,25 @@ def gravity(pos, mass, cfg: SPHConfig):
             or tuple(mass.shape) != (n,)):
         raise ValueError(f"mass must be a [{n}] {pos.dtype} tensor on "
                          f"{pos.device}")
-    acc = torch.empty((n, 3), dtype=pos.dtype, device=pos.device)
     if n == 0:
-        return acc
-    # SoA [4, N]: x, y, z, m
-    src = torch.cat([pos.T, mass[None]]).contiguous()
+        return torch.empty((0, 3), dtype=pos.dtype, device=pos.device)
+    return _launch(pos, mass, cfg, gravity_plan(n, _sm_count(pos.device)))
+
+
+def _launch(pos, mass, cfg: SPHConfig, plan):
+    """One launch of kernel G on checked CUDA inputs with a given plan
+    (``gravity_plan``'s tuple)."""
+    n = pos.shape[0]
+    rows, threads, slices, cols = plan
+    if threads != THREADS:
+        raise ValueError(f"kernel G is built for {THREADS} threads a block, "
+                         f"not {threads}")
+    acc = torch.empty((n, 3), dtype=pos.dtype, device=pos.device)
+    # [N, 4] records x, y, z, m: one 16-byte (fp32) load a column
+    src = torch.cat([pos, mass[:, None]], 1)
+    work = (torch.empty((slices, 3, n), dtype=pos.dtype, device=pos.device)
+            if slices > 1 else None)
     wk._launch("gravity", pos.dtype, wk._ptr(src), n,
-               float(cfg.grav_eps) ** 2, float(cfg.G), wk._ptr(acc))
+               float(cfg.grav_eps) ** 2, float(cfg.G), rows, slices, cols,
+               None if work is None else wk._ptr(work), wk._ptr(acc))
     return acc

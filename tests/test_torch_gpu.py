@@ -380,14 +380,20 @@ def test_rungs_b1_matches_simulate_on_the_card(cuda):
                                    rtol=5e-5, atol=1e-6, msg=k)
 
 
+def _cloud(dev, dtype, n):
+    g = torch.Generator(device=dev).manual_seed(n)
+    pos = torch.rand((n, 3), generator=g, dtype=dtype, device=dev)
+    return pos, (torch.rand(n, generator=g, dtype=dtype, device=dev)
+                 + 0.5) / n
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [1000, 5000])
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 1000, 4096, 5000, 65537])
 def test_gravity_kernel_matches_plain(cuda, dtype, n):
-    """Kernel G, with N not a multiple of the column tile."""
-    g = torch.Generator(device=cuda).manual_seed(n)
-    pos = torch.rand((n, 3), generator=g, dtype=dtype, device=cuda)
-    mass = (torch.rand(n, generator=g, dtype=dtype, device=cuda) + 0.5) / n
+    """Kernel G, with N on both sides of the column tile (256) and of the
+    split into slices (``gravity_plan``), and not a multiple of either."""
+    pos, mass = _cloud(cuda, dtype, n)
     cfg = configs.SPHConfig(gravity=True, G=1.4, grav_eps=0.03)
     n0 = wk.LAUNCHES["gravity"]
     got = dg.gravity(pos, mass, cfg)
@@ -399,6 +405,35 @@ def test_gravity_kernel_matches_plain(cuda, dtype, n):
     _compare(got, want, every, tol, "acc")
     with pytest.raises(ValueError):
         dg.gravity(pos, mass, dataclasses.replace(cfg, grav_eps=0.0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [4096, 65537])
+def test_gravity_kernel_is_bitwise_repeatable(cuda, dtype, n):
+    """Two launches on one input give bitwise-equal outputs: the slices'
+    partial sums are added in a fixed order, with no atomics. Also with the
+    slices forced to 1 (no reduction pass) and to the most one-tile slices,
+    which the launcher must take."""
+    pos, mass = _cloud(cuda, dtype, n)
+    cfg = configs.SPHConfig(gravity=True, G=1.4, grav_eps=0.03)
+    a, b = dg.gravity(pos, mass, cfg), dg.gravity(pos, mass, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    want = dg.gravity_plain(pos, mass, cfg)
+    every = torch.ones(n, dtype=torch.bool, device=cuda)
+    tiles = -(-n // dg.TILE)
+    for slices, cols in ((1, tiles * dg.TILE), (tiles, dg.TILE)):
+        plan = (dg.ROWS, dg.THREADS, slices, cols)
+        got = dg._launch(pos, mass, cfg, plan)
+        again = dg._launch(pos, mass, cfg, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), plan
+        _compare(got, want, every,
+                 1e-4 if dtype == torch.float32 else TOL[dtype],
+                 f"acc {plan}")
+    with pytest.raises(RuntimeError):   # a plan that leaves a slice empty
+        dg._launch(pos, mass, cfg, (dg.ROWS, dg.THREADS, tiles + 1, dg.TILE))
 
 
 @pytest.mark.gpu
