@@ -11,7 +11,10 @@ masked tables) beside global dt, the Sedov shock-radius gate, and a 1D line
 of 2^20 particles through the dim=1 kernels; then what the warp cull of
 kernels A and C keeps at each path's shapes, the kernels against plain on
 inputs no lattice gives them, and the derived pass on the card against the
-NumPy reference.
+NumPy reference; then the slab decomposition (``sphax_torch.dist``): ranks
+sharing the card over gloo in lockstep with the single-device engine, and
+``python -m sphax_torch turb n=100 shards=2`` (N = 1e6) with kernels A and
+C on each rank's masked shard structure.
 
     python3 chip_smoke.py
 
@@ -141,8 +144,37 @@ Phases, in order; any failed check raises and exits non-zero:
  29. profile   the device time of a step by kind of kernel (profiler) and
                the idle share against the unprofiled wall, 16 steps each:
                the bench configuration in place and compact, and kh n=1024
+ 30. slab      4 ranks on the card (gloo, spawned with
+     lockstep  ``dist.comm.launch``), fp64, from the turbulence lattice at
+               32^3 with a seeded 0.3 N(0,1) velocity: 3 ``wslab.step``s,
+               a 4-step chunk at rebuild_every=2, a rebalance and a
+               migration (pad_factor 2 and migrate_frac 1: the rebalance
+               moves a cut by a whole cell of the coarse slab grid),
+               against ``wengine.simulate`` on one device
+               (rebuild every step): every field at 1e-8, the dts at 1e-10,
+               with configs.TURB and tests/dist/test_wslab.py's mm_visc
+               configuration; with TURB, first kernels A and C on rank 0's
+               shard structure (its real rows active, slab ghosts imaged
+               but inactive, padding in the trash band) against plain:
+               fp32 3e-5, fp64 1e-10 on its own real rows, finite on every
+               row
+ 31. slab CLI  ``turb n=100 shards=2 chunk=8 max_steps=16`` (N = 1e6, fp32)
+               through the CLI: records finite, the checkpoint finite with
+               |sum m v| <= 1e-5 sum m|v|, migration converged, the set-up's
+               one derived pass in this process and one launch of A and of
+               C a step on each rank (from the records); ms per
+               step, host-staged bytes per step, migration and rebalance ms
+               per chunk and builds, beside the same 16 steps at shards=1
+               (its builds from ``window.BUILDS``, its staged bytes from
+               ``dist.comm.STAGED``, both read around the run) (two ranks
+               sharing one card: not a scaling measure); a
+               resume of the shards=2 checkpoint to step 24; then A and C
+               on rank 0's shard of that checkpoint's state against plain
+               (fp32 3e-5), timed, with their bounds
 Each path runs with every launch count set to 0 just before it, and its
-counts are read just after. Each kernel's bound is the larger of its bytes
+counts are read just after; the slab CLI's ranks are processes of their
+own whose counts start at 0, and each chunk's record carries their sums
+(``SlabRun.chunk_record``), which phase 31 adds up. Each kernel's bound is the larger of its bytes
 over 3.35 TB/s and its operations on the pairs these inputs need (inside
 the support, or the cutoff for the gravity mode) over 67 TFLOP/s fp32
 (34 fp64). The line before the last holds the kernels' record: every row
@@ -1801,6 +1833,189 @@ def main():
             st_ck, prob_kh.cfg, prob_kh.domain, prob_kh.wspec, 16)),
     }
 
+    # ---- 30. the slab decomposition in lockstep (fp64, 4 ranks) ----------
+    from sphax_torch import convert
+    from sphax_torch.dist import comm as dist_comm
+    from sphax_torch.dist import wslab
+
+    torch.cuda.empty_cache()
+    SLAB_CFGS = _slab_cfgs()
+    ic = turbulence.build(n_side=32)
+    lock_ops = [("step",)] * 3 + [("chunk", 4, 2, 0), ("rebalance",),
+                                  ("migrate",)]
+    slab_lock = {}
+    for tag, cfg_l in SLAB_CFGS.items():
+        st = make_state(*(torch.as_tensor(ic[k], dtype=torch.float64,
+                                          device=dev)
+                          for k in ("pos", "vel", "mass", "u", "h")))
+        gen = torch.Generator(device=dev).manual_seed(30)
+        st = st._replace(vel=0.3 * torch.randn(st.vel.shape, generator=gen,
+                                               dtype=torch.float64,
+                                               device=dev))
+        dom = box(torch.zeros(3, dtype=torch.float64, device=dev),
+                  torch.ones(3, dtype=torch.float64, device=dev))
+        spec1 = win.plan_measured(st.pos, dom,
+                                  h_max=float(st.h.max()) * 1.1, dim=3,
+                                  fast_sub=3, rgroups=2)
+        st0 = wengine.update_derived(st, cfg_l, dom, spec1)
+        ref3, _, dts3, o3 = wengine.simulate(st0, cfg_l, dom, spec1, 3,
+                                             rebuild_every=1)
+        ref7, _, dts7, o7 = wengine.simulate(ref3, cfg_l, dom, spec1, 4,
+                                             rebuild_every=1)
+        assert int(o3) == 0 and int(o7) == 0
+        # a rebalance moves a cut by whole cells of the coarse slab grid
+        # (about 3,600 particles): shards and send buffers that hold it
+        spec = wslab.plan(dom, st0.n, float(st0.h.max()) * 1.1, 4,
+                          fast_sub=3, rgroups=2, pad_factor=2.0,
+                          migrate_frac=1.0)
+        cuts = wslab.equal_cuts(spec.ncell_ax, 4)
+        sh = [convert.state_to_numpy(wslab.distribute(st0, dom, spec, cuts,
+                                                      r)) for r in range(4)]
+        rows = {k: np.concatenate([x[k] for x in sh]) for k in sh[0]}
+        t0 = time.perf_counter()
+        recs, kerr = dist_comm.launch(
+            slab_lockstep_rank, 4, dev, "gloo", timeout=300, deadline=900,
+            args=(rows, (np.zeros(3), np.ones(3), True), cfg_l, spec, cuts,
+                  lock_ops, tag == "turb"))
+        wall = time.perf_counter() - t0
+        errs_l = {}
+        for rec, ref, dts_ref, n_dts in ((recs[2], ref3, dts3, 3),
+                                         (recs[-1], ref7, dts7, 4)):
+            assert all(not np.any(r.get("health", 0)) for r in recs)
+            got_dts = (np.array([r["dts"][0] for r in recs[:3]])
+                       if n_dts == 3 else recs[3]["dts"])
+            want = dts_ref.cpu().numpy()
+            errs_l[f"dts{n_dts}"] = float(np.max(np.abs(got_dts - want)
+                                                 / want))
+            assert errs_l[f"dts{n_dts}"] <= 1e-10, errs_l
+            errs_l.update(slab_compare(rec, ref, 1e-8, n_dts))
+        slab_lock[tag] = dict(errs_l, wall_s=wall, n=st0.n,
+                              migrate_passes=recs[-1]["passes"],
+                              cuts=recs[-1]["cuts"].tolist(),
+                              kernels_on_rank0=kerr)
+        log(f"[30 slab lockstep] {tag}: N={st0.n} 4 ranks on one card "
+            f"(gloo), 3 steps + a 4-step chunk (rebuild_every=2) + rebalance "
+            f"+ migration ({recs[-1]['passes']} passes) in {wall:.1f} s: "
+            "max err/scale vs single device " + ", ".join(
+                f"{k} {v:.3g}" for k, v in errs_l.items())
+            + " (tol 1e-8, dts 1e-10)"
+            + ("; kernels on rank 0's shard vs plain: " + ", ".join(
+                f"{k} {v:.3g}" for k, v in kerr.items()) if kerr else ""))
+
+    # ---- 31. the slice at full size: turb n=100 shards=2 -----------------
+    torch.cuda.empty_cache()
+    slab_args = ["turb", "n=100", "chunk=8", "max_steps=16"]
+    d2 = fresh(os.path.join("build", "smoke", "slab2"))
+    for k in wk.LAUNCHES:
+        wk.LAUNCHES[k] = 0
+    builds0 = win.BUILDS["n"]
+    t0 = time.perf_counter()
+    _, t2, step2 = cli(slab_args + ["shards=2", "checkpoint_every=1",
+                                    f"out={d2}"])
+    wall2 = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # this process builds the problem (one single-device derived pass) and
+    # splits it; the ranks' counts come with their records
+    setup2 = dict(wk.LAUNCHES)
+    setup2_builds = win.BUILDS["n"] - builds0
+    assert {k: v for k, v in setup2.items() if v} == {
+        "solve_h_density": 1, "forces": 1}, setup2
+    recs2 = records(d2)
+    assert step2 == 16 and all(r["finite"] for r in recs2)
+    chunks2 = [r["chunk"] for r in recs2 if "chunk" in r]
+    slab_launches = {}
+    for c_ in chunks2:
+        for k, v in c_["launches"].items():
+            slab_launches[k] = slab_launches.get(k, 0) + v
+    # one launch of A and one of C a step on each rank
+    assert slab_launches == {"solve_h_density": 32, "forces": 32}, \
+        slab_launches
+    paths["slab shards=2"] = {k: slab_launches.get(k, 0) + setup2[k]
+                              for k in wk.LAUNCHES}
+    st2, _, _, _, x2 = checkpoint.load(os.path.join(d2, "checkpoint.npz"),
+                                       device="cpu")
+    assert x2["shards"] == "2" and st2.n == 100 ** 3
+    assert checkpoint.verify_integrity(st2) is None
+    p2, mv2 = p_sum(st2)
+    assert float(p2.norm()) <= 1e-5 * mv2, (float(p2.norm()), mv2)
+    d1 = fresh(os.path.join("build", "smoke", "slab1"))
+    builds0, staged0 = win.BUILDS["n"], dist_comm.STAGED["bytes"]
+    t0 = time.perf_counter()
+    drive("slab shards=1", lambda: cli(slab_args + [f"out={d1}"]),
+          {"solve_h_density": 17, "forces": 17})
+    wall1 = time.perf_counter() - t0
+    builds1 = win.BUILDS["n"] - builds0
+    staged1 = dist_comm.STAGED["bytes"] - staged0
+    recs1 = records(d1)
+    n_slab = 100 ** 3
+    slab = {
+        "n": n_slab, "card": card, "steps": 16,
+        "note": "2 ranks sharing one card over gloo: not a scaling measure",
+        "shards2": {
+            "wall_s": wall2,
+            "ms_per_step_by_chunk": [c_["chunk_ms"] / 8 for c_ in chunks2],
+            "ms_per_step_records": [n_slab / r["particle_steps_per_sec"]
+                                    * 1e3 for r in recs2[:2]],
+            "staged_bytes_per_step": [c_["staged_bytes"] / 8
+                                      for c_ in chunks2],
+            "migrate_ms": [c_["migrate_ms"] for c_ in chunks2],
+            "migrate_passes": [c_["migrate_passes"] for c_ in chunks2],
+            "rebalance_ms": [c_["rebalance_ms"] for c_ in chunks2],
+            "builds": [c_["builds"] for c_ in chunks2],
+            "setup_builds": setup2_builds, "setup_launches": {
+                k: v for k, v in setup2.items() if v},
+            "momentum_over_sum_m_abs_v": float(p2.norm()) / mv2},
+        "shards1": {
+            "wall_s": wall1,
+            "ms_per_step_records": [n_slab / r["particle_steps_per_sec"]
+                                    * 1e3 for r in recs1[:2]],
+            "staged_bytes_per_step": staged1 / 16,
+            "builds_with_setup": builds1}}
+    log(f"[31 slab CLI] turb n=100 (N=1e6, fp32) 16 steps, 2 ranks sharing "
+        f"the card over gloo (not a scaling measure): ms/step by chunk "
+        f"{[round(v, 2) for v in slab['shards2']['ms_per_step_by_chunk']]}, "
+        f"between records "
+        f"{[round(v, 2) for v in slab['shards2']['ms_per_step_records']]}; "
+        f"host-staged B/step {slab['shards2']['staged_bytes_per_step']}; "
+        f"migration ms {[round(v, 1) for v in slab['shards2']['migrate_ms']]}"
+        f" ({slab['shards2']['migrate_passes']} passes), rebalance ms "
+        f"{[round(v, 2) for v in slab['shards2']['rebalance_ms']]}, builds "
+        f"{slab['shards2']['builds']} a rank (set-up: {setup2_builds} "
+        f"build and {slab['shards2']['setup_launches']} in this process); "
+        f"|sum m v| / sum m|v| "
+        f"{float(p2.norm()) / mv2:.3g}; launches {slab_launches}; "
+        f"shards=1 ms/step between records "
+        f"{[round(v, 2) for v in slab['shards1']['ms_per_step_records']]}, "
+        f"host-staged B/step {staged1 / 16}, builds {builds1} with the "
+        f"set-up's; walls {wall2:.1f} s and {wall1:.1f} s")
+    d3 = fresh(os.path.join("build", "smoke", "slab_resume"))
+    _, t3, step3 = cli(["turb", "n=100", "chunk=8", "max_steps=24",
+                        "shards=2", f"out={d3}",
+                        f"resume={d2}/checkpoint.npz"])
+    recs3 = records(d3)
+    assert step3 == 24 and t3 > t2 and all(r["finite"] for r in recs3)
+    st3 = checkpoint.load(os.path.join(d3, "checkpoint.npz"),
+                          device="cpu")[0]
+    assert checkpoint.verify_integrity(st3) is None
+    slab["resume"] = {"from_step": step2, "to_step": step3, "t": t3}
+    log(f"[31 slab CLI] resumed the shards=2 checkpoint at step {step2} "
+        f"(t={t2:.4f}) and ran to step {step3} (t={t3:.4f}), finite")
+    # the CLI's set-up of a resume from that checkpoint: the state split
+    # here, each rank handed its rows
+    from sphax_torch.dist import runner as dist_runner
+
+    st_ck2 = checkpoint.load(os.path.join(d2, "checkpoint.npz"),
+                             device=dev)[0]
+    spec_k, cuts_k, rows_k = dist_runner.split(st_ck2, box(
+        torch.zeros(3, device=dev), torch.ones(3, device=dev)), 2)
+    shard_k = dist_comm.launch(
+        slab_shapes_rank, 2, dev, "gloo", timeout=300, deadline=900,
+        args=(spec_k, cuts_k, st_ck2.n), rank_args=rows_k)
+    del st_ck2, rows_k
+    slab["kernels_on_a_shard"] = shard_k
+    log("[31 slab kernels] A and C on rank 0's shard of turb n=100 "
+        "shards=2 (fp32, the step-16 checkpoint): " + json.dumps(shard_k))
+
     def total(kernel):
         return sum(p_[kernel] for p_ in paths.values())
 
@@ -1935,6 +2150,23 @@ def main():
            **cull_keys("1d compact" if tag else "1d", which), "n": n1}
           for tag in ("", "_compact")
           for which, base in (("A", "solve_h_density"), ("C", "forces"))],
+        # kernels A and C on a slab shard's masked structure: launches are
+        # the ranks' (the CLI's turb n=100 shards=2, 16 steps, phase 31),
+        # ms, plain_ms and the bound on rank 0's shard of that run
+        *[{"name": f"{base} on a slab shard's masked structure",
+           "route": "cuda", "source": src,
+           "replaces": "sphax/physics/pallas_kernels.py:"
+                       + ("315" if which == "A" else "563"),
+           "launches": slab_launches[base],
+           "max_abs_err": shard_k[which]["max_abs_err"],
+           "ms": shard_k[which]["ms"], "plain_ms": shard_k[which]["plain_ms"],
+           "bound_ms": shard_k[which]["bound_ms"],
+           "bound_by": shard_k[which]["bound_by"], "library_ms": None,
+           "shards": 2, "n": n_slab,
+           "own_rows": shard_k["own_rows"],
+           "active_group_share": shard_k["active_group_share"],
+           "pairs_inside_per_own_row": shard_k[which]["pairs_per_row"]}
+          for which, base in (("A", "solve_h_density"), ("C", "forces"))],
         {"name": "gravity", "route": "cuda",
          "source": "sphax_torch/csrc/gravity_kernel.cu",
          "replaces": "sphax/physics/pallas_kernels.py:808",
@@ -1985,12 +2217,158 @@ def main():
                                     for (k, d), v in off_lattice.items()},
         "reference_cpu_max_rel_err": ref_err,
         "device_ms_per_step_by_kind": where,
+        "slab": dict(slab, lockstep_fp64_4_ranks=slab_lock),
         "build_s": _build.BUILD_INFO["seconds"],
         "card": card}
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
+
+
+# the slab lockstep's configurations (phase 30): the main path's, and
+# tests/dist/test_wslab.py's Morris-Monaghan alpha(t)
+def _slab_cfgs():
+    from sphax_torch import configs
+    return {"turb": configs.TURB,
+            "mm_visc": configs.SPHConfig(dim=3, adaptive_h=True,
+                                         mm_visc=True, newton_iters=8)}
+
+
+def shard_kernel_check(c, st, cuts, dom, cfg, spec, tol, reps=0):
+    """Every rank: one derived pass of its shard that records kernel A's
+    and C's arguments (``tests/_slab_helpers.kernel_calls``). Rank 0 then
+    holds each kernel against its plain version on its own real rows at
+    ``tol`` (rtol, and atol ``tol`` of the largest value), finite on every
+    row, and with ``reps`` > 0 times both and counts the pairs and the
+    bound.
+    Returns rank 0's record (None on the others)."""
+    from sphax_torch.physics import window_kernels as wk
+    from tests._slab_helpers import kernel_calls
+
+    calls, own = kernel_calls(c, st, cuts, dom, cfg, spec)
+    if c.rank != 0:
+        return None
+    out = {}
+    wspec = spec.wspec
+    for which, fn, plain in (("A", wk.solve_h_density,
+                              wk.solve_h_density_plain),
+                             ("C", wk.forces, wk.forces_plain)):
+        a, k = calls[which]
+        got, want = fn(*a, **k), plain(*a, **k)
+        err = rel = 0.0
+        for x, y in zip(got, want):
+            assert bool(torch.isfinite(x).all()), f"{which}: non-finite"
+            x, y = x[own].double(), y[own].double()
+            scale = float(y.abs().max())
+            bad = (x - y).abs() > tol * y.abs() + tol * scale
+            assert not bool(bad.any()), (which, int(bad.sum()))
+            err = max(err, float((x - y).abs().max()))
+            if scale:
+                rel = max(rel, float((x - y).abs().max()) / scale)
+        rec = {"max_abs_err": err, "max_err_over_scale": rel}
+        if reps:
+            a_ = torch.cuda.Event(enable_timing=True)
+            b_ = torch.cuda.Event(enable_timing=True)
+            for tag, f_, n_ in (("ms", fn, reps), ("plain_ms", plain, 1)):
+                f_(*a, **k)
+                torch.cuda.synchronize()
+                a_.record()
+                for _ in range(n_):
+                    f_(*a, **k)
+                b_.record()
+                torch.cuda.synchronize()
+                rec[tag] = a_.elapsed_time(b_) / n_
+            wd = a[0]
+            pos_s = a[2]
+            mass_s = a[3] if which == "A" else a[4]
+            h_s = a[4] if which == "A" else a[5]
+            pairs = pair_counts(wd._replace(is_real=own), wspec, pos_s,
+                                mass_s, h_s)
+            n_pairs = pairs[0] if which == "A" else pairs[1]
+            rec["pairs_per_row"] = n_pairs / max(int(own.sum()), 1)
+            rec["bound_ms"], rec["bound_by"] = kernel_bound(
+                which, wspec, pos_s, n_pairs,
+                iters=wk._newton_iters(cfg), bals=bool(cfg.need_divv),
+                bf=bool(cfg.visc_factor_on), masked=wd)
+        out[which] = rec
+    wd = calls["A"][0][0]
+    out["own_rows"] = int(own.sum())
+    out["n_sorted"] = wspec.n_sorted
+    out["active_group_share"] = float(
+        wk._group_active(wd, wspec).double().mean())
+    return out
+
+
+def slab_lockstep_rank(c, rows, domain, cfg, spec, cuts, ops, check):
+    """Phase 30 on one rank: with ``check``, kernels A and C on rank 0's
+    shard structure against plain (fp32 3e-5, fp64 1e-10); then
+    ``tests/_slab_helpers.lockstep``'s ops in fp64. Rank 0 returns
+    (records, kernel errors)."""
+    from sphax_torch import convert
+    from sphax_torch.dist import wslab
+    from tests._slab_helpers import lockstep
+
+    kerr = {}
+    if check:
+        for dtype, tol in ((torch.float32, 3e-5), (torch.float64, 1e-10)):
+            st = convert.shard_from_numpy(rows, spec, c.rank, c.device,
+                                          dtype)
+            dom = convert.domain_from_numpy(*domain, device=c.device,
+                                            dtype=dtype)
+            sp = wslab.refine_wseg(spec, wslab.max_run(c, st, cuts, dom,
+                                                       spec)[0])
+            rec = shard_kernel_check(c, st, cuts, dom, cfg, sp, tol)
+            if rec is not None:
+                for k in ("A", "C"):
+                    kerr[f"{k} {str(dtype)[6:]}"] = rec[k][
+                        "max_err_over_scale"]
+    recs = lockstep(c, rows, domain, cfg, spec, cuts, ops,
+                           None, True)
+    return (recs, kerr) if c.rank == 0 else None
+
+
+def slab_shapes_rank(c, spec, cuts, n_real, rows):
+    """Phase 31's kernel shapes: the CLI's ``turb`` set-up of a resume on
+    this rank (its rows of the split checkpoint state, ``SlabRun``), then
+    ``shard_kernel_check`` with times and bounds."""
+    import dataclasses
+
+    from sphax_torch import configs, convert
+    from sphax_torch.dist.runner import SlabRun
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.TURB, newton_iters=2)  # problems.turb
+    dom = convert.domain_from_numpy([0.0] * 3, [1.0] * 3, True,
+                                    device=c.device, dtype=torch.float32)
+    run = SlabRun(c, convert.state_from_numpy(rows, c.device, torch.float32),
+                  spec, cuts, n_real, cfg, dom)
+    return shard_kernel_check(c, run.state, run.cuts, dom, cfg, run.spec,
+                              3e-5, reps=10)
+
+
+def slab_compare(rec, ref, tol, tag):
+    """Max err/scale of a lockstep record's real rows against a
+    single-device state, positions wrapped into the unit box; asserts
+    ``tol`` (rtol, and atol ``tol`` of the largest value)."""
+    import numpy as np
+
+    real = rec["rows"]["mass"] > 0
+    got = {k: v[real] for k, v in rec["rows"].items()}
+    pa = np.mod(got["pos"], 1.0)
+    pb = np.mod(ref.pos.cpu().numpy(), 1.0)
+    oi = np.lexsort((pa[:, 2], pa[:, 1], pa[:, 0]))
+    oj = np.lexsort((pb[:, 2], pb[:, 1], pb[:, 0]))
+    errs = {}
+    for k, a, b in [("pos", pa[oi], pb[oj])] + [
+            (k, got[k][oi], getattr(ref, k).cpu().numpy()[oj])
+            for k in ("vel", "u", "h", "rho", "P", "acc", "alpha", "divv")]:
+        scale = float(np.abs(b).max()) or 1.0
+        bad = np.abs(a - b) > tol * np.abs(b) + tol * scale
+        assert not bad.any(), (tag, k, int(bad.sum()))
+        errs[f"{k}@{tag}"] = float(np.abs(a - b).max()) / scale
+    return {k: v for k, v in errs.items() if k.split("@")[0] in
+            ("pos", "h", "rho", "acc")}
 
 
 def pair_counts(wd, spec, pos_s, mass_s, h_s, cutoff=None):

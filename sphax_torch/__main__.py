@@ -41,9 +41,24 @@ engine there, and ``turb`` is driven. Differences from the JAX CLI:
   (``ROADMAP.md`` queue 1, item 11);
 - with ``rungs=B`` and ``adaptive=K`` each record carries ``rebuilds``, as
   the global-dt adaptive loop's do;
-- not ported yet, and refused: ``shards>1`` (the multi-device layer,
-  ROADMAP slice 5), ``plot=1`` (``diag/plots.py`` needs matplotlib, which
-  the card's machine lacks).
+- not ported yet, and refused: ``shards=AxB`` (the pencil decomposition)
+  and ``rungs=B`` with ``shards=N`` (``ROADMAP.md`` queue 1, item 4),
+  ``plot=1`` (``diag/plots.py`` needs matplotlib, which the card's
+  machine lacks).
+
+``shards=N`` (N > 1) runs the slab decomposition (``sphax_torch.dist``):
+this process builds the kernels and the problem (a resume loads its
+checkpoint here), splits the particles into N slabs, then spawns N ranks on
+the same device that talk over gloo (on a card the ranks share it), each
+handed its slab's rows. Every rank runs the window engine on its slab with
+two-phase ghosts; ``rebuild_every=K`` (default 2) is the structure's
+reuse cadence, ``adaptive=K`` its drift gate. After each chunk the cuts are
+rebalanced and particles migrate. Rank 0 logs the all-reduced metrics
+(each chunk's record also carries ``chunk``: its builds, host-staged bytes,
+kernel launches, and wall, rebalance and migration ms over the ranks),
+writes snapshots and the gathered checkpoint (``extra={"shards": "N"}``);
+a resume re-distributes the checkpoint. ``profile=1`` is refused with
+shards.
 """
 from __future__ import annotations
 
@@ -78,18 +93,28 @@ def _parse(argv):
     return name, kv
 
 
-def _refuse_unported(kv):
-    """Pop the JAX CLI's options that the port has not ported yet; raise
-    SystemExit when one asks for more than the single-device loop."""
-    if str(kv.pop("shards", 1)) != "1":
-        raise SystemExit("shards>1 (the multi-device layer) is not ported "
-                         "yet: ROADMAP.md slice 5")
+def _refuse_unported(kv, n_rungs: int, profile: int) -> int:
+    """Pop ``shards``, ``plot`` and ``rebuild_every``; raise SystemExit for
+    what the port has not ported. Returns the shard count."""
+    shards = str(kv.pop("shards", 1))
+    if not shards.isdigit() or int(shards) < 1:
+        raise SystemExit(f"shards={shards}: shards=AxB (the pencil "
+                         "decomposition) is not ported yet, only shards=N "
+                         "(the slab decomposition): ROADMAP.md queue 1, "
+                         "item 4")
+    shards = int(shards)
     if int(kv.pop("plot", 0)):
         raise SystemExit("plot=1 is not ported: diag/plots.py needs "
                          "matplotlib (ROADMAP.md queue 1)")
-    if int(kv.pop("rebuild_every", 2)) != 2:
+    if shards > 1 and n_rungs > 1:
+        raise SystemExit("rungs>1 with shards>1 (dist/wrungs.py) is not "
+                         "ported yet: ROADMAP.md queue 1, item 4")
+    if shards > 1 and profile:
+        raise SystemExit("profile=1 traces the single-device loop only")
+    if shards == 1 and int(kv.get("rebuild_every", 2)) != 2:
         raise SystemExit("rebuild_every: the single-device loop rebuilds "
                          "the window structure every 2 steps")
+    return shards
 
 
 def rung_chunk(prob, state, n_rungs: int, chunk: int, adaptive: int = 0):
@@ -121,7 +146,8 @@ def rung_chunk(prob, state, n_rungs: int, chunk: int, adaptive: int = 0):
 
 
 def main(argv=None):
-    """Run the CLI; returns the final (state, t, step)."""
+    """Run the CLI; returns the final (state, t, step), with state None
+    for a distributed run (its checkpoint holds the gathered state)."""
     name, kv = _parse(sys.argv[1:] if argv is None else argv)
 
     out = kv.pop("out", f"runs/{name}")
@@ -141,13 +167,25 @@ def main(argv=None):
     # driving)
     n_rungs = int(kv.pop("rungs", 1))
     device = torch.device(str(kv.pop("device", "cuda")))
-    _refuse_unported(kv)
-    if chunk < 1:
-        raise SystemExit("chunk must be >= 1")
+    shards = _refuse_unported(kv, n_rungs, profile)
+    rebuild_every = int(kv.pop("rebuild_every", 2))
+    if chunk < 1 or rebuild_every < 1:
+        raise SystemExit("chunk and rebuild_every must be >= 1")
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise SystemExit("no CUDA device is visible; device=cpu runs on "
                              "the CPU")
+    if shards > 1:
+        from sphax_torch.dist.runner import main_dist
+
+        t, step = main_dist(dict(
+            name=name, kv=kv, shards=shards, device=str(device), out=out,
+            t_end=t_end, chunk=chunk, metrics_every=metrics_every,
+            snapshot_every=snapshot_every, checkpoint_every=checkpoint_every,
+            resume=resume, max_steps=max_steps, adaptive=adaptive,
+            rebuild_every=rebuild_every))
+        return None, t, step
+    if device.type == "cuda":
         # the driving force's matmul runs in full fp32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False

@@ -116,11 +116,11 @@ def build(sources=SOURCES) -> Path:
     return out
 
 
-def open_library(path, bases=tuple(_ARGTYPES)) -> ctypes.CDLL:
-    """Load a built library and declare the types of the f32 and f64 entry
-    points of ``bases``."""
+def open_library(path) -> ctypes.CDLL:
+    """Load a built library and declare the types of its f32 and f64 entry
+    points."""
     lib = ctypes.CDLL(str(path))
-    for base in bases:
+    for base in _ARGTYPES:
         for suffix in ("f32", "f64"):
             fn = getattr(lib, f"{base}_{suffix}")
             fn.argtypes = _ARGTYPES[base]

@@ -15,9 +15,9 @@ updates) and C (exact) on the ``sedov n=100`` structure, unmasked, masked
 with a tenth of the particles closing and masked down to 4 active groups
 (phases 22 and 24); in 1D, A (cold) and C (exact) on a line of 2^20
 particles (phase 26). Kernel G runs on seeded uniform clouds, fp32 at
-N = 4,096, 20,000, 65,536, 64^3 and 1e6 and fp64 at 64^3, each tree with
-its own C signature (the one before G's redesign took a [4, N] pack and no
-plan).
+N = 4,096, 20,000, 65,536, 64^3 and 1e6 and fp64 at 64^3, through its
+planned C signature (a tree older than G's redesign, whose G took a [4, N]
+pack and no plan, does not load).
 The versions take turns in the order this, other, other, this, for ROUNDS
 rounds (default 3); each time is CUDA events over 10 launches (2 for G at
 N = 1e6, 5 for G in fp64). Prints what ptxas reports for both builds, the
@@ -64,10 +64,6 @@ from sphax_torch.physics import direct_gravity as dg
 from sphax_torch.physics import pm, wengine
 from sphax_torch.physics import window_kernels as wk
 
-BASES = tuple(k for k in _build._ARGTYPES if k != "sphax_gravity")
-# kernel G before its redesign: src [4, n], n, eps^2, G, acc, stream
-G_ARGTYPES_SOA = [_build._P, _build._I, _build._D, _build._D, _build._P,
-                  _build._P]
 G_CFG = configs.SPHConfig(gravity=True, G=1.4, grav_eps=0.03)
 # (N, dtype, launches a time)
 G_SHAPES = ((4096, torch.float32, 10), (20000, torch.float32, 10),
@@ -169,37 +165,6 @@ def line_inputs(dev, n=1 << 20):
     return st, cfg, dom, spec
 
 
-def declare_gravity(lib):
-    """Declare kernel G's entry points of ``lib`` with the signature its
-    source has: with a plan (``sphax_gravity_last_launch`` is exported) or
-    the [4, N] pack of before."""
-    args = (_build._ARGTYPES["sphax_gravity"] if planned(lib)
-            else G_ARGTYPES_SOA)
-    for suffix in ("f32", "f64"):
-        fn = getattr(lib, f"sphax_gravity_{suffix}")
-        fn.argtypes, fn.restype = args, ctypes.c_int
-
-
-def planned(lib) -> bool:
-    return hasattr(lib, "sphax_gravity_last_launch")
-
-
-def gravity_soa(pos, mass, cfg):
-    """Kernel G through the [4, N] signature it had before its redesign,
-    packed as its wrapper packed it, on the library now loaded."""
-    acc = torch.empty_like(pos)
-    src = torch.cat([pos.T, mass[None]]).contiguous()
-    wk._launch("gravity", pos.dtype, wk._ptr(src), pos.shape[0],
-               float(cfg.grav_eps) ** 2, float(cfg.G), wk._ptr(acc))
-    return acc
-
-
-def gravity_any(pos, mass, cfg):
-    """Kernel G of whichever library ``_build`` has loaded."""
-    fn = dg.gravity if planned(_build._lib) else gravity_soa
-    return fn(pos, mass, cfg)
-
-
 def cloud(dev, n, dtype, seed=3):
     """N seeded uniform positions in the unit cube and masses (0.5 to 1.5)
     / N, as ``chip_smoke.py`` phase 10 makes them."""
@@ -217,7 +182,7 @@ def g_cases(dev):
         pos, mass = cloud(dev, n, dtype)
         tag = "fp32" if dtype == torch.float32 else "fp64"
         cases[f"G {tag} N={n}"] = (
-            lambda p=pos, m=mass: gravity_any(p, m, G_CFG), reps)
+            lambda p=pos, m=mass: dg.gravity(p, m, G_CFG), reps)
     return cases
 
 
@@ -530,8 +495,7 @@ def main(argv=None):
         _build.library_path(sources).unlink(missing_ok=True)
         _build.BUILD_INFO.update(ptxas="")
         path = _build.build(sources)
-        libs[tag] = _build.open_library(path, BASES)
-        declare_gravity(libs[tag])
+        libs[tag] = _build.open_library(path)
         regs[tag] = registers(_build.BUILD_INFO["ptxas"])
         sass[tag] = sass_per_pair(path)
     for tag in regs:

@@ -1,7 +1,9 @@
 """Carry state across from NumPy (and so from the JAX package's arrays).
 
 The tests feed both packages the same arrays through these; a run can
-resume from arrays the reference wrote.
+resume from arrays the reference wrote. The slab decomposition's spec and
+its sharded layout (the JAX package's [n_shards * n_local] arrays, shard
+after shard) carry across too.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import numpy as np
 import torch
 
 from sphax_torch.core.state import Domain, ParticleState
+from sphax_torch.dist.wslab import WSlabSpec
 from sphax_torch.neighbors.window import WindowSpec
 from sphax_torch.physics.driving import DriveState
 
@@ -48,3 +51,27 @@ def drive_from_numpy(amp_re, amp_im, device=None, dtype=None) -> DriveState:
     re = torch.as_tensor(np.array(amp_re), dtype=dtype, device=device)
     im = torch.as_tensor(np.array(amp_im), dtype=re.dtype, device=device)
     return DriveState(amp_re=re, amp_im=im)
+
+
+def wslab_spec_from_fields(**fields) -> WSlabSpec:
+    """WSlabSpec from the fields of a reference spec
+    (``wslab_spec_from_fields(**dataclasses.asdict(jax_spec))``); the JAX
+    package's mesh axis name has no counterpart and is dropped."""
+    fields = dict(fields)
+    fields.pop("axis_name", None)
+    w = fields.pop("wspec")
+    return WSlabSpec(wspec=w if isinstance(w, WindowSpec)
+                     else spec_from_fields(**w),
+                     **{k: int(v) for k, v in fields.items()})
+
+
+def shard_from_numpy(rows: Dict[str, np.ndarray], spec: WSlabSpec,
+                     rank: int, device, dtype) -> ParticleState:
+    """Rank ``rank``'s [n_local] rows of a sharded layout: every field as
+    [n_shards * n_local] rows, shard after shard (a sharded JAX state
+    through ``state_to_numpy``-like conversion, or ``runner.lockstep``'s
+    records)."""
+    nl = spec.n_local
+    return state_from_numpy(
+        {k: np.asarray(rows[k])[rank * nl:(rank + 1) * nl]
+         for k in ParticleState._fields}, device, dtype)

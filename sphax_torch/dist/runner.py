@@ -1,0 +1,325 @@
+"""One rank's loop of a distributed slab run (torch twin of
+``sphax.dist.runner.SlabRun``) and the CLI's ``shards=N`` (twin of
+``sphax.__main__._main_dist``).
+
+``split`` runs once, in the process that launches the ranks: plan ->
+equal cuts -> each rank's rows (``wslab.distribute``). ``SlabRun`` lives
+in every rank:
+
+    set-up: its rows -> measured wseg refinement
+    chunk:  KDK steps with window-structure reuse at ``rebuild_every`` (or
+            drift-gated rebuilds), two-phase ring ghosts, a MIN all-reduced
+            dt, replicated OU driving
+    after each chunk: count-based cut rebalancing from the all-reduced
+            histogram, then migration passes until no particle is
+            misplaced
+    metrics: all-reduced conservation scalars
+    checkpoint: the real rows gathered to rank 0; a resume re-distributes
+"""
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from sphax_torch import convert
+from sphax_torch.configs import SPHConfig
+from sphax_torch.core.state import Domain, ParticleState
+from sphax_torch.dist import comm as comm_mod
+from sphax_torch.dist import wslab
+from sphax_torch.physics import window_kernels as wk
+
+
+# h_max of the plan over the state's largest h (the JAX package's default)
+H_MARGIN = 1.1
+
+
+def split(state: ParticleState, domain: Domain, world: int):
+    """The decomposition of a single-device state over ``world`` ranks:
+    (spec, cuts, rows). The plan takes the production window knobs of the
+    single-device engine (fast_sub=3, rgroups=2; a shard box too thin for
+    the fine fast-axis grid takes 1 and 1), the cuts are equal, and
+    ``rows[r]`` holds rank r's rows (``wslab.distribute``) as NumPy
+    arrays, ready for ``convert.state_from_numpy``."""
+    h_max = float(state.h.max()) * H_MARGIN
+    try:
+        spec = wslab.plan(domain, state.n, h_max, world, fast_sub=3,
+                          rgroups=2)
+    except ValueError:
+        spec = wslab.plan(domain, state.n, h_max, world)
+    cuts = wslab.equal_cuts(spec.ncell_ax, world)
+    rows = [convert.state_to_numpy(wslab.distribute(state, domain, spec,
+                                                    cuts, r))
+            for r in range(world)]
+    return spec, cuts, rows
+
+
+class SlabRun:
+    """One rank's share of a distributed simulation: its shard of the
+    state, the decomposition's spec and cuts, and the chunk loop.
+
+    ``shard`` is this rank's rows, with ``spec`` and ``cuts``, as ``split``
+    makes them; ``n_real`` is the particle count over all ranks. ``noise``
+    is the rank's OU noise source when ``drive_spec`` is given: every rank
+    must draw the same stream. After ``run_chunk``, ``stats`` holds this
+    rank's share of the chunk: its steps, builds, wall seconds, host-staged
+    bytes, kernel launches (``window_kernels.LAUNCHES`` keys), the
+    rebalance's seconds and the migration's passes and seconds."""
+
+    def __init__(self, comm, shard: ParticleState, spec: wslab.WSlabSpec,
+                 cuts, n_real: int, cfg: SPHConfig, domain: Domain,
+                 chunk_steps: int = 8, rebuild_every: int = 2, drive=None,
+                 drive_spec=None, noise=None, n_rungs: int = 1,
+                 adaptive_rebuild: int = 0):
+        if n_rungs > 1:
+            raise NotImplementedError(
+                "rungs>1 on shards (dist/wrungs.py) is not ported yet: "
+                "ROADMAP.md queue 1, item 4")
+        if not adaptive_rebuild and chunk_steps % rebuild_every:
+            chunk_steps += rebuild_every - chunk_steps % rebuild_every
+        self.comm, self.cfg, self.domain = comm, cfg, domain
+        self.chunk_steps, self.rebuild_every = chunk_steps, rebuild_every
+        self.drive, self.drive_spec, self.noise = drive, drive_spec, noise
+        self.adaptive_rebuild = adaptive_rebuild
+        self.n_real = int(n_real)
+        self.stats = {}
+        self.cuts = np.asarray(cuts)
+        self.state = shard
+        mr, gdrop = wslab.max_run(comm, shard, self.cuts, domain, spec)
+        if gdrop:
+            raise RuntimeError(f"{gdrop} ghosts dropped at setup; re-plan "
+                               "with a larger ghost_safety")
+        self.spec = wslab.refine_wseg(spec, mr)
+
+    def run_chunk(self, nsteps: int = None):
+        """Advance ``nsteps`` steps (default ``chunk_steps``; a whole number
+        of rebuild periods at the fixed cadence), rebalance the cuts and
+        migrate to convergence. Returns the dts (a tensor on the rank's
+        device). Raises on any nonzero health counter."""
+        nsteps = self.chunk_steps if nsteps is None else nsteps
+        # start together, so that the chunk's wall is not a wait for a rank
+        # that is still writing a checkpoint
+        self.comm.barrier()
+        staged0 = comm_mod.STAGED["bytes"]
+        launches0 = dict(wk.LAUNCHES)
+        t0 = time.perf_counter()
+        self.state, self.drive, dts, health, builds = wslab.chunk(
+            self.comm, self.state, self.cuts, self.domain, self.cfg,
+            self.spec, nsteps, rebuild_every=self.rebuild_every,
+            drive=self.drive, drive_spec=self.drive_spec, noise=self.noise,
+            adaptive_rebuild=self.adaptive_rebuild)
+        dropped, overflow = (int(v) for v in health)
+        self.stats = dict(steps=nsteps, builds=builds,
+                          chunk_s=time.perf_counter() - t0,
+                          staged_bytes=comm_mod.STAGED["bytes"] - staged0,
+                          launches={k: v - launches0[k]
+                                    for k, v in wk.LAUNCHES.items()})
+        if dropped:
+            raise RuntimeError(f"{dropped} ghosts dropped in chunk; re-plan "
+                               "with larger ghost capacity")
+        if overflow:
+            raise RuntimeError(f"window structure overflow ({overflow}); "
+                               "re-plan with larger wseg/ghost capacities")
+        t0 = time.perf_counter()
+        self.cuts = wslab.rebalance_cuts(wslab.histogram(
+            self.comm, self.state, self.domain, self.spec), self.spec)
+        self.stats["rebalance_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self.stats["migrate_passes"] = self._migrate_to_convergence()
+        self.stats["migrate_s"] = time.perf_counter() - t0
+        return dts
+
+    def _migrate_to_convergence(self) -> int:
+        for k in range(self.comm.world):
+            self.state, dropped = wslab.migrate(self.comm, self.state,
+                                                self.cuts, self.domain,
+                                                self.spec)
+            if int(dropped):
+                raise RuntimeError(f"migration dropped {int(dropped)} "
+                                   "particles; re-plan with a larger "
+                                   "migrate_frac")
+            if wslab.misplaced(self.comm, self.state, self.cuts, self.domain,
+                               self.spec) == 0:
+                return k + 1
+        raise RuntimeError("migration did not converge within n_shards "
+                           "ring hops")
+
+    def metrics(self, t: float) -> dict:
+        """The all-reduced conservation and flow record."""
+        return wslab.diagnostics(self.comm, self.state, t)
+
+    def chunk_record(self) -> dict:
+        """The last chunk's costs over all ranks: builds, host-staged bytes
+        and kernel launches summed, wall, rebalance and migration
+        milliseconds the slowest rank's, migration passes."""
+        keys = sorted(wk.LAUNCHES)
+        st = self.stats
+        dev = self.comm.device
+        sums = self.comm.all_reduce_sum(torch.tensor(
+            [st["launches"][k] for k in keys] + [st["staged_bytes"]],
+            dtype=torch.int64, device=dev)).tolist()
+        slow = self.comm.all_reduce_max(torch.tensor(
+            [st["chunk_s"], st["rebalance_s"], st["migrate_s"]],
+            dtype=torch.float64, device=dev)).tolist()
+        return dict(builds=st["builds"], staged_bytes=sums[-1],
+                    chunk_ms=1e3 * slow[0], rebalance_ms=1e3 * slow[1],
+                    migrate_ms=1e3 * slow[2],
+                    migrate_passes=st["migrate_passes"],
+                    launches={k: n for k, n in zip(keys, sums) if n})
+
+    def gather(self):
+        """The real rows on rank 0 (None on the others)."""
+        return wslab.gather_real(self.comm, self.state)
+
+
+# ---------------------------------------------------------------------------
+# the CLI's shards=N
+# ---------------------------------------------------------------------------
+
+# seconds any collective of the CLI's ranks may wait for its peers
+CLI_TIMEOUT = 900.0
+
+
+def main_dist(opts: dict):
+    """``python -m sphax_torch <problem> shards=N``: build the kernels and
+    the problem here (on the card; a resume loads its checkpoint here),
+    split the state into N slabs, then run N ranks of ``_cli_rank`` on the
+    same device over gloo, each given its own rows. Returns rank 0's (t,
+    step)."""
+    from sphax_torch.io import checkpoint
+    from sphax_torch.problems import REGISTRY
+
+    device = torch.device(opts["device"])
+    if device.type == "cuda":
+        from sphax_torch import _build
+
+        _build.load()
+    name, n_dev = opts["name"], opts["shards"]
+    prob = REGISTRY[name](device=device, **opts["kv"])
+    driven = prob.drive_spec is not None
+    state, drive, t, step = prob.state, prob.drive, 0.0, 0
+    if opts["resume"]:
+        state, t, step, drive, _ = checkpoint.load(
+            str(opts["resume"]), device=device, dtype=prob.state.pos.dtype)
+        if driven and drive is None:
+            raise SystemExit(f"{opts['resume']} holds no driving state for "
+                             f"{name}")
+        print(f"resumed from {opts['resume']}: t={t:.4f} step={step}",
+              flush=True)
+    t_end = (float(opts["t_end"]) if opts["t_end"] is not None
+             else prob.t_end)
+    card = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    print(f"[{name}] N={state.n} dim={state.dim} t_end={t_end} "
+          f"device={card} shards={n_dev} (ranks over gloo)", flush=True)
+    spec, cuts, rows = split(state, prob.domain, n_dev)
+    dom = prob.domain
+    setup = dict(
+        cfg=prob.cfg, dtype=state.pos.dtype, spec=spec, cuts=cuts,
+        n_real=state.n, t=t, step=step, t_end=t_end, seed=prob.seed,
+        domain=(dom.lo.cpu().numpy(), dom.hi.cpu().numpy(), dom.periodic),
+        drive_spec=prob.drive_spec,
+        drive=((drive.amp_re.cpu().numpy(), drive.amp_im.cpu().numpy())
+               if driven else None))
+    del prob, state, drive, dom
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return comm_mod.launch(_cli_rank, n_dev, device, "gloo",
+                           timeout=CLI_TIMEOUT, args=(opts, setup),
+                           rank_args=rows)
+
+
+def _cli_rank(comm, opts, setup, rows):
+    """One rank of the CLI's distributed loop from ``main_dist``'s
+    ``setup`` and this rank's ``rows``; rank 0 logs (each chunk's record
+    carries ``chunk``, ``SlabRun.chunk_record``), snapshots and
+    checkpoints."""
+    from sphax_torch.io import checkpoint, metrics
+    from sphax_torch.physics import driving
+
+    dev = comm.device
+    if dev.type == "cuda":
+        # the driving force's matmul runs in full fp32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    lead = comm.rank == 0
+    name, out, n_dev = opts["name"], opts["out"], comm.world
+    dtype, seed = setup["dtype"], setup["seed"]
+    t, step, t_end = setup["t"], setup["step"], setup["t_end"]
+    dom = convert.domain_from_numpy(*setup["domain"], device=dev,
+                                    dtype=dtype)
+    driven = setup["drive_spec"] is not None
+    drive = noise = None
+    if driven:
+        drive = convert.drive_from_numpy(*setup["drive"], dev, dtype)
+        noise = driving.gaussian_noise(
+            torch.Generator(device=dev).manual_seed(seed))
+    log = None
+    if lead:
+        os.makedirs(out, exist_ok=True)
+        log = metrics.MetricsLogger(os.path.join(out, "metrics.jsonl"))
+    adaptive, rebuild_every = opts["adaptive"], opts["rebuild_every"]
+    run = SlabRun(comm, convert.state_from_numpy(rows, dev, dtype),
+                  setup["spec"], setup["cuts"], setup["n_real"], setup["cfg"],
+                  dom, chunk_steps=opts["chunk"], rebuild_every=rebuild_every,
+                  drive=drive, drive_spec=setup["drive_spec"], noise=noise,
+                  adaptive_rebuild=adaptive)
+
+    def save_checkpoint():
+        g = run.gather()
+        if lead:
+            checkpoint.save(os.path.join(out, "checkpoint.npz"), g, t, step,
+                            run.drive if driven else None,
+                            extra={"shards": str(n_dev)}, seed=seed)
+
+    max_steps = opts["max_steps"]
+    nchunks = 0
+    while t < t_end and not (max_steps and step >= max_steps):
+        nsteps = (min(opts["chunk"], max_steps - step) if max_steps
+                  else opts["chunk"])
+        if not adaptive:
+            nsteps += (-nsteps) % rebuild_every   # whole rebuild periods
+        if driven:
+            noise.reseed(seed, step)
+        dts = run.run_chunk(nsteps)
+        t += float(torch.sum(dts))
+        step += len(dts)
+        nchunks += 1
+        if nchunks % opts["metrics_every"] == 0:
+            rec, costs = run.metrics(t), run.chunk_record()
+            if lead:
+                extra = {"rebuilds": run.stats["builds"]} if adaptive else {}
+                rec = log.log_record(rec, step, run.n_real, **extra,
+                                     chunk=costs)
+                print(f"  t={t:.4f} step={step} "
+                      f"pss={rec['particle_steps_per_sec']:.3e} "
+                      f"E={rec['e_total']:.5f} mach={rec['mach_rms']:.2f} "
+                      f"[{n_dev} shards] staged "
+                      f"{costs['staged_bytes'] / nsteps:.4g} B/step, "
+                      f"migration {costs['migrate_passes']} passes "
+                      f"{costs['migrate_ms']:.3g} ms", flush=True)
+            if not rec["finite"]:
+                g = run.gather()
+                bad = checkpoint.verify_integrity(g) if lead else ""
+                raise RuntimeError(f"state corrupt at step {step}: {bad}")
+        snap = opts["snapshot_every"]
+        if snap and nchunks % snap == 0:
+            g = run.gather()
+            if lead:
+                np.savez_compressed(
+                    os.path.join(out, f"snap_{step:07d}.npz"),
+                    **{k: getattr(g, k).cpu().numpy()
+                       for k in ("pos", "vel", "rho", "u")}, t=t)
+        ck = opts["checkpoint_every"]
+        if ck and nchunks % ck == 0:
+            save_checkpoint()
+
+    save_checkpoint()
+    rec = run.metrics(t)
+    if lead:
+        rec = log.log_record(rec, step, run.n_real)
+        print(f"done: t={t:.4f} steps={step}; final E={rec['e_total']:.6f}; "
+              f"checkpoint + metrics in {out}/ ({n_dev} shards)", flush=True)
+    return t, step

@@ -192,11 +192,29 @@ def _pack_offset(mask, orig_idx, cap: int, n: int):
     return take, dropped
 
 
-def build(pos, domain: Domain, spec: WindowSpec) -> WindowData:
+# window structures built by this process (``build`` calls)
+BUILDS = {"n": 0}
+
+
+def build(pos, domain: Domain, spec: WindowSpec, active=None,
+          image=None) -> WindowData:
     """Build the sorted pencil-window structure (one stable key sort).
-    Every real row defines windows and spawns periodic images (the
-    reference's ``active``/``image`` masks serve its distributed engines,
-    which are not ported yet)."""
+
+    ``active`` ([n] bool, optional): rows with active=False (padding or
+    slab-ghost rows of a shard, ``sphax_torch.dist.wslab``) are still
+    sorted and still appear in other rows' candidate windows, but they do
+    not define windows; their own outputs are don't-care.
+
+    ``image`` ([n] bool, optional, defaults to ``active``): rows allowed to
+    spawn periodic images. A shard passes image = (mass > 0) and active =
+    its local real rows: slab ghosts near a transverse face must still be
+    imaged, since their images are candidates of corner particles.
+
+    With both None every real row defines windows and spawns images, and
+    the tables are those of a build without masks."""
+    BUILDS["n"] += 1
+    if image is None:
+        image = active
     n, dim = pos.shape
     dtype, dev = pos.dtype, pos.device
     i32 = dict(dtype=torch.int32, device=dev)
@@ -225,6 +243,9 @@ def build(pos, domain: Domain, spec: WindowSpec) -> WindowData:
         for sgn, m in ((1.0, cur_pos[:, d] < lo[d] + cut),
                        (-1.0, cur_pos[:, d] > lo[d] + ext[d] - cut)):
             m = m & (cur_orig < n)
+            if image is not None:
+                m = m & torch.cat([image, image.new_zeros(1)])[
+                    torch.clamp_max(cur_orig, n).long()]
             take, dropped = _pack_offset(m, rows_c, cap, nc)
             ghost_drop = ghost_drop + dropped
             tk = torch.clamp_max(take, nc - 1)
@@ -301,9 +322,13 @@ def build(pos, domain: Domain, spec: WindowSpec) -> WindowData:
         torch.where(key_s < ncells_ext, rows, Ns), reduce="amin")
     first = torch.flip(torch.cummin(torch.flip(first, (0,)), 0).values, (0,))
 
-    # only REAL rows define windows
+    # only REAL (and, with ``active``, active) rows define windows
     kt = key_s.reshape(nt, T)
-    rt = is_real.reshape(nt, T)
+    if active is None:
+        rt = is_real.reshape(nt, T)
+    else:
+        act = torch.cat([active, active.new_zeros(1)])
+        rt = (is_real & act[torch.clamp_max(g, n).long()]).reshape(nt, T)
     kmin_t = torch.where(rt, kt, _BIG).amin(1)
     kmax_t = torch.where(rt, kt, -1).amax(1)
     has_real = kmax_t >= 0

@@ -175,10 +175,17 @@ def _solve_and_interp(grid, pos_eval, domain: Domain, G: float, rs, M: int,
                    periodic)
 
 
-def mesh_accel(pos, mass, cfg: SPHConfig, domain: Domain, rs=None):
+def mesh_accel(pos, mass, cfg: SPHConfig, domain: Domain, rs=None,
+               group=None):
     """Long-range (Gaussian-filtered) gravitational acceleration [N, D].
     Positions are wrapped into the box first: ``wengine.simulate`` drifts
-    them unwrapped between rebuilds."""
+    them unwrapped between rebuilds.
+
+    ``group`` (a ``sphax_torch.dist.comm.Comm``): each rank deposits ITS
+    particles on a full copy of the global grid and one all-reduce (SUM)
+    makes the grids identical; every rank then solves the (small) grid
+    itself and interpolates back to its own particles. This is the
+    distributed P3M mesh of ``sphax_torch.dist.wslab``."""
     M = int(cfg.grav_mesh)
     dtype = pos.dtype
     if rs is None:
@@ -192,6 +199,8 @@ def mesh_accel(pos, mass, cfg: SPHConfig, domain: Domain, rs=None):
     cell = domain.extent.to(dtype) / M
     pos_dep = domain.wrap(pos)
     grid = _deposit(pos_dep, mass, lo, cell, M, periodic)
+    if group is not None:
+        grid = group.all_reduce_sum(grid)
     return _solve_and_interp(grid, pos_dep, domain, float(cfg.G), rs, M,
                              periodic)
 

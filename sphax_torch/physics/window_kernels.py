@@ -90,14 +90,21 @@ class _LivePairs:
     margin so rounding in r^2 never drops a live pair; extra pairs add exact
     zeros. Evaluating the pair terms on this list instead of the dense
     [TB, T, nS] block changes only the summation order.
+
+    Before the per-pair distances, a candidate farther from the box of the
+    group's own rows with mass than every reach it could pair with is
+    dropped. Its squared distance to the box is accumulated term by term as
+    r^2 is, so it never exceeds any of its r^2 in floating point: the cull
+    drops no live pair and keeps the live pairs' order, and the sums are
+    bitwise those without it.
     """
 
     def __init__(self, pos_i, m_i, pos_j, m_j, reach_i, reach_j=None):
         TB, T, dim = pos_i.shape
         nS = pos_j.shape[1]
-        # distances only to the candidates that carry mass, packed to the
-        # front of each group's window (stable, so in window order)
-        keep = m_j > 0
+        # distances only to the kept candidates, packed to the front of
+        # each group's window (stable, so in window order)
+        keep = self.keep(pos_i, m_i, pos_j, m_j, reach_i, reach_j)
         L = int(keep.sum(1).max())
         cols = torch.sort((~keep).to(torch.uint8), dim=1,
                           stable=True).indices[:, :L]          # [TB, L]
@@ -119,6 +126,26 @@ class _LivePairs:
         self.dx = (pos_i.reshape(-1, dim)[self.row]
                    - pos_j.reshape(-1, dim)[self.col])
         self.r = torch.sqrt(torch.sum(self.dx * self.dx, dim=-1))
+
+    @staticmethod
+    def keep(pos_i, m_i, pos_j, m_j, reach_i, reach_j):
+        """[TB, nS] bool: the candidates that carry mass and lie within
+        1.001 of a reach they could pair with of the box of the group's own
+        rows with mass (the cull of the class docstring)."""
+        dim = pos_i.shape[-1]
+        has = (m_i > 0)[..., None]
+        inf = float("inf")
+        lo = torch.where(has, pos_i, inf).amin(1)[:, None]    # [TB, 1, D]
+        hi = torch.where(has, pos_i, -inf).amax(1)[:, None]
+        gap = torch.clamp_min(torch.maximum(lo - pos_j, pos_j - hi), 0.0)
+        g2 = torch.zeros(pos_j.shape[:2], dtype=pos_i.dtype,
+                         device=pos_i.device)
+        for d in range(dim):
+            g2 += gap[..., d] * gap[..., d]
+        reach_c = torch.where(has[..., 0], reach_i, 0.0).amax(1)[:, None]
+        if reach_j is not None:
+            reach_c = torch.maximum(reach_c, reach_j)
+        return (m_j > 0) & (g2 < (1.001 * reach_c) ** 2)
 
     def own(self, f):
         return f.reshape((self.rows,) + f.shape[2:])[self.row]

@@ -1,0 +1,138 @@
+"""Scripted slab runs for the tests and ``chip_smoke.py``: ``lockstep``
+interprets a list of ops on a distributed state and returns every state
+after them, and ``kernel_calls`` records what one derived pass hands
+kernels A and C. Both are rank programs of ``sphax_torch.dist.comm.launch``
+(or called inside one); this module imports no JAX."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from sphax_torch import convert
+from sphax_torch.configs import SPHConfig
+from sphax_torch.core.state import Domain, ParticleState
+from sphax_torch.dist import wslab
+from sphax_torch.physics import window_kernels as wk
+
+
+def lockstep(comm, rows: dict, domain, cfg: SPHConfig,
+             spec: wslab.WSlabSpec, cuts, ops, drive=None,
+             refine: bool = False):
+    """Run ``ops`` on a distributed state in fp64 and return, on rank 0, one
+    record per op with the whole sharded state after it.
+
+    ``rows``: the [n_shards * n_local] sharded layout (NumPy, every
+    ParticleState field; ``convert.shard_from_numpy``); ``domain`` = (lo,
+    hi, periodic). ``refine`` first resizes the spec's wseg to the
+    measured ``max_run``, as ``SlabRun`` does. ``ops``:
+
+    - ("step",): one ``wslab.step``;
+    - ("chunk", nsteps, rebuild_every, adaptive[, driven]): one
+      ``wslab.chunk``, driven when ``driven`` is true: ``drive`` =
+      (DriveSpec, amp_re, amp_im, draws) gives the first amplitudes and
+      the standard normals (one pair per driven step);
+    - ("rebalance",): new cuts from the histogram;
+    - ("migrate",): migration passes until nothing is misplaced;
+    - ("reset",): back to the first state and cuts.
+
+    Each record holds the op, its dts, health and builds where it has
+    them, the migration passes, the cuts after it, the driving amplitudes
+    after a driven chunk and ``rows``, the sharded layout after it."""
+    dev, dtype = comm.device, torch.float64
+    st = convert.shard_from_numpy(rows, spec, comm.rank, dev, dtype)
+    dom = convert.domain_from_numpy(*domain, device=dev, dtype=dtype)
+    cuts = np.asarray(cuts)
+    if refine:
+        mr, gdrop = wslab.max_run(comm, st, cuts, dom, spec)
+        if gdrop:
+            raise RuntimeError(f"{gdrop} ghosts dropped at setup")
+        spec = wslab.refine_wseg(spec, mr)
+    st0, cuts0 = st, cuts
+    dspec = dr = noise = None
+    if drive is not None:
+        dspec, amp_re, amp_im, draws = drive
+        dr = convert.drive_from_numpy(amp_re, amp_im, dev, dtype)
+        it = iter(draws)
+
+        def noise(shape, dtype_, device):
+            return tuple(torch.as_tensor(x, dtype=dtype_, device=device)
+                         for x in next(it))
+    recs = []
+    for op in ops:
+        rec = {"op": op}
+        if op[0] == "step":
+            st, dt, health = wslab.step(comm, st, cuts, dom, cfg, spec)
+            rec.update(dts=dt.reshape(1).cpu().numpy(),
+                       health=health.cpu().numpy())
+        elif op[0] == "chunk":
+            nsteps, rebuild_every, adaptive = op[1:4]
+            driven = len(op) > 4 and op[4]
+            st, dr_new, dts, health, builds = wslab.chunk(
+                comm, st, cuts, dom, cfg, spec, nsteps,
+                rebuild_every=rebuild_every, drive=dr if driven else None,
+                drive_spec=dspec if driven else None, noise=noise,
+                adaptive_rebuild=adaptive)
+            rec.update(dts=dts.cpu().numpy(), health=health.cpu().numpy(),
+                       builds=builds)
+            if driven:
+                dr = dr_new
+                rec["drive"] = (dr.amp_re.cpu().numpy(),
+                                dr.amp_im.cpu().numpy())
+        elif op[0] == "reset":
+            st, cuts = st0, cuts0
+        elif op[0] == "rebalance":
+            cuts = wslab.rebalance_cuts(wslab.histogram(comm, st, dom, spec),
+                                        spec)
+        elif op[0] == "migrate":
+            for k in range(comm.world):
+                st, dropped = wslab.migrate(comm, st, cuts, dom, spec)
+                if int(dropped):
+                    raise RuntimeError(f"migration dropped {int(dropped)}")
+                if wslab.misplaced(comm, st, cuts, dom, spec) == 0:
+                    break
+            else:
+                raise RuntimeError("migration did not converge")
+            rec["passes"] = k + 1
+        else:
+            raise ValueError(f"unknown op {op!r}")
+        rec["cuts"] = np.asarray(cuts)
+        full = comm.gather_rows(wslab._pack(st))
+        if comm.rank == 0:
+            rec["rows"] = convert.state_to_numpy(
+                wslab._unpack(full, st.dim))
+        recs.append(rec)
+    return recs if comm.rank == 0 else None
+
+
+def kernel_calls(comm, st: ParticleState, cuts, domain: Domain,
+                 cfg: SPHConfig, spec: wslab.WSlabSpec):
+    """One derived pass of this rank on a fresh structure (every rank must
+    call it: it exchanges ghosts), recording what it hands kernels A and C.
+    Returns ({"A": (args, kwargs), "C": (args, kwargs)}, active_s): the
+    calls' arguments, and the sorted rows that are this rank's own real
+    particles (the rows whose outputs the pass keeps)."""
+    calls = {}
+    # the derived pass reaches both through window_kernels' module globals
+    saved = wk.solve_h_density, wk.forces
+
+    def record(name, fn):
+        def call(*a, **k):
+            calls[name] = (a, k)
+            return fn(*a, **k)
+        return call
+
+    wk.solve_h_density = record("A", saved[0])
+    wk.forces = record("C", saved[1])
+    try:
+        st = st._replace(pos=wslab._wrap_transverse(st.pos, domain,
+                                                    spec.slab_axis))
+        wd, routes, slab_lo, _ = wslab._exchange_and_build(comm, st, cuts,
+                                                           domain, spec)
+        wslab._local_derived(comm, st, wd, routes, slab_lo, cfg, domain,
+                             spec, cuts)
+    finally:
+        wk.solve_h_density, wk.forces = saved
+    n = st.n + 2 * spec.ghost_cap
+    own = torch.cat([st.mass > 0, st.mass.new_zeros(2 * spec.ghost_cap + 1,
+                                                    dtype=torch.bool)])
+    return calls, wd.is_real & own[torch.clamp_max(wd.g, n).long()]

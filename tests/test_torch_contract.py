@@ -6,6 +6,7 @@ formulae agree on random float64 inputs at rtol 1e-12; and importing every
 ``sphax_torch`` module imports no JAX.
 """
 import dataclasses
+import os
 import subprocess
 import sys
 
@@ -292,14 +293,19 @@ def test_wengine_runs_every_gravity_branch(solver, periodic):
         assert bool(torch.isfinite(getattr(st, k)).all()), k
 
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
 def test_package_imports_no_jax():
+    """Every module of the port, and the slab helpers that chip_smoke.py
+    imports, import no JAX and nothing of the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "pre = set(sys.modules)\n"
         "import sphax_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(\n"
         "    sphax_torch.__path__, 'sphax_torch.')]\n"
-        "for m in mods:\n"
+        "for m in mods + ['tests._slab_helpers']:\n"
         "    importlib.import_module(m)\n"
         "new = set(sys.modules) - pre\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'sphax',\n"
@@ -308,10 +314,12 @@ def test_package_imports_no_jax():
         "assert 'jax' not in sys.modules or 'jax' in pre\n"
         "print(' '.join(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120)
+                         text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     mods = out.stdout.split()
-    assert len(mods) >= 42
+    assert len(mods) >= 46
     assert {"sphax_torch.integrate.rungs", "sphax_torch.reference_cpu",
-            "sphax_torch.__main__", "sphax_torch.physics.window_kernels"
+            "sphax_torch.__main__", "sphax_torch.physics.window_kernels",
+            "sphax_torch.dist", "sphax_torch.dist.comm",
+            "sphax_torch.dist.wslab", "sphax_torch.dist.runner"
             } <= set(mods)

@@ -1,7 +1,9 @@
 """The CUDA kernels A, C (with and without its P3M gravity mode; A and C
-in 3D, 2D and 1D, in place and compact, and on the masked tables of the
-block-timestep path) and G against their plain torch versions, on a card;
-and block timesteps with one rung against the global-dt loop.
+in 3D, 2D and 1D, in place and compact, on the masked tables of the
+block-timestep path and on a slab shard's masked structure) and G against
+their plain torch versions, on a card; block timesteps with one rung
+against the global-dt loop; and the slab decomposition's ranks, sharing
+the card over gloo, against the single-device engine.
 
 These tests import no JAX (the machine with the card has none) and skip
 where no CUDA device is visible. Run them on the card without the suite's
@@ -18,17 +20,20 @@ of the largest value): each row sums N terms in another order.
 """
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
-from sphax_torch import configs, make_state
+from sphax_torch import configs, convert, make_state
 from sphax_torch.core.state import box
+from sphax_torch.dist import comm, wslab
 from sphax_torch.ics import kh, lattice, turbulence
 from sphax_torch.integrate import rungs
 from sphax_torch.neighbors import window as win
 from sphax_torch.physics import direct_gravity as dg
 from sphax_torch.physics import pm, wengine
 from sphax_torch.physics import window_kernels as wk
+from tests._slab_helpers import kernel_calls, lockstep
 
 TOL = {torch.float32: 3e-5, torch.float64: 1e-10}
 A_CASES = {
@@ -475,3 +480,89 @@ def test_cuda_tensor_never_runs_the_plain_version(cuda, monkeypatch):
         assert {k: wk.LAUNCHES[k] - n0[k] for k in n0} == {
             k: int(k in kernels) for k in n0}, (cfg, compact)
         assert bool(torch.isfinite(out.acc).all())
+
+
+def _slab_state(dev, dtype, n_side, cfg):
+    """Turbulence ICs with a seeded 0.3 N(0,1) velocity after one
+    single-device derived pass, and their domain."""
+    st, dom, spec, _, _ = _inputs(dev, dtype, n_side=n_side)
+    g = torch.Generator(device=dev).manual_seed(7)
+    st = st._replace(vel=0.3 * torch.randn(st.vel.shape, generator=g,
+                                           dtype=dtype, device=dev))
+    return wengine.update_derived(st, cfg, dom, spec), dom, spec
+
+
+def _shard_parity(c, dtype, n_side):
+    """Every rank: its shard of the 2-slab decomposition and one derived
+    pass that records kernel A's and C's arguments; then each kernel
+    against its plain version on the rank's own real rows, and finite on
+    every row. Rank 0 returns the largest relative errors."""
+    cfg = dataclasses.replace(configs.TURB, newton_iters=2)
+    st, dom, _ = _slab_state(c.device, dtype, n_side, cfg)
+    spec = wslab.plan(dom, st.n, float(st.h.max()) * 1.1, c.world,
+                      fast_sub=3, rgroups=2)
+    cuts = wslab.equal_cuts(spec.ncell_ax, c.world)
+    sh = wslab.distribute(st, dom, spec, cuts, c.rank)
+    spec = wslab.refine_wseg(spec, wslab.max_run(c, sh, cuts, dom, spec)[0])
+    calls, own = kernel_calls(c, sh, cuts, dom, cfg, spec)
+    errs = {}
+    for name, cuda_fn, plain in (("A", wk.solve_h_density,
+                                  wk.solve_h_density_plain),
+                                 ("C", wk.forces, wk.forces_plain)):
+        a, k = calls[name]
+        got, want = cuda_fn(*a, **k), plain(*a, **k)
+        for i, (x, y) in enumerate(zip(got, want)):
+            assert bool(torch.isfinite(x).all()), (name, i)
+            _compare(x, y, own, TOL[dtype], f"shard {name} output {i}")
+            x, y = x[own].double(), y[own].double()
+            errs[f"{name}{i}"] = float((x - y).abs().max() / y.abs().max())
+    return errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_slab_shard_kernels_match_plain(cuda, dtype):
+    """Kernels A and C on a slab shard's structure (local real rows
+    active, slab ghosts imaged but inactive, padding in the trash band), 2
+    ranks on the card: against the plain versions on the rank's own real
+    rows, finite on every row."""
+    errs = comm.launch(_shard_parity, 2, cuda, "gloo", timeout=120,
+                       deadline=600, args=(dtype, 24))
+    assert max(errs.values()) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_slab_lockstep_on_the_card(cuda):
+    """3 distributed steps, then a 2-step chunk and a migration, on 2 ranks
+    sharing the card (fp64), against the single-device CUDA engine at
+    1e-8 (the dts at 1e-10)."""
+    cfg = dataclasses.replace(configs.TURB, newton_iters=2)
+    st0, dom, spec1 = _slab_state(cuda, torch.float64, 24, cfg)
+    ref, _, dts, ovf = wengine.simulate(st0, cfg, dom, spec1, 5,
+                                        rebuild_every=1)
+    assert int(ovf) == 0
+    spec = wslab.plan(dom, st0.n, float(st0.h.max()) * 1.1, 2,
+                      fast_sub=3, rgroups=2)
+    cuts = wslab.equal_cuts(spec.ncell_ax, 2)
+    shards = [convert.state_to_numpy(wslab.distribute(st0, dom, spec, cuts,
+                                                      r)) for r in range(2)]
+    rows = {k: np.concatenate([s[k] for s in shards]) for k in shards[0]}
+    recs = comm.launch(
+        lockstep, 2, cuda, "gloo", timeout=120, deadline=600,
+        args=(rows, (dom.lo.cpu().numpy(), dom.hi.cpu().numpy(),
+                     dom.periodic), cfg, spec, cuts,
+              [("step",)] * 3 + [("chunk", 2, 2, 0), ("migrate",)],
+              None, True))
+    got_dts = np.concatenate([r["dts"] for r in recs if "dts" in r])
+    np.testing.assert_allclose(got_dts, dts.cpu().numpy(), rtol=1e-10)
+    real = recs[-1]["rows"]["mass"] > 0
+    got = {k: v[real] for k, v in recs[-1]["rows"].items()}
+    pa = np.mod(got["pos"], 1.0)
+    pb = np.mod(ref.pos.cpu().numpy(), 1.0)
+    oi = np.lexsort((pa[:, 2], pa[:, 1], pa[:, 0]))
+    oj = np.lexsort((pb[:, 2], pb[:, 1], pb[:, 0]))
+    np.testing.assert_allclose(pa[oi], pb[oj], rtol=1e-8, atol=1e-8)
+    for k in ("vel", "h", "rho", "acc", "du_dt"):
+        b = getattr(ref, k).cpu().numpy()[oj]
+        np.testing.assert_allclose(got[k][oi], b, rtol=1e-8,
+                                   atol=1e-8 * np.abs(b).max(), err_msg=k)
