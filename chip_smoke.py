@@ -14,7 +14,11 @@ inputs no lattice gives them, and the derived pass on the card against the
 NumPy reference; then the slab decomposition (``sphax_torch.dist``): ranks
 sharing the card over gloo in lockstep with the single-device engine, and
 ``python -m sphax_torch turb n=100 shards=2`` (N = 1e6) with kernels A and
-C on each rank's masked shard structure.
+C on each rank's masked shard structure; then the h predictor against full
+Newton, and block timesteps on the slab ranks (``dist.wrungs``): in
+lockstep with the single-device rung integrator, and ``python -m
+sphax_torch sedov n=100 shards=2 rungs=4`` with kernels A and C on each
+rank's shard structure masked again to its closers.
 
     python3 chip_smoke.py
 
@@ -171,18 +175,52 @@ Phases, in order; any failed check raises and exits non-zero:
                resume of the shards=2 checkpoint to step 24; then A and C
                on rank 0's shard of that checkpoint's state against plain
                (fp32 3e-5), timed, with their bounds
+ 32. h_predict tpu_tests/test_tpu_hpredict.py's two gates through
+               wengine.simulate and the kernels, fp32: Sod (nx_left=16,
+               n_trans=16, 64 steps) L1(rho) of full Newton < 0.06 and of
+               the predictor <= 1.15x it + 1e-4, residual < 5e-3; the
+               turbulence lattice at 16^3 with a seeded 0.3 N(0,1)
+               velocity and the production window knobs, 30 steps of the
+               predictor against full Newton (6 updates): h drift < 3e-3,
+               rho < 1e-2, dts rtol 2e-3, residual < 5e-3
+ 33. rung      2 ranks on the card (gloo), fp64, Sedov at 16^3
+     lockstep  (configs.SEDOV, newton_iters=2), B = 3, one span at
+               rebuild_every=2: the blast centred, and at (0.15, 0.5, 0.5)
+               after a work rebalance (the ranks' work before and after)
+               and the migration, against ``rungs.simulate_rungs`` on one
+               device with the kernels: every field at 1e-8, dts at 1e-12,
+               closings per tick and dt_viol equal, health 0; first
+               kernels A and C on rank 0's shard structure masked to the
+               closers of a span's first tick, and to none (a tick whose
+               closers are all rank 1's), against plain on the shard's
+               rows jittered by 0.2 of a spacing with a 0.4 N(0,1)
+               velocity, fp32 3e-5 and fp64 1e-10; with none, h0 and zeros
+               from both on every row
+ 34. rung      ``sedov n=100 shards=2 rungs=4 chunk=8 max_steps=16``
+     slab CLI  (N = 1e6, fp32, two spans of 8 ticks) through the CLI:
+               records finite, |sum m v| <= 1e-5 sum m|v|, dt_viol under
+               5 % of the closings, active_frac < 0.5, migration converged,
+               health 0; ms per tick by chunk beside phase 24's shards=1,
+               active_frac, dt_viol, builds, host-staged bytes per tick,
+               migration and rebalance ms, the work imbalance before and
+               after each rebalance, and the launches of A and C (the
+               seeding passes included) against the schedule's count (two
+               ranks sharing one card: not a scaling measure); then A and
+               C on rank 0's rung-masked shard of that run's checkpoint
+               (the closers of a span's first tick) against plain (fp32
+               3e-5), timed, with their bounds
 Each path runs with every launch count set to 0 just before it, and its
 counts are read just after; the slab CLI's ranks are processes of their
 own whose counts start at 0, and each chunk's record carries their sums
-(``SlabRun.chunk_record``), which phase 31 adds up. Each kernel's bound is the larger of its bytes
-over 3.35 TB/s and its operations on the pairs these inputs need (inside
-the support, or the cutoff for the gravity mode) over 67 TFLOP/s fp32
-(34 fp64). The line before the last holds the kernels' record: every row
-of kernels A and C also carries the candidates, the survivors and the pairs
-inside the support per real row. The survivors are what the cull's rule
-keeps on this run's inputs, counted by its plain torch statement
-(``window_kernels.cull_stats``); the kernels do not report what they
-staged.
+(``SlabRun.chunk_record``), which phases 31 and 34 add up. Each kernel's
+bound is the larger of its bytes over 3.35 TB/s and its operations on the
+pairs these inputs need (inside the support, or the cutoff for the gravity
+mode) over 67 TFLOP/s fp32 (34 fp64). The line before the last holds the
+kernels' record: every row of kernels A and C also carries the candidates,
+the survivors and the pairs inside the support per real row. The
+survivors are what the cull's rule keeps on this run's inputs, counted by
+its plain torch statement (``window_kernels.cull_stats``); the kernels do
+not report what they staged.
 The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -2016,6 +2054,270 @@ def main():
     log("[31 slab kernels] A and C on rank 0's shard of turb n=100 "
         "shards=2 (fp32, the step-16 checkpoint): " + json.dumps(shard_k))
 
+    # ---- 32. the h predictor against full Newton, through the kernels ----
+    from sphax_torch.diag import riemann
+    from sphax_torch.ics import sod as sod_ics
+
+    hp = {}
+    f32 = torch.float32
+
+    def f32_state(ic, vel=None):
+        st = make_state(*(torch.as_tensor(ic[k], dtype=f32, device=dev)
+                          for k in ("pos", "vel", "mass", "u", "h")))
+        return st if vel is None else st._replace(vel=vel)
+
+    def residual(st, cfg):
+        """max |rho - m (eta / h)^3| / rho, the bench's h-consistency."""
+        return float(((st.rho - st.mass * (cfg.eta / st.h) ** 3).abs()
+                      / st.rho).max())
+
+    # Sod (tpu_tests/test_tpu_hpredict.py:35): L1 of rho against the exact
+    # Riemann solution after 64 steps, full Newton (6 updates) and the
+    # predictor (1 walk and the lagged correction)
+    sod_base = configs.SPHConfig(dim=3, gamma=1.4, adaptive_h=True,
+                                 balsara=True, newton_iters=6)
+    sod_pred = dataclasses.replace(sod_base, h_predict=True, newton_iters=1)
+    ic = sod_ics.build(nx_left=16, n_trans=16)
+    st_sod = f32_state(ic)
+    dom_sod = box(torch.zeros(3, dtype=f32, device=dev),
+                  torch.as_tensor(ic["box"], dtype=f32, device=dev))
+    spec_sod = win.plan_measured(st_sod.pos, dom_sod,
+                                 h_max=float(st_sod.h.max()) * 1.25, dim=3,
+                                 cutoff_scale=1.1)
+    for tag, cfg_h in (("newton", sod_base), ("h_predict", sod_pred)):
+        st, _, dts, ovf = drive(f"sod {tag}", lambda: wengine.simulate(
+            wengine.update_derived(st_sod, cfg_h, dom_sod, spec_sod), cfg_h,
+            dom_sod, spec_sod, 64, rebuild_every=2),
+            {"solve_h_density": 65, "forces": 65})
+        assert int(ovf) == 0
+        t_sod = float(dts.sum())
+        x = st.pos[:, 0].double().cpu().numpy()
+        rho = st.rho.double().cpu().numpy()
+        assert np.isfinite(rho).all()
+        sel = (x > 0.2) & (x < 0.85)
+        exact = riemann.sod_solution(x[sel], t_sod)[0]
+        hp[f"sod_l1_{tag}"] = float(np.mean(np.abs(rho[sel] - exact)))
+        hp[f"sod_residual_{tag}"] = residual(st, cfg_h)
+    hp["sod_t"], hp["sod_n"] = t_sod, st_sod.n
+    assert hp["sod_l1_newton"] < 0.06, hp
+    assert hp["sod_l1_h_predict"] < 1.15 * hp["sod_l1_newton"] + 1e-4, hp
+    assert hp["sod_residual_h_predict"] < 5e-3, hp
+
+    # the 30-step lockstep (tpu_tests/test_tpu_hpredict.py:74): the
+    # turbulence lattice at 16^3 with a seeded 0.3 N(0,1) velocity, the
+    # production window knobs, full Newton (6 updates) against the predictor
+    t_base = dataclasses.replace(configs.TURB, newton_iters=6)
+    t_pred = dataclasses.replace(t_base, h_predict=True, newton_iters=1)
+    ic = turbulence.build(n_side=16)
+    gen = torch.Generator(device=dev).manual_seed(32)
+    st_t = f32_state(ic, 0.3 * torch.randn((16 ** 3, 3), generator=gen,
+                                           dtype=f32, device=dev))
+    dom_t = box(torch.zeros(3, dtype=f32, device=dev),
+                torch.ones(3, dtype=f32, device=dev))
+    spec_t = win.plan_measured(st_t.pos, dom_t,
+                               h_max=float(st_t.h.max()) * 1.3, dim=3,
+                               cutoff_scale=1.05, fast_sub=3, rgroups=2)
+    st_t = wengine.update_derived(st_t, t_base, dom_t, spec_t)
+    outs_t = {}
+    for tag, cfg_h in (("newton", t_base), ("h_predict", t_pred)):
+        outs_t[tag] = drive(f"turb lockstep {tag}", lambda: wengine.simulate(
+            st_t, cfg_h, dom_t, spec_t, 30, rebuild_every=2),
+            {"solve_h_density": 30, "forces": 30})
+        assert int(outs_t[tag][3]) == 0
+    (st_n, _, dts_n, _), (st_p, _, dts_p, _) = outs_t["newton"], \
+        outs_t["h_predict"]
+    hp["turb_h_drift"] = float(((st_p.h - st_n.h).abs() / st_n.h).max())
+    hp["turb_rho_drift"] = float(((st_p.rho - st_n.rho).abs()
+                                  / st_n.rho).max())
+    hp["turb_dts_rel"] = float(((dts_p - dts_n).abs() / dts_n).max())
+    hp["turb_residual"] = residual(st_p, t_pred)
+    assert hp["turb_h_drift"] < 3e-3 and hp["turb_rho_drift"] < 1e-2, hp
+    torch.testing.assert_close(dts_p, dts_n, rtol=2e-3, atol=0.0)
+    assert hp["turb_residual"] < 5e-3, hp
+    log(f"[32 h_predict] fp32, through kernels A and C: Sod (N="
+        f"{st_sod.n}, 64 steps to t={t_sod:.4f}) L1(rho) full Newton "
+        f"{hp['sod_l1_newton']:.5f} (< 0.06), predictor "
+        f"{hp['sod_l1_h_predict']:.5f} (< 1.15x + 1e-4), residual "
+        f"{hp['sod_residual_h_predict']:.3g} (< 5e-3); turbulence 16^3, "
+        f"30 steps: h drift {hp['turb_h_drift']:.3g} (< 3e-3), rho drift "
+        f"{hp['turb_rho_drift']:.3g} (< 1e-2), dts {hp['turb_dts_rel']:.3g} "
+        f"(rtol 2e-3), residual {hp['turb_residual']:.3g} (< 5e-3)")
+    del outs_t, st_n, st_p, st_t, st_sod
+
+    # ---- 33. block timesteps on the slab ranks in lockstep (fp64) --------
+    from sphax_torch.ics import sedov as sedov_ics
+
+    torch.cuda.empty_cache()
+    f64 = torch.float64
+    cfg_r = dataclasses.replace(configs.SEDOV, newton_iters=2)
+    rung_lock = {}
+    for tag, centre, ops in (
+            ("centred", (0.5, 0.5, 0.5), [("rungs", 1, 3, 2, 0)]),
+            # tests/dist/test_rungs_dist.py:130's blast, the span after a
+            # work rebalance and the migration
+            ("off-centre", (0.15, 0.5, 0.5),
+             [("work", 3), ("rebalance", 3), ("migrate",), ("work", 3),
+              ("refine",), ("rungs", 1, 3, 2, 0)])):
+        ic = sedov_ics.build(n_side=16, E=1.0, centre=centre)
+        st = make_state(*(torch.as_tensor(ic[k], dtype=f64, device=dev)
+                          for k in ("pos", "vel", "mass", "u", "h")))
+        dom = box(torch.zeros(3, dtype=f64, device=dev),
+                  torch.ones(3, dtype=f64, device=dev))
+        knobs_r = dict(cutoff_scale=1.05, fast_sub=3, rgroups=2)
+        spec1 = win.plan_measured(st.pos, dom, h_max=float(st.h.max()) * 1.1,
+                                  dim=3, **knobs_r)
+        st0 = wengine.update_derived(st, cfg_r, dom, spec1)
+        # the seeding pass of A, then A and C once a tick
+        ref, dts_ref, nact_ref, ovf, viol_ref, _ = drive(
+            f"rungs lockstep {tag}", lambda: rungs.simulate_rungs(
+                st0, cfg_r, dom, spec1, nspans=1, n_rungs=3,
+                rebuild_every=2), {"solve_h_density": 5, "forces": 4})
+        assert int(ovf) == 0 and int(nact_ref.min()) < st0.n
+        # shards and send buffers that hold a cut moved by whole cells
+        spec = wslab.plan(dom, st0.n, float(st0.h.max()) * 1.1, 2,
+                          pad_factor=2.0, migrate_frac=1.0, **knobs_r)
+        cuts = wslab.equal_cuts(spec.ncell_ax, 2)
+        sh = [convert.state_to_numpy(wslab.distribute(st0, dom, spec, cuts,
+                                                      r)) for r in range(2)]
+        rows = {k: np.concatenate([x[k] for x in sh]) for k in sh[0]}
+        t0 = time.perf_counter()
+        recs, kchk = dist_comm.launch(
+            rung_lockstep_rank, 2, dev, "gloo", timeout=300, deadline=900,
+            args=(rows, (np.zeros(3), np.ones(3), True), cfg_r, spec, cuts,
+                  ops, 16))
+        wall = time.perf_counter() - t0
+        rec = recs[-1]
+        assert not np.any(rec["health"]), rec["health"]
+        dts_err = float(np.max(np.abs(rec["dts"] - dts_ref.cpu().numpy())
+                               / dts_ref.cpu().numpy()))
+        assert dts_err <= 1e-12, dts_err
+        assert np.array_equal(rec["nacts"], nact_ref.cpu().numpy()), (
+            rec["nacts"], nact_ref)
+        assert rec["dt_viol"] == int(viol_ref)
+        errs_r = slab_compare(rec, ref, 1e-8, "span")
+        rung_lock[tag] = dict(
+            errs_r, dts=dts_err, nacts=rec["nacts"].tolist(),
+            dt_viol=rec["dt_viol"], wall_s=wall, n=st0.n,
+            cuts=rec["cuts"].tolist(), kernels_on_rank0=kchk,
+            work=[r["work"].tolist() for r in recs if "work" in r])
+        log(f"[33 rung lockstep] {tag}: N={st0.n} 2 ranks on one card "
+            f"(gloo), B=3, one span of 4 ticks"
+            + (" after a work rebalance (rank work "
+               + " -> ".join(str([round(w, 2) for w in v])
+                             for v in rung_lock[tag]["work"])
+               + f", cuts {rec['cuts'].tolist()})" if len(ops) > 1 else "")
+            + f" in {wall:.1f} s: closings per tick {rec['nacts'].tolist()}"
+            f" and dt_viol {rec['dt_viol']} equal one device's, dts within "
+            f"{dts_err:.3g} (1e-12), max err/scale " + ", ".join(
+                f"{k} {v:.3g}" for k, v in errs_r.items())
+            + " (1e-8); A and C on rank 0's rung-masked shard (jittered) vs "
+            "plain: "
+            + "; ".join(f"{dt_} closers {kr['closers']}, active groups "
+                        f"{kr['active_group_share']:.3f}, A "
+                        f"{kr['A']['max_err_over_scale']:.3g} C "
+                        f"{kr['C']['max_err_over_scale']:.3g}"
+                        for dt_, kr in kchk.items()))
+        del ref, st0, st
+    # the off-centre blast's first closers are in rank 0's slab: its
+    # kernels ran on a partly masked structure there, and on a fully
+    # masked one where it had none
+    ks = rung_lock["off-centre"]["kernels_on_rank0"]
+    assert all((kr["closers"] > 0) == k.endswith("tick 0")
+               for k, kr in ks.items()), {k: kr["closers"]
+                                          for k, kr in ks.items()}
+
+    # ---- 34. the slice at full size: sedov n=100 shards=2 rungs=4 --------
+    torch.cuda.empty_cache()
+    dr = fresh(os.path.join("build", "smoke", "rung2"))
+    for k in wk.LAUNCHES:
+        wk.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    _, t_r2, step_r2 = cli(["sedov", "n=100", "shards=2", "rungs=4",
+                            "chunk=8", "max_steps=16", "checkpoint_every=1",
+                            f"out={dr}"])
+    wall_r2 = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    setup_r2 = {k: v for k, v in wk.LAUNCHES.items() if v}
+    assert setup_r2 == {"solve_h_density": 1, "forces": 1}, setup_r2
+    recs_r2 = records(dr)
+    assert step_r2 == 16 and all(r["finite"] for r in recs_r2)
+    chunks_r2 = [r["chunk"] for r in recs_r2 if "chunk" in r]
+    assert len(chunks_r2) == 2
+    rung_launches = {}
+    for c_ in chunks_r2:
+        for k, v in c_["launches"].items():
+            rung_launches[k] = rung_launches.get(k, 0) + v
+    # each chunk a rank: A's seeding pass, then A and C once a tick
+    want_r2 = {"solve_h_density": 2 * 2 * (1 + 8), "forces": 2 * 2 * 8}
+    assert rung_launches == want_r2, rung_launches
+    paths["rung shards=2"] = {k: rung_launches.get(k, 0)
+                              + setup_r2.get(k, 0) for k in wk.LAUNCHES}
+    for r in recs_r2[:2]:
+        closings = r["active_frac"] * 100 ** 3 * 8
+        assert r["dt_viol"] < 0.05 * closings, r
+        assert r["active_frac"] < 0.5, r
+    st_r2, _, _, _, x_r2 = checkpoint.load(os.path.join(dr, "checkpoint.npz"),
+                                           device="cpu")
+    assert x_r2["shards"] == "2" and st_r2.n == 100 ** 3
+    assert checkpoint.verify_integrity(st_r2) is None
+    p_r2, mv_r2 = p_sum(st_r2)
+    assert float(p_r2.norm()) <= 1e-5 * mv_r2, (float(p_r2.norm()), mv_r2)
+    one = rung_recs["rungs=4 CLI"]
+    rung2 = {
+        "n": 100 ** 3, "card": card, "ticks": 16, "wall_s": wall_r2,
+        "note": "2 ranks sharing one card over gloo: not a scaling measure",
+        "ms_per_tick_by_chunk": [c_["chunk_ms"] / 8 for c_ in chunks_r2],
+        "ms_per_tick_records": [100 ** 3 / r["particle_steps_per_sec"]
+                                * 1e3 for r in recs_r2[:2]],
+        "active_frac": [r["active_frac"] for r in recs_r2[:2]],
+        "dt_viol": [r["dt_viol"] for r in recs_r2[:2]],
+        "builds": [c_["builds"] for c_ in chunks_r2],
+        "staged_bytes_per_tick": [c_["staged_bytes"] / 8
+                                  for c_ in chunks_r2],
+        "migrate_ms": [c_["migrate_ms"] for c_ in chunks_r2],
+        "migrate_passes": [c_["migrate_passes"] for c_ in chunks_r2],
+        "rebalance_ms": [c_["rebalance_ms"] for c_ in chunks_r2],
+        "imbalance_before_after": [(c_["imbalance_before"],
+                                    c_["imbalance_after"])
+                                   for c_ in chunks_r2],
+        "launches": rung_launches, "launches_predicted": want_r2,
+        "setup_launches": setup_r2,
+        "momentum_over_sum_m_abs_v": float(p_r2.norm()) / mv_r2,
+        "shards1_ms_per_tick_cli": 100 ** 3 / one["particle_steps_per_sec"]
+        * 1e3,
+        "shards1_ms_per_tick_simulate_rungs": rung_ms["rungs"]}
+    log(f"[34 rung slab CLI] sedov n=100 (N=1e6, fp32) rungs=4, 16 ticks, "
+        f"2 ranks sharing the card over gloo (not a scaling measure): ms/"
+        f"tick by chunk "
+        f"{[round(v, 2) for v in rung2['ms_per_tick_by_chunk']]}, between "
+        f"records {[round(v, 2) for v in rung2['ms_per_tick_records']]} "
+        f"(shards=1, phase 24: CLI "
+        f"{rung2['shards1_ms_per_tick_cli']:.2f}, simulate_rungs "
+        f"{rung_ms['rungs']:.2f}); active_frac {rung2['active_frac']}, "
+        f"dt_viol {rung2['dt_viol']}, builds {rung2['builds']} a rank; "
+        f"host-staged B/tick {rung2['staged_bytes_per_tick']}; migration "
+        f"ms {[round(v, 1) for v in rung2['migrate_ms']]} "
+        f"({rung2['migrate_passes']} passes), rebalance ms "
+        f"{[round(v, 2) for v in rung2['rebalance_ms']]}, work imbalance "
+        f"before -> after {rung2['imbalance_before_after']}; launches "
+        f"{rung_launches} (predicted {want_r2}; set-up {setup_r2} in this "
+        f"process); |sum m v| / sum m|v| {float(p_r2.norm()) / mv_r2:.3g}; "
+        f"wall {wall_r2:.1f} s")
+    # A and C on rank 0's rung-masked shard of that run's checkpoint: the
+    # closers of the first tick of a span starting there
+    st_ck = checkpoint.load(os.path.join(dr, "checkpoint.npz"),
+                            device=dev)[0]
+    spec_k, cuts_k, rows_k = dist_runner.split(st_ck, box(
+        torch.zeros(3, device=dev), torch.ones(3, device=dev)), 2)
+    rung_k = dist_comm.launch(
+        rung_shapes_rank, 2, dev, "gloo", timeout=300, deadline=900,
+        args=(spec_k, cuts_k, st_ck.n), rank_args=rows_k)
+    del st_ck, rows_k
+    rung2["kernels_on_a_shard"] = rung_k
+    log("[34 rung slab kernels] A and C on rank 0's rung-masked shard of "
+        "sedov n=100 shards=2 rungs=4 (fp32, the tick-16 checkpoint, the "
+        "first tick's closers): " + json.dumps(rung_k))
+
     def total(kernel):
         return sum(p_[kernel] for p_ in paths.values())
 
@@ -2167,6 +2469,30 @@ def main():
            "active_group_share": shard_k["active_group_share"],
            "pairs_inside_per_own_row": shard_k[which]["pairs_per_row"]}
           for which, base in (("A", "solve_h_density"), ("C", "forces"))],
+        # kernels A and C on a slab shard's structure masked again to the
+        # closers of a rung tick: launches are the ranks' (the CLI's sedov
+        # n=100 shards=2 rungs=4, 16 ticks, the seeding passes of A
+        # included, phase 34), ms, plain_ms and the bound on rank 0's shard
+        # of that run at the first tick of a span; the quiet rank's fully
+        # masked launch and the fp64 check are phase 33's
+        *[{"name": f"{base} on a slab shard's rung-masked structure",
+           "route": "cuda", "source": src,
+           "replaces": "sphax/physics/pallas_kernels.py:"
+                       + ("373" if which == "A" else "640"),
+           "launches": rung_launches[base],
+           "max_abs_err": rung_k[which]["max_abs_err"],
+           "ms": rung_k[which]["ms"], "plain_ms": rung_k[which]["plain_ms"],
+           "bound_ms": rung_k[which]["bound_ms"],
+           "bound_by": rung_k[which]["bound_by"], "library_ms": None,
+           "shards": 2, "n": 100 ** 3, "n_rungs": 4,
+           "own_rows": rung_k["own_rows"], "closers": rung_k["closers"],
+           "active_group_share": rung_k["active_group_share"],
+           "pairs_inside_per_own_row": rung_k[which]["pairs_per_row"],
+           "lockstep_max_err_over_scale": {
+               f"{tag} {dt_}": kr[which]["max_err_over_scale"]
+               for tag, v in rung_lock.items()
+               for dt_, kr in v["kernels_on_rank0"].items()}}
+          for which, base in (("A", "solve_h_density"), ("C", "forces"))],
         {"name": "gravity", "route": "cuda",
          "source": "sphax_torch/csrc/gravity_kernel.cu",
          "replaces": "sphax/physics/pallas_kernels.py:808",
@@ -2218,6 +2544,8 @@ def main():
         "reference_cpu_max_rel_err": ref_err,
         "device_ms_per_step_by_kind": where,
         "slab": dict(slab, lockstep_fp64_4_ranks=slab_lock),
+        "rung_slab": dict(rung2, lockstep_fp64_2_ranks=rung_lock),
+        "h_predict": hp,
         "build_s": _build.BUILD_INFO["seconds"],
         "card": card}
     print(json.dumps(kernels))
@@ -2235,27 +2563,58 @@ def _slab_cfgs():
                                          mm_visc=True, newton_iters=8)}
 
 
-def shard_kernel_check(c, st, cuts, dom, cfg, spec, tol, reps=0):
+def span_closers(c, st, cfg, n_rungs, tick):
+    """This rank's closers at ``tick`` of a span of block timesteps that
+    starts from ``st``: the rungs as ``wrungs.chunk_rungs`` assigns them at
+    the span's start (dt_min a MIN all-reduce: every rank must call it)."""
+    from sphax_torch.integrate.rungs import _rung_of
+    from sphax_torch.integrate.timestep import particle_dt
+
+    real = st.mass > 0
+    dt = torch.where(real, particle_dt(st, cfg), cfg.dt_max)
+    rung = _rung_of(dt, c.all_reduce_min(dt.amin()), n_rungs)
+    period = torch.bitwise_left_shift(torch.ones_like(rung), rung) - 1
+    return real & (torch.bitwise_and(period, tick + 1) == 0)
+
+
+def shard_kernel_check(c, st, cuts, dom, cfg, spec, tol, reps=0, n_rungs=0,
+                       tick=0, quiet=False):
     """Every rank: one derived pass of its shard that records kernel A's
-    and C's arguments (``tests/_slab_helpers.kernel_calls``). Rank 0 then
+    and C's arguments (``tests/_slab_helpers.kernel_calls``); with
+    ``n_rungs``, the rung pass on the structure masked to the closers of
+    ``tick`` of a span starting from ``st`` (``span_closers``), or with
+    ``quiet`` to none on rank 0, as on a tick whose closers all lie in the
+    other slabs. Rank 0 then
     holds each kernel against its plain version on its own real rows at
     ``tol`` (rtol, and atol ``tol`` of the largest value), finite on every
-    row, and with ``reps`` > 0 times both and counts the pairs and the
-    bound.
+    row; where it has no closer, both give h0 and zeros on every row. With
+    ``reps`` > 0 it times both and counts the pairs and the bound.
     Returns rank 0's record (None on the others)."""
     from sphax_torch.physics import window_kernels as wk
     from tests._slab_helpers import kernel_calls
 
-    calls, own = kernel_calls(c, st, cuts, dom, cfg, spec)
+    close_m = span_closers(c, st, cfg, n_rungs, tick) if n_rungs else None
+    if quiet and c.rank == 0:
+        close_m = torch.zeros_like(close_m)
+    calls, own = kernel_calls(c, st, cuts, dom, cfg, spec, close_m)
     if c.rank != 0:
         return None
     out = {}
+    quiet = close_m is not None and not bool(close_m.any())
     wspec = spec.wspec
     for which, fn, plain in (("A", wk.solve_h_density,
                               wk.solve_h_density_plain),
                              ("C", wk.forces, wk.forces_plain)):
         a, k = calls[which]
         got, want = fn(*a, **k), plain(*a, **k)
+        if quiet:
+            # every group masked: h0 and zeros from both
+            for x, y in zip(got[1:] if which == "A" else got,
+                            want[1:] if which == "A" else want):
+                assert not bool(x.any() | y.any()), which
+            if which == "A":
+                assert torch.equal(got[0], a[4]) and torch.equal(want[0],
+                                                                 a[4])
         err = rel = 0.0
         for x, y in zip(got, want):
             assert bool(torch.isfinite(x).all()), f"{which}: non-finite"
@@ -2297,7 +2656,63 @@ def shard_kernel_check(c, st, cuts, dom, cfg, spec, tol, reps=0):
     out["n_sorted"] = wspec.n_sorted
     out["active_group_share"] = float(
         wk._group_active(wd, wspec).double().mean())
+    if close_m is not None:
+        out["closers"] = int(close_m.sum())
     return out
+
+
+def rung_lockstep_rank(c, rows, domain, cfg, spec, cuts, ops, n_side):
+    """Phase 33 on one rank: kernels A and C on rank 0's shard structure
+    masked to the closers of a span's first tick, and to none, against
+    plain (fp32 3e-5, fp64 1e-10), on the shard's real rows jittered by a
+    seeded 0.2 of a spacing with a seeded 0.4 N(0,1) velocity (on the
+    resting lattice d rho/d h cancels and the Balsara sums vanish, as in
+    phase 22); then ``tests/_slab_helpers.lockstep``'s ops in fp64 from the
+    rows as given. Rank 0 returns (records, its kernel records)."""
+    from sphax_torch import convert
+    from sphax_torch.dist import wslab
+    from tests._slab_helpers import lockstep
+
+    kchk = {}
+    for dtype, tol in ((torch.float32, 3e-5), (torch.float64, 1e-10)):
+        st = convert.shard_from_numpy(rows, spec, c.rank, c.device, dtype)
+        gen = torch.Generator(device=c.device).manual_seed(33 + c.rank)
+        real = (st.mass > 0)[:, None]
+        jit = (0.2 / n_side) * (2.0 * torch.rand(
+            st.pos.shape, generator=gen, dtype=dtype, device=c.device) - 1.0)
+        vel = 0.4 * torch.randn(st.vel.shape, generator=gen, dtype=dtype,
+                                device=c.device)
+        st = st._replace(pos=torch.where(real, st.pos + jit, st.pos),
+                         vel=torch.where(real, vel, st.vel))
+        dom = convert.domain_from_numpy(*domain, device=c.device,
+                                        dtype=dtype)
+        sp = wslab.refine_wseg(spec, wslab.max_run(c, st, cuts, dom,
+                                                   spec)[0])
+        for quiet in (False, True):
+            rec = shard_kernel_check(c, st, cuts, dom, cfg, sp, tol,
+                                     n_rungs=3, quiet=quiet)
+            if rec is not None:
+                kchk[f"{str(dtype)[6:]} {'none' if quiet else 'tick 0'}"] \
+                    = rec
+    recs = lockstep(c, rows, domain, cfg, spec, cuts, ops, None, True)
+    return (recs, kchk) if c.rank == 0 else None
+
+
+def rung_shapes_rank(c, spec, cuts, n_real, rows):
+    """Phase 34's kernel shapes: the CLI's ``sedov`` set-up of a resume on
+    this rank with rungs=4 (its rows of the split checkpoint state,
+    ``SlabRun``), then ``shard_kernel_check`` with times and bounds on the
+    structure masked to the first tick's closers."""
+    from sphax_torch import configs, convert
+    from sphax_torch.dist.runner import SlabRun
+
+    cfg = configs.SEDOV                                   # problems.sedov
+    dom = convert.domain_from_numpy([0.0] * 3, [1.0] * 3, True,
+                                    device=c.device, dtype=torch.float32)
+    run = SlabRun(c, convert.state_from_numpy(rows, c.device, torch.float32),
+                  spec, cuts, n_real, cfg, dom, n_rungs=4)
+    return shard_kernel_check(c, run.state, run.cuts, dom, cfg, run.spec,
+                              3e-5, reps=10, n_rungs=4)
 
 
 def slab_lockstep_rank(c, rows, domain, cfg, spec, cuts, ops, check):

@@ -24,8 +24,10 @@ whole spans of 2^(B-1) ticks, a tick counts as a step, ``adaptive=K`` is
 passed through, and each record carries ``dt_viol`` and ``active_frac``. It
 needs the window engine without self-gravity or OU driving, and a run
 aborts when more than a quarter of a chunk's closings wanted a dt below the
-span's. On the CPU every problem is refused: all but ``turb`` take the dense
-engine there, and ``turb`` is driven. Differences from the JAX CLI:
+span's. On the CPU one device refuses every problem (all but ``turb`` take
+the dense engine there, and ``turb`` is driven); ``shards=N`` always runs
+the window engine, so ``sedov``, ``kh`` and ``sod`` take rungs there.
+Differences from the JAX CLI:
 
 - every fixed-cadence chunk is a whole number of rebuild periods (2
   steps), an adaptive chunk any number, a rung chunk a whole number of
@@ -41,10 +43,12 @@ engine there, and ``turb`` is driven. Differences from the JAX CLI:
   (``ROADMAP.md`` queue 1, item 11);
 - with ``rungs=B`` and ``adaptive=K`` each record carries ``rebuilds``, as
   the global-dt adaptive loop's do;
-- not ported yet, and refused: ``shards=AxB`` (the pencil decomposition)
-  and ``rungs=B`` with ``shards=N`` (``ROADMAP.md`` queue 1, item 4),
-  ``plot=1`` (``diag/plots.py`` needs matplotlib, which the card's
-  machine lacks).
+- ``plot=1`` (``diag.plots``: a Sod or Sedov profile or a slice, and the
+  metrics history, as PNGs at the end of the run) raises before the run
+  where matplotlib does not import (the card's machine has none), and is
+  refused with ``shards=N`` (the JAX CLI ignores it there);
+- not ported yet, and refused: ``shards=AxB`` (the pencil decomposition,
+  ``ROADMAP.md`` queue 1, item 4).
 
 ``shards=N`` (N > 1) runs the slab decomposition (``sphax_torch.dist``):
 this process builds the kernels and the problem (a resume loads its
@@ -58,7 +62,10 @@ rebalanced and particles migrate. Rank 0 logs the all-reduced metrics
 kernel launches, and wall, rebalance and migration ms over the ranks),
 writes snapshots and the gathered checkpoint (``extra={"shards": "N"}``);
 a resume re-distributes the checkpoint. ``profile=1`` is refused with
-shards.
+shards. ``shards=N rungs=B`` runs block timesteps on every rank
+(``dist.wrungs``): whole spans a chunk, the cuts rebalanced on the
+expected work, and each record carries ``dt_viol`` and ``active_frac``
+(its ``chunk`` also the work imbalance before and after the rebalance).
 """
 from __future__ import annotations
 
@@ -93,9 +100,9 @@ def _parse(argv):
     return name, kv
 
 
-def _refuse_unported(kv, n_rungs: int, profile: int) -> int:
-    """Pop ``shards``, ``plot`` and ``rebuild_every``; raise SystemExit for
-    what the port has not ported. Returns the shard count."""
+def _refuse_unported(kv, profile: int, plot: int) -> int:
+    """Pop ``shards``; raise SystemExit for what the port has not ported or
+    cannot run here. Returns the shard count."""
     shards = str(kv.pop("shards", 1))
     if not shards.isdigit() or int(shards) < 1:
         raise SystemExit(f"shards={shards}: shards=AxB (the pencil "
@@ -103,14 +110,16 @@ def _refuse_unported(kv, n_rungs: int, profile: int) -> int:
                          "(the slab decomposition): ROADMAP.md queue 1, "
                          "item 4")
     shards = int(shards)
-    if int(kv.pop("plot", 0)):
-        raise SystemExit("plot=1 is not ported: diag/plots.py needs "
-                         "matplotlib (ROADMAP.md queue 1)")
-    if shards > 1 and n_rungs > 1:
-        raise SystemExit("rungs>1 with shards>1 (dist/wrungs.py) is not "
-                         "ported yet: ROADMAP.md queue 1, item 4")
     if shards > 1 and profile:
         raise SystemExit("profile=1 traces the single-device loop only")
+    if shards > 1 and plot:
+        raise SystemExit("plot=1 plots the single-device run only")
+    if plot:
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            raise SystemExit("plot=1 needs matplotlib, which this Python "
+                             "cannot import; run without plot=1") from None
     if shards == 1 and int(kv.get("rebuild_every", 2)) != 2:
         raise SystemExit("rebuild_every: the single-device loop rebuilds "
                          "the window structure every 2 steps")
@@ -158,6 +167,9 @@ def main(argv=None):
     checkpoint_every = int(kv.pop("checkpoint_every", 8))
     resume = kv.pop("resume", None)
     profile = int(kv.pop("profile", 0))
+    # plot=1: profile or slice plots and the metrics history as PNGs at the
+    # end of the run (needs matplotlib)
+    plot = int(kv.pop("plot", 0))
     # max_steps=K: stop after K steps even if t_end is not reached (0 = off)
     max_steps = int(kv.pop("max_steps", 0))
     # adaptive=K: drift-gated window rebuilds, at most K steps of staleness
@@ -167,7 +179,7 @@ def main(argv=None):
     # driving)
     n_rungs = int(kv.pop("rungs", 1))
     device = torch.device(str(kv.pop("device", "cuda")))
-    shards = _refuse_unported(kv, n_rungs, profile)
+    shards = _refuse_unported(kv, profile, plot)
     rebuild_every = int(kv.pop("rebuild_every", 2))
     if chunk < 1 or rebuild_every < 1:
         raise SystemExit("chunk and rebuild_every must be >= 1")
@@ -183,7 +195,7 @@ def main(argv=None):
             t_end=t_end, chunk=chunk, metrics_every=metrics_every,
             snapshot_every=snapshot_every, checkpoint_every=checkpoint_every,
             resume=resume, max_steps=max_steps, adaptive=adaptive,
-            rebuild_every=rebuild_every))
+            rebuild_every=rebuild_every, n_rungs=n_rungs))
         return None, t, step
     if device.type == "cuda":
         # the driving force's matmul runs in full fp32
@@ -300,10 +312,31 @@ def main(argv=None):
             save_checkpoint()
 
     save_checkpoint()
+    if plot:
+        _plot(name, state, prob.cfg, t, out)
     rec = log.log(state, prob.cfg, t, step)
     print(f"done: t={t:.4f} steps={step}; final E={rec['e_total']:.6f}; "
           f"checkpoint + metrics in {out}/")
     return state, t, step
+
+
+def _plot(name, state, cfg, t, out):
+    """plot=1: the JAX CLI's plots of the final state and the run's
+    metrics (``diag.plots``)."""
+    from sphax_torch.diag import plots
+
+    if name == "sod":
+        plots.sod_profile(state, t, os.path.join(out, "profile.png"),
+                          gamma=cfg.gamma)
+    elif name == "sedov":
+        plots.sedov_profile(state, t, os.path.join(out, "profile.png"),
+                            gamma=cfg.gamma)
+    else:
+        plots.slice_2d(state, os.path.join(out, "slice.png"),
+                       title=f"{name} t={t:.3f}")
+    plots.metrics_history(os.path.join(out, "metrics.jsonl"),
+                          os.path.join(out, "history.png"))
+    print(f"plots written to {out}/")
 
 
 if __name__ == "__main__":

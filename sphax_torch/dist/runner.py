@@ -9,10 +9,11 @@ in every rank:
     set-up: its rows -> measured wseg refinement
     chunk:  KDK steps with window-structure reuse at ``rebuild_every`` (or
             drift-gated rebuilds), two-phase ring ghosts, a MIN all-reduced
-            dt, replicated OU driving
-    after each chunk: count-based cut rebalancing from the all-reduced
-            histogram, then migration passes until no particle is
-            misplaced
+            dt, replicated OU driving; with ``n_rungs > 1`` whole spans of
+            block timesteps (``wrungs.chunk_rungs``)
+    after each chunk: cut rebalancing from the all-reduced histogram (of
+            counts, or with rungs of expected work), then migration passes
+            until no particle is misplaced
     metrics: all-reduced conservation scalars
     checkpoint: the real rows gathered to rank 0; a resume re-distributes
 """
@@ -28,7 +29,7 @@ from sphax_torch import convert
 from sphax_torch.configs import SPHConfig
 from sphax_torch.core.state import Domain, ParticleState
 from sphax_torch.dist import comm as comm_mod
-from sphax_torch.dist import wslab
+from sphax_torch.dist import wrungs, wslab
 from sphax_torch.physics import window_kernels as wk
 
 
@@ -66,7 +67,16 @@ class SlabRun:
     must draw the same stream. After ``run_chunk``, ``stats`` holds this
     rank's share of the chunk: its steps, builds, wall seconds, host-staged
     bytes, kernel launches (``window_kernels.LAUNCHES`` keys), the
-    rebalance's seconds and the migration's passes and seconds."""
+    rebalance's seconds and the migration's passes and seconds.
+
+    ``n_rungs = B > 1`` runs block timesteps on B rungs: a chunk is whole
+    spans of 2^(B-1) ticks, ``rebuild_every`` falls to 1 where it does not
+    divide the span, and the cuts rebalance on the expected work rather
+    than the counts. It needs no driving and no self-gravity. After a rung
+    chunk ``last_active_frac`` (closings per tick over N), ``last_dt_viol``
+    (the chunk's dt-violating closings) and ``last_rebuilds`` hold its
+    counts, and ``stats`` the ranks' work imbalance (max over mean) before
+    and after the rebalance and migration."""
 
     def __init__(self, comm, shard: ParticleState, spec: wslab.WSlabSpec,
                  cuts, n_real: int, cfg: SPHConfig, domain: Domain,
@@ -74,17 +84,26 @@ class SlabRun:
                  drive_spec=None, noise=None, n_rungs: int = 1,
                  adaptive_rebuild: int = 0):
         if n_rungs > 1:
-            raise NotImplementedError(
-                "rungs>1 on shards (dist/wrungs.py) is not ported yet: "
-                "ROADMAP.md queue 1, item 4")
+            if drive_spec is not None or cfg.gravity:
+                raise NotImplementedError(
+                    "rungs>1 needs the window engine without self-gravity "
+                    "or OU driving (see integrate/rungs.py scope)")
+            span = 1 << (n_rungs - 1)
+            if span % rebuild_every:
+                rebuild_every = 1
+            chunk_steps = max(1, -(-chunk_steps // span)) * span
         if not adaptive_rebuild and chunk_steps % rebuild_every:
             chunk_steps += rebuild_every - chunk_steps % rebuild_every
         self.comm, self.cfg, self.domain = comm, cfg, domain
         self.chunk_steps, self.rebuild_every = chunk_steps, rebuild_every
         self.drive, self.drive_spec, self.noise = drive, drive_spec, noise
         self.adaptive_rebuild = adaptive_rebuild
+        self.n_rungs = n_rungs
         self.n_real = int(n_real)
         self.stats = {}
+        self.last_active_frac = 1.0
+        self.last_dt_viol = 0
+        self.last_rebuilds = 0
         self.cuts = np.asarray(cuts)
         self.state = shard
         mr, gdrop = wslab.max_run(comm, shard, self.cuts, domain, spec)
@@ -95,9 +114,11 @@ class SlabRun:
 
     def run_chunk(self, nsteps: int = None):
         """Advance ``nsteps`` steps (default ``chunk_steps``; a whole number
-        of rebuild periods at the fixed cadence), rebalance the cuts and
-        migrate to convergence. Returns the dts (a tensor on the rank's
-        device). Raises on any nonzero health counter."""
+        of rebuild periods at the fixed cadence, rounded up to whole spans
+        with rungs), rebalance the cuts and migrate to convergence. Returns
+        the dts (a tensor on the rank's device). Raises on any nonzero
+        health counter, and with rungs when more than a quarter of the
+        chunk's closings wanted a dt below their span's."""
         nsteps = self.chunk_steps if nsteps is None else nsteps
         # start together, so that the chunk's wall is not a wait for a rank
         # that is still writing a checkpoint
@@ -105,13 +126,25 @@ class SlabRun:
         staged0 = comm_mod.STAGED["bytes"]
         launches0 = dict(wk.LAUNCHES)
         t0 = time.perf_counter()
-        self.state, self.drive, dts, health, builds = wslab.chunk(
-            self.comm, self.state, self.cuts, self.domain, self.cfg,
-            self.spec, nsteps, rebuild_every=self.rebuild_every,
-            drive=self.drive, drive_spec=self.drive_spec, noise=self.noise,
-            adaptive_rebuild=self.adaptive_rebuild)
+        if self.n_rungs > 1:
+            span = 1 << (self.n_rungs - 1)
+            self.state, dts, nacts, health, viol, builds = wrungs.chunk_rungs(
+                self.comm, self.state, self.cuts, self.domain, self.cfg,
+                self.spec, max(1, -(-nsteps // span)), n_rungs=self.n_rungs,
+                rebuild_every=self.rebuild_every,
+                adaptive_rebuild=self.adaptive_rebuild)
+            tot = int(nacts.sum())
+            self.last_active_frac = tot / (self.n_real * len(nacts))
+            self.last_dt_viol = int(viol)
+        else:
+            self.state, self.drive, dts, health, builds = wslab.chunk(
+                self.comm, self.state, self.cuts, self.domain, self.cfg,
+                self.spec, nsteps, rebuild_every=self.rebuild_every,
+                drive=self.drive, drive_spec=self.drive_spec,
+                noise=self.noise, adaptive_rebuild=self.adaptive_rebuild)
+        self.last_rebuilds = builds
         dropped, overflow = (int(v) for v in health)
-        self.stats = dict(steps=nsteps, builds=builds,
+        self.stats = dict(steps=len(dts), builds=builds,
                           chunk_s=time.perf_counter() - t0,
                           staged_bytes=comm_mod.STAGED["bytes"] - staged0,
                           launches={k: v - launches0[k]
@@ -122,14 +155,35 @@ class SlabRun:
         if overflow:
             raise RuntimeError(f"window structure overflow ({overflow}); "
                                "re-plan with larger wseg/ghost capacities")
+        if self.n_rungs > 1 and self.last_dt_viol > 0.25 * max(tot, 1):
+            raise RuntimeError(
+                f"{self.last_dt_viol} dt-violating closings in a chunk of "
+                f"{tot} active closings (> 25%); the rung span outruns the "
+                "CFL condition: use fewer rungs")
         t0 = time.perf_counter()
-        self.cuts = wslab.rebalance_cuts(wslab.histogram(
-            self.comm, self.state, self.domain, self.spec), self.spec)
+        if self.n_rungs > 1:
+            # a tick takes as long as the busiest rank's active walk
+            hist = wslab.work_histogram(self.comm, self.state, self.domain,
+                                        self.spec, self.cfg, self.n_rungs)
+        else:
+            hist = wslab.histogram(self.comm, self.state, self.domain,
+                                   self.spec)
+        self.cuts = wslab.rebalance_cuts(hist, self.spec)
         self.stats["rebalance_s"] = time.perf_counter() - t0
+        if self.n_rungs > 1:
+            self.stats["imbalance_before"] = self.imbalance()
         t0 = time.perf_counter()
         self.stats["migrate_passes"] = self._migrate_to_convergence()
         self.stats["migrate_s"] = time.perf_counter() - t0
+        if self.n_rungs > 1:
+            self.stats["imbalance_after"] = self.imbalance()
         return dts
+
+    def imbalance(self) -> float:
+        """The ranks' expected work under block timesteps, max over mean
+        (``wslab.shard_work``); every rank must call it."""
+        w = wslab.shard_work(self.comm, self.state, self.cfg, self.n_rungs)
+        return float(w.max() / w.mean())
 
     def _migrate_to_convergence(self) -> int:
         for k in range(self.comm.world):
@@ -153,7 +207,9 @@ class SlabRun:
     def chunk_record(self) -> dict:
         """The last chunk's costs over all ranks: builds, host-staged bytes
         and kernel launches summed, wall, rebalance and migration
-        milliseconds the slowest rank's, migration passes."""
+        milliseconds the slowest rank's, migration passes; with rungs also
+        the active fraction, the dt violations and the work imbalance
+        before and after the rebalance."""
         keys = sorted(wk.LAUNCHES)
         st = self.stats
         dev = self.comm.device
@@ -163,11 +219,17 @@ class SlabRun:
         slow = self.comm.all_reduce_max(torch.tensor(
             [st["chunk_s"], st["rebalance_s"], st["migrate_s"]],
             dtype=torch.float64, device=dev)).tolist()
-        return dict(builds=st["builds"], staged_bytes=sums[-1],
-                    chunk_ms=1e3 * slow[0], rebalance_ms=1e3 * slow[1],
-                    migrate_ms=1e3 * slow[2],
-                    migrate_passes=st["migrate_passes"],
-                    launches={k: n for k, n in zip(keys, sums) if n})
+        rec = dict(builds=st["builds"], staged_bytes=sums[-1],
+                   chunk_ms=1e3 * slow[0], rebalance_ms=1e3 * slow[1],
+                   migrate_ms=1e3 * slow[2],
+                   migrate_passes=st["migrate_passes"],
+                   launches={k: n for k, n in zip(keys, sums) if n})
+        if self.n_rungs > 1:
+            rec.update(active_frac=self.last_active_frac,
+                       dt_viol=self.last_dt_viol,
+                       imbalance_before=st["imbalance_before"],
+                       imbalance_after=st["imbalance_after"])
+        return rec
 
     def gather(self):
         """The real rows on rank 0 (None on the others)."""
@@ -199,6 +261,10 @@ def main_dist(opts: dict):
     name, n_dev = opts["name"], opts["shards"]
     prob = REGISTRY[name](device=device, **opts["kv"])
     driven = prob.drive_spec is not None
+    if opts["n_rungs"] > 1 and (driven or prob.cfg.gravity):
+        raise SystemExit(
+            "rungs>1 needs the window engine without self-gravity or OU "
+            "driving (see sphax_torch/dist/wrungs.py scope)")
     state, drive, t, step = prob.state, prob.drive, 0.0, 0
     if opts["resume"]:
         state, t, step, drive, _ = checkpoint.load(
@@ -261,11 +327,12 @@ def _cli_rank(comm, opts, setup, rows):
         os.makedirs(out, exist_ok=True)
         log = metrics.MetricsLogger(os.path.join(out, "metrics.jsonl"))
     adaptive, rebuild_every = opts["adaptive"], opts["rebuild_every"]
+    n_rungs = opts["n_rungs"]
     run = SlabRun(comm, convert.state_from_numpy(rows, dev, dtype),
                   setup["spec"], setup["cuts"], setup["n_real"], setup["cfg"],
                   dom, chunk_steps=opts["chunk"], rebuild_every=rebuild_every,
                   drive=drive, drive_spec=setup["drive_spec"], noise=noise,
-                  adaptive_rebuild=adaptive)
+                  n_rungs=n_rungs, adaptive_rebuild=adaptive)
 
     def save_checkpoint():
         g = run.gather()
@@ -279,7 +346,7 @@ def _cli_rank(comm, opts, setup, rows):
     while t < t_end and not (max_steps and step >= max_steps):
         nsteps = (min(opts["chunk"], max_steps - step) if max_steps
                   else opts["chunk"])
-        if not adaptive:
+        if not adaptive and n_rungs == 1:
             nsteps += (-nsteps) % rebuild_every   # whole rebuild periods
         if driven:
             noise.reseed(seed, step)
@@ -290,14 +357,23 @@ def _cli_rank(comm, opts, setup, rows):
         if nchunks % opts["metrics_every"] == 0:
             rec, costs = run.metrics(t), run.chunk_record()
             if lead:
-                extra = {"rebuilds": run.stats["builds"]} if adaptive else {}
+                extra = ({"dt_viol": run.last_dt_viol,
+                          "active_frac": run.last_active_frac}
+                         if n_rungs > 1 else {})
+                if adaptive:
+                    extra["rebuilds"] = run.last_rebuilds
                 rec = log.log_record(rec, step, run.n_real, **extra,
                                      chunk=costs)
+                rmsg = (f" active_frac={run.last_active_frac:.2f} "
+                        f"dt_viol={run.last_dt_viol}, work imbalance "
+                        f"{costs['imbalance_before']:.3f} -> "
+                        f"{costs['imbalance_after']:.3f},"
+                        if n_rungs > 1 else "")
                 print(f"  t={t:.4f} step={step} "
                       f"pss={rec['particle_steps_per_sec']:.3e} "
                       f"E={rec['e_total']:.5f} mach={rec['mach_rms']:.2f} "
-                      f"[{n_dev} shards] staged "
-                      f"{costs['staged_bytes'] / nsteps:.4g} B/step, "
+                      f"[{n_dev} shards]{rmsg} staged "
+                      f"{costs['staged_bytes'] / len(dts):.4g} B/step, "
                       f"migration {costs['migrate_passes']} passes "
                       f"{costs['migrate_ms']:.3g} ms", flush=True)
             if not rec["finite"]:

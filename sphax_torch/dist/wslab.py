@@ -29,7 +29,9 @@ or migrated, zero-mass padding rows parked in the trash band. The JAX
 package's ``make_*`` factories (jitted ``shard_map`` functions) are plain
 per-rank functions here that take the rank's ``Comm``: ``step``,
 ``chunk``, ``migrate``, ``misplaced``, ``histogram``, ``diagnostics`` and
-``max_run``. ``cuts`` is a host array of ``n_shards + 1`` cell indices,
+``max_run``; with block timesteps (``wrungs``) ``work_histogram`` and
+``shard_work`` take the place of ``make_work_histogram`` and
+``make_shard_work``. ``cuts`` is a host array of ``n_shards + 1`` cell indices,
 the same on every rank. The JAX package's sorted-order P3M mesh
 (``sorted_mesh``) is not ported; P3M runs its scatter mesh.
 """
@@ -43,7 +45,8 @@ import torch
 
 from sphax_torch.configs import SPHConfig
 from sphax_torch.core.state import Domain, ParticleState
-from sphax_torch.integrate.timestep import local_dt
+from sphax_torch.integrate.rungs import _rung_of
+from sphax_torch.integrate.timestep import local_dt, particle_dt
 from sphax_torch.neighbors import window as win
 from sphax_torch.neighbors.window import WindowSpec
 from sphax_torch.physics import driving as drv
@@ -675,6 +678,41 @@ def histogram(comm, st: ParticleState, domain: Domain,
     h = torch.zeros(spec.ncell_ax, dtype=torch.int64, device=st.pos.device)
     h.index_add_(0, cellf, (st.mass > 0).to(torch.int64))
     return comm.all_reduce_sum(h).cpu().numpy()
+
+
+def work_weights(comm, st: ParticleState, cfg: SPHConfig, n_rungs: int):
+    """Each row's expected WORK under block timesteps [n]: a particle the
+    span-start rung assignment puts on rung r closes 2^{B-1-r} times a
+    span, so its share is 2^-r. dt_min is a MIN all-reduce and the rung
+    is quantized as ``wrungs.chunk_rungs`` assigns it (``rungs._rung_of``,
+    in the state's dtype). Padding rows weigh zero."""
+    real = st.mass > 0
+    dt_des = torch.where(real, particle_dt(st, cfg), cfg.dt_max)
+    dt_min = comm.all_reduce_min(dt_des.amin())
+    r = _rung_of(dt_des, dt_min, n_rungs).to(st.pos.dtype)
+    return torch.where(real, torch.exp2(-r), 0.0)
+
+
+def work_histogram(comm, st: ParticleState, domain: Domain, spec: WSlabSpec,
+                   cfg: SPHConfig, n_rungs: int) -> np.ndarray:
+    """The global slab-axis histogram of expected work [ncell_ax] (float;
+    the twin of ``histogram`` for block timesteps): cuts quantiled on it
+    give slabs of equal work, not of equal counts. Any legal cuts give
+    the same trajectory, so this moves load only."""
+    cellf = _cell(domain.wrap(st.pos), domain, spec)
+    h = st.pos.new_zeros(spec.ncell_ax)
+    h.index_add_(0, cellf, work_weights(comm, st, cfg, n_rungs))
+    return comm.all_reduce_sum(h).cpu().numpy()
+
+
+def shard_work(comm, st: ParticleState, cfg: SPHConfig,
+               n_rungs: int) -> np.ndarray:
+    """Every rank's total expected work [n_shards]; its max over its mean
+    is the imbalance (how much slower the busiest rank runs a tick than a
+    balanced decomposition would)."""
+    out = st.pos.new_zeros(comm.world)
+    out[comm.rank] = work_weights(comm, st, cfg, n_rungs).sum()
+    return comm.all_reduce_sum(out).cpu().numpy()
 
 
 def diagnostics(comm, st: ParticleState, t: float) -> dict:

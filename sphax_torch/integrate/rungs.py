@@ -200,19 +200,6 @@ def simulate_rungs(state: ParticleState, cfg: SPHConfig, domain: Domain,
     span_ticks = 1 << (n_rungs - 1)
     if not adaptive_rebuild and span_ticks % rebuild_every:
         raise ValueError("rebuild_every must divide 2^(n_rungs-1)")
-    dtype = state.pos.dtype
-
-    def open_drift(st, rung, dt_min, k):
-        """Half-kick the openers, drift everyone by dt_min (unwrapped)."""
-        dt_r = dt_min * torch.exp2(rung.to(dtype))
-        period_mask = torch.bitwise_left_shift(torch.ones_like(rung),
-                                               rung) - 1
-        open_m = torch.bitwise_and(period_mask, k) == 0  # k % 2^r == 0
-        half = torch.where(open_m, 0.5 * dt_r, 0.0)
-        vel = st.vel + half[:, None] * st.acc
-        u = torch.clamp_min(st.u + half * st.du_dt, cfg.u_floor)
-        return (st._replace(pos=st.pos + dt_min * vel, vel=vel, u=u), dt_r,
-                period_mask)
 
     def close_tick(st, bf_prev, rung, wd, k, dt_min, dt_r, period_mask):
         """Derived pass on the closers' groups, closing half-kick, rung
@@ -239,21 +226,8 @@ def simulate_rungs(state: ParticleState, cfg: SPHConfig, domain: Domain,
                                           dt_r, cfg)
             st = st._replace(alpha=torch.where(close_m, a_new, st.alpha))
 
-        # rung update on closers: decrease freely, increase only onto
-        # ticks the new rung divides (alignment of k + 1)
-        dt_des = particle_dt(st, cfg)
-        # a closer mid-span wanting dt < dt_min cannot be honoured until
-        # the next sync; the span's FINAL tick is no violation, since
-        # everyone re-syncs right after it
-        viol = (close_m & (dt_des < dt_min)).sum()
-        if k + 1 >= span_ticks:
-            viol = torch.zeros_like(viol)
-        r_des = _rung_of(dt_des, dt_min, n_rungs)
-        kp = k + 1
-        align = sum((kp & ((1 << j) - 1)) == 0 for j in range(1, n_rungs))
-        r_new = torch.where(r_des < rung, r_des,
-                            torch.clamp_max(r_des, align))
-        rung = torch.where(close_m, r_new, rung)
+        rung, viol = close_rungs(rung, particle_dt(st, cfg), dt_min,
+                                 close_m, k, n_rungs)
         return st, bf_now, rung, close_m.sum(), viol
 
     def start_rungs(st):
@@ -285,7 +259,7 @@ def simulate_rungs(state: ParticleState, cfg: SPHConfig, domain: Domain,
         for _ in range(nspans):
             dt_min, rung = start_rungs(state)
             for k in range(span_ticks):
-                state, dt_r, pm = open_drift(state, rung, dt_min, k)
+                state, dt_r, pm = open_drift(state, rung, dt_min, k, cfg)
                 if (since + 1 >= adaptive_rebuild
                         or wengine.skin_spent(state.pos, ref, state.h, spec,
                                               skin_safety)):
@@ -301,12 +275,45 @@ def simulate_rungs(state: ParticleState, cfg: SPHConfig, domain: Domain,
             for k in range(span_ticks):
                 if k % rebuild_every == 0:
                     state, wd = rebuild(state)
-                state, dt_r, pm = open_drift(state, rung, dt_min, k)
+                state, dt_r, pm = open_drift(state, rung, dt_min, k, cfg)
                 state, bf, rung = tick(state, bf, rung, wd, k, dt_min, dt_r,
                                        pm)
     return (state._replace(pos=domain.wrap(state.pos)), torch.stack(dts),
             torch.stack(nacts).to(torch.int32), torch.stack(ovfs).amax(),
             torch.stack(viols).sum(), len(ovfs))
+
+
+def open_drift(st: ParticleState, rung, dt_min, k: int, cfg: SPHConfig):
+    """Tick ``k``'s opening half: half-kick the particles whose step opens
+    (k % 2^rung == 0) with their stored forces, drift everyone by dt_min
+    (unwrapped). Returns (state, dt_r, period_mask): each particle's step
+    and 2^rung - 1."""
+    dt_r = dt_min * torch.exp2(rung.to(st.pos.dtype))
+    period_mask = torch.bitwise_left_shift(torch.ones_like(rung), rung) - 1
+    open_m = torch.bitwise_and(period_mask, k) == 0       # k % 2^r == 0
+    half = torch.where(open_m, 0.5 * dt_r, 0.0)
+    vel = st.vel + half[:, None] * st.acc
+    u = torch.clamp_min(st.u + half * st.du_dt, cfg.u_floor)
+    return (st._replace(pos=st.pos + dt_min * vel, vel=vel, u=u), dt_r,
+            period_mask)
+
+
+def close_rungs(rung, dt_des, dt_min, close_m, k: int, n_rungs: int):
+    """The closers' new rungs after tick ``k`` from their wanted dt:
+    decrease freely, increase only onto ticks the new rung divides (the
+    Hernquist-Katz alignment of k + 1). Returns (rung, dt_viol): the
+    closers mid-span that wanted dt < dt_min, which cannot be honoured
+    until the next sync (the span's last tick is no violation: everyone
+    re-syncs right after it)."""
+    span_ticks = 1 << (n_rungs - 1)
+    viol = (close_m & (dt_des < dt_min)).sum()
+    if k + 1 >= span_ticks:
+        viol = torch.zeros_like(viol)
+    r_des = _rung_of(dt_des, dt_min, n_rungs)
+    kp = k + 1
+    align = sum((kp & ((1 << j) - 1)) == 0 for j in range(1, n_rungs))
+    r_new = torch.where(r_des < rung, r_des, torch.clamp_max(r_des, align))
+    return torch.where(close_m, r_new, rung), viol
 
 
 def _rung_of(dt_des, dt_min, n_rungs: int):

@@ -68,7 +68,10 @@ def _tile_pass(kernel_fn, wd: WindowData, spec: WindowSpec, own_fields,
 
     Only groups with candidates run: the walks' contract gives every other
     group h = h0 and zeros, which the callers apply, so their rows come
-    back zero here. (Groups of ghost rows only are most of a small box.)
+    back zero here. (Groups of ghost rows only are most of a small box. A
+    slab rank with no closer on a rung tick has no group with candidates:
+    then group 0 runs, for the outputs' shapes, and every row comes back
+    zero.)
     """
     T, nt = spec.group, spec.n_groups
     n_seg = spec.n_seg
@@ -81,6 +84,9 @@ def _tile_pass(kernel_fn, wd: WindowData, spec: WindowSpec, own_fields,
                       device=dev)
     ar_t = torch.arange(T, dtype=torch.int64, device=dev)
     gids = torch.nonzero(wk._group_active(wd, spec)).reshape(-1)
+    idle = gids.numel() == 0
+    if idle:
+        gids = gids.new_zeros(1)
     rows_all, outs = [], []
     for b0 in range(0, gids.numel(), TB):
         g = gids[b0:b0 + TB]
@@ -108,7 +114,8 @@ def _tile_pass(kernel_fn, wd: WindowData, spec: WindowSpec, own_fields,
         o = torch.cat([o_[k] for o_ in outs])
         o = o.reshape((-1,) + o.shape[2:])
         full = o.new_zeros((nt * T,) + o.shape[1:])
-        full[rows] = o
+        if not idle:
+            full[rows] = o
         result.append(full)
     return tuple(result)
 

@@ -11,7 +11,7 @@ import torch
 from sphax_torch import convert
 from sphax_torch.configs import SPHConfig
 from sphax_torch.core.state import Domain, ParticleState
-from sphax_torch.dist import wslab
+from sphax_torch.dist import wrungs, wslab
 from sphax_torch.physics import window_kernels as wk
 
 
@@ -31,13 +31,21 @@ def lockstep(comm, rows: dict, domain, cfg: SPHConfig,
       ``wslab.chunk``, driven when ``driven`` is true: ``drive`` =
       (DriveSpec, amp_re, amp_im, draws) gives the first amplitudes and
       the standard normals (one pair per driven step);
-    - ("rebalance",): new cuts from the histogram;
+    - ("rungs", nspans, n_rungs, rebuild_every, adaptive): one
+      ``wrungs.chunk_rungs``;
+    - ("rebalance",): new cuts from the histogram; ("rebalance", B): from
+      the work histogram of B rungs (``wslab.work_histogram``);
+    - ("work", B): the ranks' expected work (``wslab.shard_work``);
+    - ("refine",): wseg resized to the measured ``max_run`` under the
+      present cuts;
     - ("migrate",): migration passes until nothing is misplaced;
     - ("reset",): back to the first state and cuts.
 
     Each record holds the op, its dts, health and builds where it has
-    them, the migration passes, the cuts after it, the driving amplitudes
-    after a driven chunk and ``rows``, the sharded layout after it."""
+    them, a rung chunk's closings per tick and dt violations, the work
+    histogram of a work rebalance, the ranks' work, the migration passes,
+    the cuts after it, the driving amplitudes after a driven chunk and
+    ``rows``, the sharded layout after it."""
     dev, dtype = comm.device, torch.float64
     st = convert.shard_from_numpy(rows, spec, comm.rank, dev, dtype)
     dom = convert.domain_from_numpy(*domain, device=dev, dtype=dtype)
@@ -78,11 +86,30 @@ def lockstep(comm, rows: dict, domain, cfg: SPHConfig,
                 dr = dr_new
                 rec["drive"] = (dr.amp_re.cpu().numpy(),
                                 dr.amp_im.cpu().numpy())
+        elif op[0] == "rungs":
+            nspans, n_rungs, rebuild_every, adaptive = op[1:5]
+            st, dts, nacts, health, viol, builds = wrungs.chunk_rungs(
+                comm, st, cuts, dom, cfg, spec, nspans, n_rungs=n_rungs,
+                rebuild_every=rebuild_every, adaptive_rebuild=adaptive)
+            rec.update(dts=dts.cpu().numpy(), health=health.cpu().numpy(),
+                       builds=builds, nacts=nacts.cpu().numpy(),
+                       dt_viol=int(viol))
         elif op[0] == "reset":
             st, cuts = st0, cuts0
         elif op[0] == "rebalance":
-            cuts = wslab.rebalance_cuts(wslab.histogram(comm, st, dom, spec),
-                                        spec)
+            if len(op) > 1:
+                hist = wslab.work_histogram(comm, st, dom, spec, cfg, op[1])
+                rec["hist"] = hist
+            else:
+                hist = wslab.histogram(comm, st, dom, spec)
+            cuts = wslab.rebalance_cuts(hist, spec)
+        elif op[0] == "refine":
+            mr, gdrop = wslab.max_run(comm, st, cuts, dom, spec)
+            if gdrop:
+                raise RuntimeError(f"{gdrop} ghosts dropped")
+            spec = wslab.refine_wseg(spec, mr)
+        elif op[0] == "work":
+            rec["work"] = wslab.shard_work(comm, st, cfg, op[1])
         elif op[0] == "migrate":
             for k in range(comm.world):
                 st, dropped = wslab.migrate(comm, st, cuts, dom, spec)
@@ -105,9 +132,12 @@ def lockstep(comm, rows: dict, domain, cfg: SPHConfig,
 
 
 def kernel_calls(comm, st: ParticleState, cuts, domain: Domain,
-                 cfg: SPHConfig, spec: wslab.WSlabSpec):
+                 cfg: SPHConfig, spec: wslab.WSlabSpec, close_m=None):
     """One derived pass of this rank on a fresh structure (every rank must
-    call it: it exchanges ghosts), recording what it hands kernels A and C.
+    call it: it exchanges ghosts), recording what it hands kernels A and C:
+    ``wslab._local_derived``'s, or with ``close_m`` ([n_local] bool, this
+    rank's closers) the rung pass's on the close-masked structure
+    (``wrungs._local_derived_rungs``, the viscosity-factor carry at 1).
     Returns ({"A": (args, kwargs), "C": (args, kwargs)}, active_s): the
     calls' arguments, and the sorted rows that are this rank's own real
     particles (the rows whose outputs the pass keeps)."""
@@ -128,8 +158,13 @@ def kernel_calls(comm, st: ParticleState, cuts, domain: Domain,
                                                     spec.slab_axis))
         wd, routes, slab_lo, _ = wslab._exchange_and_build(comm, st, cuts,
                                                            domain, spec)
-        wslab._local_derived(comm, st, wd, routes, slab_lo, cfg, domain,
-                             spec, cuts)
+        if close_m is None:
+            wslab._local_derived(comm, st, wd, routes, slab_lo, cfg, domain,
+                                 spec, cuts)
+        else:
+            wrungs._local_derived_rungs(comm, st, torch.ones_like(st.h), wd,
+                                        routes, slab_lo, cfg, domain, spec,
+                                        close_m)
     finally:
         wk.solve_h_density, wk.forces = saved
     n = st.n + 2 * spec.ghost_cap

@@ -2,13 +2,15 @@
 
 The CLI writes the JAX CLI's metrics keys and a checkpoint, resumes from
 it, clamps the last chunk to max_steps, parses bool overrides strictly,
-refuses the options it has not ported, and raises without a card unless
+writes its plots with plot=1, refuses the options it has not ported (and
+plot=1 where matplotlib does not import), and raises without a card unless
 asked for the CPU. Checkpoints move between the two packages field for
 field.
 """
 import dataclasses
 import json
 import os
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +22,7 @@ from sphax.diag import conservation as jcons
 from sphax.io import checkpoint as jckpt
 from sphax.physics import driving as jdrv
 from sphax_torch import configs as tconf
-from sphax_torch import problems
+from sphax_torch import make_state, problems
 from sphax_torch.__main__ import main
 from sphax_torch.io import checkpoint
 from sphax_torch.physics import driving
@@ -102,14 +104,49 @@ def test_bad_overrides_raise(kv):
         problems._cfg_kw(tconf.KH, kv)
 
 
-@pytest.mark.parametrize("opt", ["shards=2", "shards=2x2", "plot=1",
-                                 "rebuild_every=4"])
-def test_unported_options_raise(opt, tmp_path):
-    # shards=N runs the slab decomposition (tests/test_torch_dist_cli.py);
-    # with block timesteps it is not ported yet
-    extra = ["rungs=2"] if opt == "shards=2" else []
-    with pytest.raises(SystemExit, match="not ported|rebuilds"):
-        main(SOD + [opt, f"out={tmp_path}"] + extra)
+@pytest.mark.parametrize("opt", ["shards=2x2", "plot=1", "rebuild_every=4",
+                                 "plot=1 shards=2"])
+def test_unported_options_raise(opt, tmp_path, monkeypatch):
+    # shards=N runs the slab decomposition, with rungs=B too
+    # (tests/test_torch_dist_cli.py); plot=1 runs where matplotlib imports
+    # (test_cli_plot_writes_pngs) and is refused before the run where it
+    # does not, as on the card's machine
+    if opt == "plot=1":
+        monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(SystemExit,
+                       match="not ported|rebuilds|matplotlib|single-device"):
+        main(SOD + opt.split() + [f"out={tmp_path}"])
+    assert not os.path.exists(tmp_path / "metrics.jsonl")
+
+
+@pytest.mark.parametrize("name,png", [("sod", "profile.png"),
+                                      ("kh", "slice.png")])
+def test_cli_plot_writes_pngs(name, png, tmp_path):
+    """plot=1 writes the JAX CLI's plots at the end of the run: the Sod
+    profile (or a slice of kh) and the metrics history."""
+    main([name, "n=8", "device=cpu", "max_steps=2", "plot=1",
+          f"out={tmp_path}"])
+    for f in (png, "history.png"):
+        assert os.path.getsize(tmp_path / f) > 1000, f
+
+
+def test_plots_render(tmp_path):
+    """The plots render to PNG without a display (the port of
+    tests/unit/test_io.py::test_plots_render), from the port's state."""
+    from sphax_torch.diag import plots
+
+    rng = np.random.default_rng(0)
+    st = make_state(*(torch.as_tensor(a) for a in (
+        rng.random((64, 3)), rng.normal(size=(64, 3)), np.full(64, 1 / 64),
+        np.ones(64), np.full(64, 0.1))))
+    st = st._replace(rho=torch.ones(64, dtype=torch.float64),
+                     P=torch.ones(64, dtype=torch.float64),
+                     cs=torch.ones(64, dtype=torch.float64))
+    p1 = plots.sod_profile(st, 0.1, str(tmp_path / "sod.png"))
+    p2 = plots.sedov_profile(st, 0.05, str(tmp_path / "sedov.png"))
+    p3 = plots.slice_2d(st, str(tmp_path / "slice.png"))
+    for p in (p1, p2, p3):
+        assert os.path.getsize(p) > 1000
 
 
 def test_cli_needs_a_card_unless_asked_for_the_cpu(tmp_path):

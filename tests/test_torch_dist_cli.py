@@ -4,8 +4,8 @@ chunk (structure reuse, replicated driving) -> rebalance and migration ->
 all-reduced metrics -> gathered checkpoint, and tracks the single-device
 CLI run of the same problem at that test's tolerances, at 2 and at 4
 ranks; a run resumes from its own checkpoint (re-distributing it, with
-drift-gated rebuilds) and still tracks it; and the decompositions that are
-not ported are refused.
+drift-gated rebuilds) and still tracks it; block timesteps run on the
+ranks and resume; and what is not ported is refused.
 """
 import json
 import os
@@ -112,8 +112,53 @@ def test_cli_dist_resume(single_ref, tmp_path, capfd):
     assert np.isfinite(s2.rho.numpy()).all()
 
 
+RUNGS = ["sedov", "n=8", "device=cpu", "shards=2", "rungs=2", "chunk=4",
+         "metrics_every=1", "checkpoint_every=1"]
+
+
+def test_cli_dist_rungs_sedov(tmp_path, capfd):
+    """shards=N rungs=B (the port of tests/dist/test_cli_multichip.py's
+    test_cli_dist_rungs_sedov): block timesteps on 2 ranks through the
+    CLI, finite records carrying active_frac and dt_viol and the work
+    imbalance in their chunk, the rung machinery engaged (fewer closings
+    than particles), a checkpoint without driving state; then a resume
+    from it, which re-distributes and keeps going."""
+    out = str(tmp_path / "rg")
+    _, t, step = main(RUNGS + ["max_steps=8", f"out={out}"])
+    assert step == 8 and t > 0
+    m = _metrics(out)
+    assert [r["step"] for r in m] == [4, 8, 8]
+    assert all(r["finite"] for r in m)
+    recs = m[:2]
+    assert all(0 < r["active_frac"] < 1 and r["dt_viol"] == 0
+               for r in recs), recs
+    for r in recs:
+        c = r["chunk"]
+        assert c["active_frac"] == r["active_frac"]
+        assert c["imbalance_before"] >= 1 and c["imbalance_after"] >= 1
+        # the plain versions launch no kernel (chip_smoke.py counts the
+        # card's launches)
+        assert c["launches"] == {}
+    st, t1, k, d, x = checkpoint.load(f"{out}/checkpoint.npz", device="cpu")
+    assert d is None and x["shards"] == "2"
+    assert st.n == 512 and k == 8 and t1 == pytest.approx(t)
+    assert "active_frac=" in capfd.readouterr().out
+
+    o2 = str(tmp_path / "rg2")
+    _, t2, step2 = main(RUNGS + ["max_steps=12", "adaptive=2", f"out={o2}",
+                                 f"resume={out}/checkpoint.npz"])
+    assert "resumed from" in capfd.readouterr().out
+    assert step2 == 12 and t2 > t
+    r = _metrics(o2)[0]
+    assert r["finite"] and r["step"] == 12 and 1 <= r["rebuilds"] <= 4
+    assert 0 < r["active_frac"] < 1 and r["dt_viol"] == 0
+    st2 = checkpoint.load(f"{o2}/checkpoint.npz", device="cpu")[0]
+    assert checkpoint.verify_integrity(st2) is None
+
+
 @pytest.mark.parametrize("extra,msg", [
-    (["shards=2x2"], "pencil"), (["shards=2", "rungs=2"], "wrungs"),
+    (["shards=2x2"], "pencil"),
+    (["shards=2", "rungs=2", "gravity=1"], "self-gravity"),
     (["shards=2", "profile=1"], "profile"), (["shards=0"], "shards=0"),
     (["rebuild_every=3"], "rebuild_every")])
 def test_cli_refuses_unported(extra, msg, tmp_path):

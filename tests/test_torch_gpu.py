@@ -3,7 +3,9 @@ in 3D, 2D and 1D, in place and compact, on the masked tables of the
 block-timestep path and on a slab shard's masked structure) and G against
 their plain torch versions, on a card; block timesteps with one rung
 against the global-dt loop; and the slab decomposition's ranks, sharing
-the card over gloo, against the single-device engine.
+the card over gloo, against the single-device engine, with block
+timesteps too (kernels A and C on a shard masked to a rung tick's
+closers, a quiet rank's fully masked pass among them).
 
 These tests import no JAX (the machine with the card has none) and skip
 where no CUDA device is visible. Run them on the card without the suite's
@@ -563,6 +565,123 @@ def test_slab_lockstep_on_the_card(cuda):
     oj = np.lexsort((pb[:, 2], pb[:, 1], pb[:, 0]))
     np.testing.assert_allclose(pa[oi], pb[oj], rtol=1e-8, atol=1e-8)
     for k in ("vel", "h", "rho", "acc", "du_dt"):
+        b = getattr(ref, k).cpu().numpy()[oj]
+        np.testing.assert_allclose(got[k][oi], b, rtol=1e-8,
+                                   atol=1e-8 * np.abs(b).max(), err_msg=k)
+
+
+RUNG_CFG = dataclasses.replace(configs.SEDOV, newton_iters=2)
+
+
+def _sedov_state(dev, dtype, centre):
+    """The Sedov lattice at 16^3 with the blast at ``centre`` after one
+    single-device derived pass (configs.SEDOV, newton_iters=2), its domain
+    and plan."""
+    from sphax_torch.ics import sedov
+
+    ic = sedov.build(n_side=16, E=1.0, centre=centre)
+    st = make_state(*(torch.as_tensor(ic[k], dtype=dtype, device=dev)
+                      for k in ("pos", "vel", "mass", "u", "h")))
+    dom = box(torch.zeros(3, dtype=dtype, device=dev),
+              torch.ones(3, dtype=dtype, device=dev))
+    spec = win.plan_measured(st.pos, dom, h_max=float(st.h.max()) * 1.1,
+                             dim=3, cutoff_scale=1.05, fast_sub=3, rgroups=2)
+    return wengine.update_derived(st, RUNG_CFG, dom, spec), dom, spec
+
+
+def _rung_shard_parity(c, dtype):
+    """Every rank: its shard of the off-centre blast, masked to the closers
+    of a span's first tick (rung 0 at the span's start), and one rung
+    derived pass that records kernel A's and C's arguments; each kernel
+    against its plain version on the rank's own real rows. The pass runs
+    on the real rows jittered by a seeded 0.2 of a spacing with a seeded
+    0.4 N(0,1) velocity (on the resting lattice d rho/d h cancels and the
+    Balsara sums vanish); the closers come from the unjittered derived
+    state. The quiet rank (no closer) gets h0 and zeros from both. Rank 0
+    returns every rank's closers."""
+    from sphax_torch.integrate.rungs import _rung_of
+    from sphax_torch.integrate.timestep import particle_dt
+
+    st, dom, _ = _sedov_state(c.device, dtype, (0.15, 0.5, 0.5))
+    spec = wslab.plan(dom, st.n, float(st.h.max()) * 1.1, c.world,
+                      cutoff_scale=1.05, fast_sub=3, rgroups=2)
+    cuts = wslab.equal_cuts(spec.ncell_ax, c.world)
+    sh = wslab.distribute(st, dom, spec, cuts, c.rank)
+    real = sh.mass > 0
+    dt = torch.where(real, particle_dt(sh, RUNG_CFG), RUNG_CFG.dt_max)
+    close_m = real & (_rung_of(dt, c.all_reduce_min(dt.amin()), 3) == 0)
+    g = torch.Generator(device=c.device).manual_seed(3 + c.rank)
+    jit = (0.2 / 16) * (2.0 * torch.rand(sh.pos.shape, generator=g,
+                                         dtype=dtype, device=c.device) - 1.0)
+    vel = 0.4 * torch.randn(sh.vel.shape, generator=g, dtype=dtype,
+                            device=c.device)
+    sh = sh._replace(pos=torch.where(real[:, None], sh.pos + jit, sh.pos),
+                     vel=torch.where(real[:, None], vel, sh.vel))
+    spec = wslab.refine_wseg(spec, wslab.max_run(c, sh, cuts, dom, spec)[0])
+    calls, own = kernel_calls(c, sh, cuts, dom, RUNG_CFG, spec, close_m)
+    for name, cuda_fn, plain in (("A", wk.solve_h_density,
+                                  wk.solve_h_density_plain),
+                                 ("C", wk.forces, wk.forces_plain)):
+        a, k = calls[name]
+        got, want = cuda_fn(*a, **k), plain(*a, **k)
+        for i, (x, y) in enumerate(zip(got, want)):
+            assert bool(torch.isfinite(x).all()), (name, i)
+            _compare(x, y, own, TOL[dtype], f"rung shard {name} output {i}")
+            if not bool(close_m.any()):
+                want0 = a[4] if (name, i) == ("A", 0) else torch.zeros_like(x)
+                assert torch.equal(x, want0) and torch.equal(y, want0)
+    n = torch.zeros(c.world, dtype=torch.int64, device=c.device)
+    n[c.rank] = close_m.sum()
+    return c.all_reduce_sum(n).tolist()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rung_shard_kernels_match_plain(cuda, dtype):
+    """Kernels A and C on a slab shard's structure masked again to a rung
+    tick's closers (``dist.wrungs``), 2 ranks on the card, the blast in
+    rank 0's slab: against plain on each rank's own real rows; rank 1
+    has no closer and both give h0 and zeros."""
+    closers = comm.launch(_rung_shard_parity, 2, cuda, "gloo", timeout=120,
+                          deadline=600, args=(dtype,))
+    assert closers[0] > 0 and closers[1] == 0, closers
+
+
+@pytest.mark.gpu
+def test_rung_lockstep_on_the_card(cuda):
+    """A span of B = 3 on 2 ranks sharing the card (fp64), after a work
+    rebalance of the off-centre blast and the migration, against the
+    single-device rung integrator with the kernels: dts at 1e-12, closings
+    per tick and dt violations equal, every field at 1e-8."""
+    st0, dom, spec1 = _sedov_state(cuda, torch.float64, (0.15, 0.5, 0.5))
+    ref, dts, nacts, ovf, viol, _ = rungs.simulate_rungs(
+        st0, RUNG_CFG, dom, spec1, nspans=1, n_rungs=3, rebuild_every=2)
+    assert int(ovf) == 0
+    spec = wslab.plan(dom, st0.n, float(st0.h.max()) * 1.1, 2,
+                      cutoff_scale=1.05, fast_sub=3, rgroups=2,
+                      pad_factor=2.0, migrate_frac=1.0)
+    cuts = wslab.equal_cuts(spec.ncell_ax, 2)
+    shards = [convert.state_to_numpy(wslab.distribute(st0, dom, spec, cuts,
+                                                      r)) for r in range(2)]
+    rows = {k: np.concatenate([s[k] for s in shards]) for k in shards[0]}
+    rec = comm.launch(
+        lockstep, 2, cuda, "gloo", timeout=120, deadline=600,
+        args=(rows, (dom.lo.cpu().numpy(), dom.hi.cpu().numpy(),
+                     dom.periodic), RUNG_CFG, spec, cuts,
+              [("rebalance", 3), ("migrate",), ("refine",),
+               ("rungs", 1, 3, 2, 0)], None, True))[-1]
+    assert not np.any(rec["health"])
+    np.testing.assert_allclose(rec["dts"], dts.cpu().numpy(), rtol=1e-12)
+    np.testing.assert_array_equal(rec["nacts"], nacts.cpu().numpy())
+    assert rec["dt_viol"] == int(viol)
+    real = rec["rows"]["mass"] > 0
+    got = {k: v[real] for k, v in rec["rows"].items()}
+    pa = np.mod(got["pos"], 1.0)
+    pb = np.mod(ref.pos.cpu().numpy(), 1.0)
+    oi = np.lexsort((pa[:, 2], pa[:, 1], pa[:, 0]))
+    oj = np.lexsort((pb[:, 2], pb[:, 1], pb[:, 0]))
+    np.testing.assert_allclose(pa[oi], pb[oj], rtol=1e-8, atol=1e-8)
+    for k in ("vel", "u", "h", "rho", "acc", "du_dt"):
         b = getattr(ref, k).cpu().numpy()[oj]
         np.testing.assert_allclose(got[k][oi], b, rtol=1e-8,
                                    atol=1e-8 * np.abs(b).max(), err_msg=k)
