@@ -18,7 +18,12 @@ C on each rank's masked shard structure; then the h predictor against full
 Newton, and block timesteps on the slab ranks (``dist.wrungs``): in
 lockstep with the single-device rung integrator, and ``python -m
 sphax_torch sedov n=100 shards=2 rungs=4`` with kernels A and C on each
-rank's shard structure masked again to its closers.
+rank's shard structure masked again to its closers; then the 2D pencil
+decomposition (``dist.pencil``, ``dist.prungs``): a 2x2 grid of ranks in
+lockstep with the single-device engine, ``turb n=100 shards=2x2`` with and
+without P3M and ``sedov n=100 shards=2x2 rungs=4``, with kernels A and C
+(and C's gravity mode) on each rank's pencil shard structure, and the
+multi-rank dry run.
 
     python3 chip_smoke.py
 
@@ -209,10 +214,63 @@ Phases, in order; any failed check raises and exits non-zero:
                C on rank 0's rung-masked shard of that run's checkpoint
                (the closers of a span's first tick) against plain (fp32
                3e-5), timed, with their bounds
+ 35. pencil    4 ranks on the card as a 2x2 grid (gloo), fp64, from the
+     lockstep  phase-30 lattice (32^3, a seeded 0.3 N(0,1) velocity): a
+               4-step ``pencil.chunk`` at rebuild_every=2, a rebalance of
+               both axes and the migration (pad_factor 2, migrate_frac 1),
+               against ``wengine.simulate`` on one device (rebuild every
+               step): every field at 1e-8 after the chunk and after the
+               migration, dts at 1e-10, with configs.TURB and the mm_visc
+               configuration; with TURB, first kernels A and C on rank 0's
+               pencil shard structure (its real rows active, x and y
+               ghosts imaged but inactive, padding in the trash band) on
+               rows jittered by 0.2 of a spacing with a 0.4 N(0,1)
+               velocity, against plain: fp32 3e-5, fp64 1e-10
+ 36. pencil    ``turb n=100 gravity=1 grav_solver=p3m grav_mesh=128
+     P3M       shards=2x2 chunk=4 max_steps=4`` (N = 1e6, fp32) through
+               the CLI: kernel C in its gravity mode every step on every
+               rank (the records' launches); then on rank 0's pencil of
+               that run's checkpoint C's gravity mode against plain, fp32
+               (3e-5, timed, with its bound) and fp64 (1e-10), and the
+               momentum of one derived pass over the ranks,
+               |sum m a| < 2e-3 sum |m a|
+ 37. pencil    ``turb n=100 shards=2x2 chunk=8 max_steps=16`` (N = 1e6,
+     CLI       fp32) through the CLI and a resume to step 24: records
+               finite, health 0, |sum m v| <= 1e-5 sum m|v|, one launch of
+               A and of C a step on each rank; ms per step by chunk beside
+               phase 31's shards=2 and shards=1, host-staged bytes per
+               step (in all and by grid axis) beside the plan's prediction
+               (``staged_per_step``, printed before the run), migration
+               passes and ms, builds, the ranks' count imbalance before and
+               after each rebalance (four ranks sharing one card: not a
+               scaling measure); then A and C on rank 0's pencil of the
+               step-16 checkpoint against plain (fp32 3e-5), timed, with
+               their bounds
+ 38. pencil    4 ranks as a 2x2 grid, fp64, Sedov at 16^3 (configs.SEDOV,
+     rungs     newton_iters=2), B = 3, one span at rebuild_every=2, the
+               blast centred and at (0.15, 0.3, 0.5), against
+               ``rungs.simulate_rungs`` on one device: every field at 1e-8,
+               dts at 1e-12, closings per tick and dt_viol equal, health
+               0; first A and C on rank 0's pencil structure masked to a
+               span's first tick's closers and to none, jittered, against
+               plain (fp32 3e-5, fp64 1e-10). Then ``sedov n=100 shards=2x2
+               rungs=4 chunk=8 max_steps=16`` (N = 1e6, fp32) through the
+               CLI: finite, |sum m v| <= 1e-5 sum m|v|, dt_viol under 5 %
+               of the closings, the launches of A and C against the
+               schedule's count; ms per tick, staged bytes, active_frac,
+               count imbalance; A and C on rank 0's rung-masked pencil of
+               its checkpoint against plain (fp32 3e-5), timed, with their
+               bounds. Last ``sphax_torch.entry.dryrun_multichip(4)`` on
+               the card (the slab chunk, rebalance and migration, a B = 2
+               span, a 2x2 pencil chunk, all in one launch of 4 ranks)
+               Starting 4 ranks costs tens of seconds on the card, so
+               besides the CLI runs one launch runs the four locksteps of
+               phases 35 and 38 and one the kernel checks on the three
+               checkpoints of phases 36-38 (printed at the end of 38)
 Each path runs with every launch count set to 0 just before it, and its
-counts are read just after; the slab CLI's ranks are processes of their
-own whose counts start at 0, and each chunk's record carries their sums
-(``SlabRun.chunk_record``), which phases 31 and 34 add up. Each kernel's
+counts are read just after; the slab and pencil CLIs' ranks are processes
+of their own whose counts start at 0, and each chunk's record carries their
+sums (``SlabRun.chunk_record``), which phases 31, 34 and 36-38 add up. Each kernel's
 bound is the larger of its bytes over 3.35 TB/s and its operations on the
 pairs these inputs need (inside the support, or the cutoff for the gravity
 mode) over 67 TFLOP/s fp32 (34 fp64). The line before the last holds the
@@ -2318,6 +2376,353 @@ def main():
         "sedov n=100 shards=2 rungs=4 (fp32, the tick-16 checkpoint, the "
         "first tick's closers): " + json.dumps(rung_k))
 
+    # ---- 35. the pencil decomposition in lockstep (fp64, 2x2) ------------
+    # one launch of 4 ranks runs phase 35's and phase 38's locksteps (a
+    # launch costs tens of seconds of start-up on the card)
+    from sphax_torch.dist import pencil
+    from sphax_torch.dist.runner import split_pencil
+
+    torch.cuda.empty_cache()
+    unit = (np.zeros(3), np.ones(3), True)
+    dom64 = box(torch.zeros(3, dtype=f64, device=dev),
+                torch.ones(3, dtype=f64, device=dev))
+
+    def pencil_job(st0, cfg_j, ops, n_side, n_rungs, check, **plan_kw):
+        """``pencil_lockstep_rank``'s job from a derived fp64 state: the
+        2x2 plan with the production window knobs, equal cuts, every
+        rank's rows."""
+        spec = pencil.plan(dom64, st0.n, float(st0.h.max()) * 1.1, 2, 2,
+                           fast_sub=3, rgroups=2, **plan_kw)
+        cuts = (pencil.equal_cuts(spec.ncell0, 2),
+                pencil.equal_cuts(spec.ncell1, 2))
+        sh = [convert.state_to_numpy(pencil.distribute(st0, dom64, spec,
+                                                       *cuts, r))
+              for r in range(4)]
+        rows = {k: np.concatenate([x[k] for x in sh]) for k in sh[0]}
+        return (rows, unit, cfg_j, spec, cuts, ops, n_side, n_rungs, check)
+
+    jobs, refs = [], {}
+    ic = turbulence.build(n_side=32)
+    for tag, cfg_l in SLAB_CFGS.items():
+        st = make_state(*(torch.as_tensor(ic[k], dtype=f64, device=dev)
+                          for k in ("pos", "vel", "mass", "u", "h")))
+        gen = torch.Generator(device=dev).manual_seed(35)
+        st = st._replace(vel=0.3 * torch.randn(st.vel.shape, generator=gen,
+                                               dtype=f64, device=dev))
+        spec1 = win.plan_measured(st.pos, dom64,
+                                  h_max=float(st.h.max()) * 1.1, dim=3,
+                                  fast_sub=3, rgroups=2)
+        st0 = wengine.update_derived(st, cfg_l, dom64, spec1)
+        ref, _, dts_ref, o_ = wengine.simulate(st0, cfg_l, dom64, spec1, 4,
+                                               rebuild_every=1)
+        assert int(o_) == 0
+        refs[tag] = (ref, dts_ref.cpu().numpy())
+        # a rebalance moves a cut by whole cells of the coarse grid:
+        # pencils and send buffers that hold it
+        jobs.append(pencil_job(st0, cfg_l, [("chunk", 4, 2), ("rebalance",),
+                                            ("migrate",)], 32, 0,
+                               tag == "turb", pad_factor=2.0,
+                               migrate_frac=1.0))
+    # phase 38's: the Sedov blast at 16^3, B = 3, one span, centred and
+    # off centre (where rank 0 holds the first tick's closers: the kernel
+    # checks run there)
+    for tag, centre in (("centred", (0.5, 0.5, 0.5)),
+                        ("off-centre", (0.15, 0.3, 0.5))):
+        ic = sedov_ics.build(n_side=16, E=1.0, centre=centre)
+        st = make_state(*(torch.as_tensor(ic[k], dtype=f64, device=dev)
+                          for k in ("pos", "vel", "mass", "u", "h")))
+        knobs_r = dict(cutoff_scale=1.05, fast_sub=3, rgroups=2)
+        spec1 = win.plan_measured(st.pos, dom64,
+                                  h_max=float(st.h.max()) * 1.1, dim=3,
+                                  **knobs_r)
+        st0 = wengine.update_derived(st, cfg_r, dom64, spec1)
+        ref = rungs.simulate_rungs(st0, cfg_r, dom64, spec1, nspans=1,
+                                   n_rungs=3, rebuild_every=2)
+        assert int(ref[3]) == 0 and int(ref[2].min()) < st0.n
+        refs[tag] = ref
+        jobs.append(pencil_job(st0, cfg_r, [("rungs", 1, 3, 2)], 16, 3,
+                               tag == "off-centre", cutoff_scale=1.05))
+    t0 = time.perf_counter()
+    outs = dist_comm.launch(pencil_lockstep_rank, 4, dev, "gloo",
+                            timeout=300, deadline=900, args=(jobs,))
+    lock_wall = time.perf_counter() - t0
+    pencil_lock = {}
+    for (tag, cfg_l), (recs, kchk) in zip(SLAB_CFGS.items(), outs):
+        ref, dts_ref = refs[tag]
+        rec = recs[0]
+        assert not np.any(rec["health"]) and rec["builds"] == 2, rec
+        errs_p = {"dts4": float(np.max(np.abs(rec["dts"] - dts_ref)
+                                       / dts_ref))}
+        assert errs_p["dts4"] <= 1e-10, errs_p
+        # the chunk, and the same state after the rebalance and migration
+        errs_p.update(slab_compare(rec, ref, 1e-8, "chunk"))
+        errs_p.update(slab_compare(recs[-1], ref, 1e-8, "migrated"))
+        pencil_lock[tag] = dict(errs_p, n=32 ** 3,
+                                migrate_passes=recs[-1]["passes"],
+                                cuts=[c_.tolist() for c_ in recs[-1]["cuts"]],
+                                kernels_on_rank0=kchk)
+        log(f"[35 pencil lockstep] {tag}: N={32 ** 3} 2x2 ranks on one card "
+            f"(gloo), a 4-step chunk (rebuild_every=2) + rebalance (cuts "
+            f"{pencil_lock[tag]['cuts']}) + migration "
+            f"({recs[-1]['passes']} passes): max err/scale vs single device "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs_p.items())
+            + " (tol 1e-8, dts 1e-10)"
+            + ("; A and C on rank 0's pencil shard (jittered) vs plain: "
+               + ", ".join(f"{d} A {kr['A']['max_err_over_scale']:.3g} C "
+                           f"{kr['C']['max_err_over_scale']:.3g}"
+                           for d, kr in kchk.items()) if kchk else ""))
+    log(f"[35 pencil lockstep] the four locksteps of phases 35 and 38 in "
+        f"one launch of 4 ranks: {lock_wall:.1f} s")
+    del jobs
+
+    def pencil_cli(tag, args, setup_want, rank_want, out):
+        """One pencil CLI run with the counts at 0 just before it: the
+        set-up's launches in this process held to ``setup_want``, the
+        ranks' (the records' sums) to ``rank_want``; (t, step, records,
+        chunk records, rank launches, wall, |sum m v| / sum m|v|)."""
+        for k in wk.LAUNCHES:
+            wk.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        _, t_, step_ = cli(args + ["checkpoint_every=1", f"out={out}"])
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        setup = {k: v for k, v in wk.LAUNCHES.items() if v}
+        assert setup == setup_want, (tag, setup)
+        recs = records(out)
+        assert all(r["finite"] for r in recs), tag
+        chunks = [r["chunk"] for r in recs if "chunk" in r]
+        ranks = {}
+        for c_ in chunks:
+            for k, v in c_["launches"].items():
+                ranks[k] = ranks.get(k, 0) + v
+        assert ranks == rank_want, (tag, ranks)
+        paths[tag] = {k: ranks.get(k, 0) + setup.get(k, 0)
+                      for k in wk.LAUNCHES}
+        st_, _, _, _, x_ = checkpoint.load(os.path.join(out,
+                                                        "checkpoint.npz"),
+                                           device="cpu")
+        assert x_["shards"] == "2x2" and st_.n == 100 ** 3, x_
+        assert checkpoint.verify_integrity(st_) is None
+        p_, mv_ = p_sum(st_)
+        return t_, step_, recs, chunks, ranks, wall, float(p_.norm()) / mv_
+
+    shape_jobs = []
+
+    def pencil_shapes(out, cfg_k, n_rungs=0, fp64=False):
+        """Queue A and C on rank 0's pencil of the checkpoint in ``out``
+        (the CLI's split of a resume) for ``pencil_shapes_rank``."""
+        st_ck = checkpoint.load(os.path.join(out, "checkpoint.npz"),
+                                device=dev)[0]
+        spec_k, cuts_k, rows_k = split_pencil(st_ck, box(
+            torch.zeros(3, device=dev), torch.ones(3, device=dev)), 2, 2)
+        shape_jobs.append(((spec_k, cuts_k, st_ck.n, cfg_k, n_rungs, fp64),
+                           rows_k))
+
+    # ---- 36. P3M on pencils: turb n=100 gravity=1 shards=2x2 ---------------
+    torch.cuda.empty_cache()
+    g_kv = ["gravity=1", "grav_solver=p3m", "grav_mesh=128"]
+    dg36 = fresh(os.path.join("build", "smoke", "pencil_p3m"))
+    t36, s36, recs36, ch36, l36, wall36, pm36 = pencil_cli(
+        "pencil p3m", ["turb", "n=100", "shards=2x2", "chunk=4",
+                       "max_steps=4"] + g_kv,
+        {"solve_h_density": 1, "forces_grav": 1},
+        {"solve_h_density": 16, "forces_grav": 16}, dg36)
+    assert s36 == 4
+    pencil_shapes(dg36, problems._cfg_kw(
+        dataclasses.replace(configs.TURB, newton_iters=2),
+        dict(gravity=1, grav_solver="p3m", grav_mesh=128)), fp64=True)
+    pencil_p3m = {
+        "n": 100 ** 3, "card": card, "steps": 4, "wall_s": wall36,
+        "note": "4 ranks sharing one card over gloo: not a scaling measure",
+        "ms_per_step": [c_["chunk_ms"] / 4 for c_ in ch36],
+        "staged_bytes_per_step": [c_["staged_bytes"] / 4 for c_ in ch36],
+        "launches": l36, "momentum_over_sum_m_abs_v": pm36}
+    log(f"[36 pencil P3M] turb n=100 gravity=1 grav_solver=p3m "
+        f"grav_mesh=128 shards=2x2 (N=1e6, fp32), 4 steps, 4 ranks sharing "
+        f"the card (not a scaling measure): ms/step "
+        f"{[round(v, 2) for v in pencil_p3m['ms_per_step']]}, host-staged "
+        f"B/step {pencil_p3m['staged_bytes_per_step']}, launches {l36}, "
+        f"|sum m v| / sum m|v| {pm36:.3g}; wall {wall36:.1f} s")
+
+    # ---- 37. the slice at full size: turb n=100 shards=2x2 ---------------
+    torch.cuda.empty_cache()
+    d37 = fresh(os.path.join("build", "smoke", "pencil"))
+    # the staged bytes a step, predicted from the plan before the run
+    st_p = problems.turb(n=100, device=dev).state
+    spec_p = split_pencil(st_p, box(torch.zeros(3, device=dev),
+                                    torch.ones(3, device=dev)), 2, 2)[0]
+    staged_pred = staged_per_step(spec_p, 3, 4, 8, 2, 4)
+    log(f"[37 pencil CLI] predicted from the plan (n_local "
+        f"{spec_p.n_local}, ghost caps {spec_p.ghost_cap0} and "
+        f"{spec_p.ghost_cap1}, n_comb {spec_p.n_comb}): "
+        f"{staged_pred / 1e6:.2f} MB staged a step")
+    del st_p
+    t37, s37, recs37, ch37, l37, wall37, pm37 = pencil_cli(
+        "pencil shards=2x2", ["turb", "n=100", "shards=2x2", "chunk=8",
+                              "max_steps=16"],
+        {"solve_h_density": 1, "forces": 1},
+        {"solve_h_density": 64, "forces": 64}, d37)
+    assert s37 == 16 and pm37 <= 1e-5, pm37
+    pencil_launches = l37
+    d37r = fresh(os.path.join("build", "smoke", "pencil_resume"))
+    _, t37r, s37r = cli(["turb", "n=100", "chunk=8", "max_steps=24",
+                         "shards=2x2", f"out={d37r}",
+                         f"resume={d37}/checkpoint.npz"])
+    assert s37r == 24 and t37r > t37
+    assert all(r["finite"] for r in records(d37r))
+    assert checkpoint.verify_integrity(checkpoint.load(
+        os.path.join(d37r, "checkpoint.npz"), device="cpu")[0]) is None
+    pencil_shapes(d37, dataclasses.replace(configs.TURB, newton_iters=2))
+    pen = {
+        "n": 100 ** 3, "card": card, "steps": 16, "wall_s": wall37,
+        "note": "4 ranks sharing one card over gloo: not a scaling measure",
+        "ms_per_step_by_chunk": [c_["chunk_ms"] / 8 for c_ in ch37],
+        "ms_per_step_records": [100 ** 3 / r["particle_steps_per_sec"] * 1e3
+                                for r in recs37[:2]],
+        "staged_bytes_per_step": [c_["staged_bytes"] / 8 for c_ in ch37],
+        "staged_bytes_per_step_by_axis": [
+            {a: v / 8 for a, v in c_["staged_bytes_by_axis"].items()}
+            for c_ in ch37],
+        "staged_bytes_per_step_predicted": staged_pred,
+        "migrate_ms": [c_["migrate_ms"] for c_ in ch37],
+        "migrate_passes": [c_["migrate_passes"] for c_ in ch37],
+        "rebalance_ms": [c_["rebalance_ms"] for c_ in ch37],
+        "builds": [c_["builds"] for c_ in ch37],
+        "count_imbalance_before_after": [
+            (c_["imbalance_before"], c_["imbalance_after"]) for c_ in ch37],
+        "momentum_over_sum_m_abs_v": pm37,
+        "resume": {"from_step": s37, "to_step": s37r, "t": t37r},
+        "shards2_ms_per_step_by_chunk": slab["shards2"][
+            "ms_per_step_by_chunk"],
+        "shards1_ms_per_step_records": slab["shards1"][
+            "ms_per_step_records"]}
+    log(f"[37 pencil CLI] turb n=100 shards=2x2 (N=1e6, fp32) 16 steps, 4 "
+        f"ranks sharing the card over gloo (not a scaling measure): ms/step "
+        f"by chunk {[round(v, 2) for v in pen['ms_per_step_by_chunk']]} "
+        f"(phase 31: shards=2 "
+        f"{[round(v, 2) for v in pen['shards2_ms_per_step_by_chunk']]}, "
+        f"shards=1 "
+        f"{[round(v, 2) for v in pen['shards1_ms_per_step_records']]}); "
+        f"host-staged B/step {pen['staged_bytes_per_step']} (predicted "
+        f"{staged_pred:.4g}; by axis {pen['staged_bytes_per_step_by_axis']})"
+        f"; migration ms {[round(v, 1) for v in pen['migrate_ms']]} "
+        f"({pen['migrate_passes']} passes), rebalance ms "
+        f"{[round(v, 2) for v in pen['rebalance_ms']]}, builds "
+        f"{pen['builds']} a rank, count imbalance before -> after "
+        f"{pen['count_imbalance_before_after']}; launches {l37}; |sum m v| "
+        f"/ sum m|v| {pm37:.3g}; resumed to step {s37r} (t={t37r:.4f}); "
+        f"wall {wall37:.1f} s")
+
+    # ---- 38. block timesteps on pencils: lockstep, then sedov n=100 ------
+    prung_lock = {}
+    for tag, (recs, kchk) in zip(("centred", "off-centre"), outs[2:]):
+        ref, dts_ref, nact_ref, _, viol_ref, _ = refs[tag]
+        rec = recs[-1]
+        assert not np.any(rec["health"]), rec["health"]
+        dts_err = float(np.max(np.abs(rec["dts"] - dts_ref.cpu().numpy())
+                               / dts_ref.cpu().numpy()))
+        assert dts_err <= 1e-12, dts_err
+        assert np.array_equal(rec["nacts"], nact_ref.cpu().numpy()), (
+            rec["nacts"], nact_ref)
+        assert rec["dt_viol"] == int(viol_ref)
+        errs_r = slab_compare(rec, ref, 1e-8, "span")
+        prung_lock[tag] = dict(errs_r, dts=dts_err,
+                               nacts=rec["nacts"].tolist(),
+                               dt_viol=rec["dt_viol"], n=16 ** 3,
+                               kernels_on_rank0=kchk)
+        log(f"[38 pencil rung lockstep] {tag}: N={16 ** 3} 2x2 ranks on one "
+            f"card (gloo), B=3, one span of 4 ticks (phase 35's launch): "
+            f"closings per tick {rec['nacts'].tolist()} and dt_viol "
+            f"{rec['dt_viol']} equal one device's, dts within {dts_err:.3g}"
+            " (1e-12), max err/scale " + ", ".join(
+                f"{k} {v:.3g}" for k, v in errs_r.items())
+            + " (1e-8)"
+            + ("; A and C on rank 0's rung-masked pencil (jittered) vs "
+               "plain: "
+               + "; ".join(f"{dt_} closers {kr['closers']}, active groups "
+                           f"{kr['active_group_share']:.3f}, A "
+                           f"{kr['A']['max_err_over_scale']:.3g} C "
+                           f"{kr['C']['max_err_over_scale']:.3g}"
+                           for dt_, kr in kchk.items()) if kchk else ""))
+    # rank 0 held the off-centre blast's first closers, then none
+    ks = prung_lock["off-centre"]["kernels_on_rank0"]
+    assert all((kr["closers"] > 0) == k.endswith("tick 0")
+               for k, kr in ks.items()), {k: kr["closers"]
+                                          for k, kr in ks.items()}
+    del refs, outs
+    torch.cuda.empty_cache()
+    dr38 = fresh(os.path.join("build", "smoke", "pencil_rung"))
+    t38, s38, recs38, ch38, l38, wall38, pm38 = pencil_cli(
+        "pencil rung shards=2x2", ["sedov", "n=100", "shards=2x2", "rungs=4",
+                                   "chunk=8", "max_steps=16"],
+        {"solve_h_density": 1, "forces": 1},
+        # each chunk a rank: A's seeding pass, then A and C once a tick
+        {"solve_h_density": 4 * 2 * (1 + 8), "forces": 4 * 2 * 8}, dr38)
+    assert s38 == 16 and pm38 <= 1e-5, pm38
+    prung_launches = l38
+    for r in recs38[:2]:
+        closings = r["active_frac"] * 100 ** 3 * 8
+        assert r["dt_viol"] < 0.05 * closings, r
+    pencil_shapes(dr38, configs.SEDOV, n_rungs=4)
+    prung = {
+        "n": 100 ** 3, "card": card, "ticks": 16, "wall_s": wall38,
+        "note": "4 ranks sharing one card over gloo: not a scaling measure",
+        "ms_per_tick_by_chunk": [c_["chunk_ms"] / 8 for c_ in ch38],
+        "active_frac": [r["active_frac"] for r in recs38[:2]],
+        "dt_viol": [r["dt_viol"] for r in recs38[:2]],
+        "builds": [c_["builds"] for c_ in ch38],
+        "staged_bytes_per_tick": [c_["staged_bytes"] / 8 for c_ in ch38],
+        "migrate_ms": [c_["migrate_ms"] for c_ in ch38],
+        "migrate_passes": [c_["migrate_passes"] for c_ in ch38],
+        "count_imbalance_before_after": [
+            (c_["imbalance_before"], c_["imbalance_after"]) for c_ in ch38],
+        "launches": l38, "momentum_over_sum_m_abs_v": pm38,
+        "shards2_ms_per_tick_by_chunk": rung2["ms_per_tick_by_chunk"],
+        "shards1_ms_per_tick_simulate_rungs": rung_ms["rungs"]}
+    log(f"[38 pencil rung CLI] sedov n=100 shards=2x2 rungs=4 (N=1e6, "
+        f"fp32), 16 ticks, 4 ranks sharing the card over gloo (not a "
+        f"scaling measure): ms/tick by chunk "
+        f"{[round(v, 2) for v in prung['ms_per_tick_by_chunk']]} (phase 34 "
+        f"shards=2 {[round(v, 2) for v in rung2['ms_per_tick_by_chunk']]},"
+        f" phase 24 shards=1 {rung_ms['rungs']:.2f}); active_frac "
+        f"{prung['active_frac']}, dt_viol {prung['dt_viol']}, builds "
+        f"{prung['builds']}; host-staged B/tick "
+        f"{prung['staged_bytes_per_tick']}; migration ms "
+        f"{[round(v, 1) for v in prung['migrate_ms']]} "
+        f"({prung['migrate_passes']} passes); count imbalance "
+        f"{prung['count_imbalance_before_after']}; launches {l38}; wall "
+        f"{wall38:.1f} s")
+    # A and C on rank 0's pencil of each run's checkpoint, in one launch:
+    # phase 36's (C in its gravity mode, fp32 timed and fp64), 37's, 38's
+    # (masked to a span's first tick's closers)
+    t0 = time.perf_counter()
+    grav_k, pen_k, prung_k = dist_comm.launch(
+        pencil_shapes_rank, 4, dev, "gloo", timeout=300, deadline=900,
+        args=([j for j, _ in shape_jobs],),
+        rank_args=[[rows[r] for _, rows in shape_jobs] for r in range(4)])
+    del shape_jobs
+    assert grav_k["momentum_over_sum_abs"] < 2e-3, grav_k
+    pencil_p3m["kernels_on_a_shard"] = grav_k
+    pen["kernels_on_a_shard"] = pen_k
+    prung["kernels_on_a_shard"] = prung_k
+    log(f"[36 pencil kernels] C's gravity mode (and A) on rank 0's pencil "
+        f"of the P3M run's checkpoint vs plain, fp32 timed and fp64: "
+        + json.dumps(grav_k))
+    log("[37 pencil kernels] A and C on rank 0's pencil of turb n=100 "
+        "shards=2x2 (fp32, the step-16 checkpoint): " + json.dumps(pen_k))
+    log("[38 pencil rung kernels] A and C on rank 0's rung-masked pencil of "
+        "sedov n=100 shards=2x2 rungs=4 (fp32, the tick-16 checkpoint, the "
+        "first tick's closers): " + json.dumps(prung_k))
+    log(f"[38 pencil kernels] the three checkpoints' checks in one launch "
+        f"of 4 ranks: {time.perf_counter() - t0:.1f} s")
+    from sphax_torch.entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(4, dev)
+    dry["wall_s"] = time.perf_counter() - t0
+    log(f"[38 dryrun] sphax_torch.entry.dryrun_multichip(4) on the card: "
+        f"{json.dumps(dry)}")
+
     def total(kernel):
         return sum(p_[kernel] for p_ in paths.values())
 
@@ -2493,6 +2898,66 @@ def main():
                for tag, v in rung_lock.items()
                for dt_, kr in v["kernels_on_rank0"].items()}}
           for which, base in (("A", "solve_h_density"), ("C", "forces"))],
+        # kernels A and C on a pencil shard's masked structure: launches
+        # are the ranks' (the CLI's turb n=100 shards=2x2, 16 steps, phase
+        # 37), ms, plain_ms and the bound on rank 0's pencil of that run;
+        # the fp64 checks on jittered rows are phase 35's
+        *[{"name": f"{base} on a pencil shard's masked structure",
+           "route": "cuda", "source": src,
+           "replaces": "sphax/physics/pallas_kernels.py:"
+                       + ("315" if which == "A" else "563"),
+           "launches": pencil_launches[base],
+           "max_abs_err": pen_k[which]["max_abs_err"],
+           "ms": pen_k[which]["ms"], "plain_ms": pen_k[which]["plain_ms"],
+           "bound_ms": pen_k[which]["bound_ms"],
+           "bound_by": pen_k[which]["bound_by"], "library_ms": None,
+           "shards": "2x2", "n": 100 ** 3,
+           "own_rows": pen_k["own_rows"], "n_sorted": pen_k["n_sorted"],
+           "active_group_share": pen_k["active_group_share"],
+           "pairs_inside_per_own_row": pen_k[which]["pairs_per_row"],
+           "lockstep_max_err_over_scale": {
+               d: kr[which]["max_err_over_scale"]
+               for d, kr in pencil_lock["turb"]["kernels_on_rank0"].items()}}
+          for which, base in (("A", "solve_h_density"), ("C", "forces"))],
+        # kernel C's gravity mode (the fused P3M short range) on a pencil
+        # shard: launches are the ranks' (phase 36's turb n=100 P3M at
+        # shards=2x2, 4 steps), ms, plain_ms and the bound on rank 0's
+        # pencil of that run, fp32 and fp64 against plain
+        {"name": "forces (gravity mode) on a pencil shard", "route": "cuda",
+         "source": src, "replaces": "sphax/physics/pallas_kernels.py:747",
+         "launches": l36["forces_grav"],
+         "max_abs_err": grav_k["C"]["max_abs_err"],
+         "ms": grav_k["C"]["ms"], "plain_ms": grav_k["C"]["plain_ms"],
+         "bound_ms": grav_k["C"]["bound_ms"],
+         "bound_by": grav_k["C"]["bound_by"], "library_ms": None,
+         "shards": "2x2", "n": 100 ** 3, "own_rows": grav_k["own_rows"],
+         "pairs_inside_per_own_row": grav_k["C"]["pairs_per_row"],
+         "pairs_in_cutoff_per_own_row": grav_k["C"]["grav_pairs_per_row"],
+         "fp64_max_err_over_scale": grav_k["fp64"]["C"],
+         "momentum_over_sum_abs": grav_k["momentum_over_sum_abs"]},
+        # kernels A and C on a pencil shard's rung-masked structure:
+        # launches are the ranks' (sedov n=100 shards=2x2 rungs=4, 16
+        # ticks, the seeding passes of A included, phase 38), ms, plain_ms
+        # and the bound on rank 0's pencil of that run at a span's first
+        # tick; the quiet launch and the fp64 check are phase 38's lockstep
+        *[{"name": f"{base} on a pencil shard's rung-masked structure",
+           "route": "cuda", "source": src,
+           "replaces": "sphax/physics/pallas_kernels.py:"
+                       + ("373" if which == "A" else "640"),
+           "launches": prung_launches[base],
+           "max_abs_err": prung_k[which]["max_abs_err"],
+           "ms": prung_k[which]["ms"], "plain_ms": prung_k[which]["plain_ms"],
+           "bound_ms": prung_k[which]["bound_ms"],
+           "bound_by": prung_k[which]["bound_by"], "library_ms": None,
+           "shards": "2x2", "n": 100 ** 3, "n_rungs": 4,
+           "own_rows": prung_k["own_rows"], "closers": prung_k["closers"],
+           "active_group_share": prung_k["active_group_share"],
+           "pairs_inside_per_own_row": prung_k[which]["pairs_per_row"],
+           "lockstep_max_err_over_scale": {
+               f"{tag} {dt_}": kr[which]["max_err_over_scale"]
+               for tag, v in prung_lock.items()
+               for dt_, kr in v["kernels_on_rank0"].items()}}
+          for which, base in (("A", "solve_h_density"), ("C", "forces"))],
         {"name": "gravity", "route": "cuda",
          "source": "sphax_torch/csrc/gravity_kernel.cu",
          "replaces": "sphax/physics/pallas_kernels.py:808",
@@ -2545,6 +3010,9 @@ def main():
         "device_ms_per_step_by_kind": where,
         "slab": dict(slab, lockstep_fp64_4_ranks=slab_lock),
         "rung_slab": dict(rung2, lockstep_fp64_2_ranks=rung_lock),
+        "pencil": dict(pen, lockstep_fp64_2x2=pencil_lock, p3m=pencil_p3m),
+        "pencil_rungs": dict(prung, lockstep_fp64_2x2=prung_lock),
+        "dryrun_multichip": dry,
         "h_predict": hp,
         "build_s": _build.BUILD_INFO["seconds"],
         "card": card}
@@ -2579,8 +3047,10 @@ def span_closers(c, st, cfg, n_rungs, tick):
 
 def shard_kernel_check(c, st, cuts, dom, cfg, spec, tol, reps=0, n_rungs=0,
                        tick=0, quiet=False):
-    """Every rank: one derived pass of its shard that records kernel A's
-    and C's arguments (``tests/_slab_helpers.kernel_calls``); with
+    """Every rank: one derived pass of its shard (a slab's, or with a
+    PencilSpec and ``cuts`` = (cuts0, cuts1) a pencil's) that records
+    kernel A's and C's arguments (``tests/_slab_helpers.kernel_calls``;
+    under P3M, C in its gravity mode); with
     ``n_rungs``, the rung pass on the structure masked to the closers of
     ``tick`` of a span starting from ``st`` (``span_closers``), or with
     ``quiet`` to none on rank 0, as on a tick whose closers all lie in the
@@ -2642,14 +3112,19 @@ def shard_kernel_check(c, st, cuts, dom, cfg, spec, tol, reps=0, n_rungs=0,
             pos_s = a[2]
             mass_s = a[3] if which == "A" else a[4]
             h_s = a[4] if which == "A" else a[5]
+            grav = which == "C" and k.get("grav") is not None
             pairs = pair_counts(wd._replace(is_real=own), wspec, pos_s,
-                                mass_s, h_s)
+                                mass_s, h_s,
+                                cutoff=wspec.cutoff if grav else None)
             n_pairs = pairs[0] if which == "A" else pairs[1]
             rec["pairs_per_row"] = n_pairs / max(int(own.sum()), 1)
+            if grav:
+                rec["grav_pairs_per_row"] = pairs[2] / max(int(own.sum()), 1)
             rec["bound_ms"], rec["bound_by"] = kernel_bound(
                 which, wspec, pos_s, n_pairs,
                 iters=wk._newton_iters(cfg), bals=bool(cfg.need_divv),
-                bf=bool(cfg.visc_factor_on), masked=wd)
+                bf=bool(cfg.visc_factor_on), masked=wd,
+                grav_pairs=pairs[2] if grav else 0)
         out[which] = rec
     wd = calls["A"][0][0]
     out["own_rows"] = int(own.sum())
@@ -2662,38 +3137,14 @@ def shard_kernel_check(c, st, cuts, dom, cfg, spec, tol, reps=0, n_rungs=0,
 
 
 def rung_lockstep_rank(c, rows, domain, cfg, spec, cuts, ops, n_side):
-    """Phase 33 on one rank: kernels A and C on rank 0's shard structure
-    masked to the closers of a span's first tick, and to none, against
-    plain (fp32 3e-5, fp64 1e-10), on the shard's real rows jittered by a
-    seeded 0.2 of a spacing with a seeded 0.4 N(0,1) velocity (on the
-    resting lattice d rho/d h cancels and the Balsara sums vanish, as in
-    phase 22); then ``tests/_slab_helpers.lockstep``'s ops in fp64 from the
+    """Phase 33 on one rank: ``jittered_checks`` of kernels A and C on rank
+    0's shard structure masked to the closers of a span's first tick, and
+    to none; then ``tests/_slab_helpers.lockstep``'s ops in fp64 from the
     rows as given. Rank 0 returns (records, its kernel records)."""
-    from sphax_torch import convert
-    from sphax_torch.dist import wslab
     from tests._slab_helpers import lockstep
 
-    kchk = {}
-    for dtype, tol in ((torch.float32, 3e-5), (torch.float64, 1e-10)):
-        st = convert.shard_from_numpy(rows, spec, c.rank, c.device, dtype)
-        gen = torch.Generator(device=c.device).manual_seed(33 + c.rank)
-        real = (st.mass > 0)[:, None]
-        jit = (0.2 / n_side) * (2.0 * torch.rand(
-            st.pos.shape, generator=gen, dtype=dtype, device=c.device) - 1.0)
-        vel = 0.4 * torch.randn(st.vel.shape, generator=gen, dtype=dtype,
-                                device=c.device)
-        st = st._replace(pos=torch.where(real, st.pos + jit, st.pos),
-                         vel=torch.where(real, vel, st.vel))
-        dom = convert.domain_from_numpy(*domain, device=c.device,
-                                        dtype=dtype)
-        sp = wslab.refine_wseg(spec, wslab.max_run(c, st, cuts, dom,
-                                                   spec)[0])
-        for quiet in (False, True):
-            rec = shard_kernel_check(c, st, cuts, dom, cfg, sp, tol,
-                                     n_rungs=3, quiet=quiet)
-            if rec is not None:
-                kchk[f"{str(dtype)[6:]} {'none' if quiet else 'tick 0'}"] \
-                    = rec
+    kchk = jittered_checks(c, rows, domain, cfg, spec, cuts, n_side, 3,
+                           seed=33)
     recs = lockstep(c, rows, domain, cfg, spec, cuts, ops, None, True)
     return (recs, kchk) if c.rank == 0 else None
 
@@ -2760,6 +3211,130 @@ def slab_shapes_rank(c, spec, cuts, n_real, rows):
                   spec, cuts, n_real, cfg, dom)
     return shard_kernel_check(c, run.state, run.cuts, dom, cfg, run.spec,
                               3e-5, reps=10)
+
+
+def jittered_checks(c, rows, domain, cfg, spec, cuts, n_side, n_rungs=0,
+                    seed=35):
+    """Kernels A and C on rank 0's shard structure (a slab's, or with a
+    PencilSpec a pencil's) against plain, fp32 3e-5 and fp64 1e-10, on the
+    shard's real rows jittered by a seeded 0.2 of a spacing with a seeded
+    0.4 N(0,1) velocity (on the resting lattice d rho/d h cancels and the
+    Balsara sums vanish, as in phase 22); with ``n_rungs``, on the
+    structure masked to the closers of a span's first tick and to none.
+    Every rank calls it; rank 0's records come back."""
+    from sphax_torch import convert
+    from sphax_torch.dist import pencil, wslab
+
+    pen = isinstance(spec, pencil.PencilSpec)
+    if pen:
+        c.grid(spec.ns0, spec.ns1)
+    out = {}
+    for dtype, tol in ((torch.float32, 3e-5), (torch.float64, 1e-10)):
+        st = convert.shard_from_numpy(rows, spec, c.rank, c.device, dtype)
+        gen = torch.Generator(device=c.device).manual_seed(seed + c.rank)
+        real = (st.mass > 0)[:, None]
+        jit = (0.2 / n_side) * (2.0 * torch.rand(
+            st.pos.shape, generator=gen, dtype=dtype, device=c.device) - 1.0)
+        vel = 0.4 * torch.randn(st.vel.shape, generator=gen, dtype=dtype,
+                                device=c.device)
+        st = st._replace(pos=torch.where(real, st.pos + jit, st.pos),
+                         vel=torch.where(real, vel, st.vel))
+        dom = convert.domain_from_numpy(*domain, device=c.device,
+                                        dtype=dtype)
+        mr = (pencil.max_run(c, st, *cuts, dom, spec) if pen
+              else wslab.max_run(c, st, cuts, dom, spec))[0]
+        sp = wslab.refine_wseg(spec, mr)
+        for quiet in ((False, True) if n_rungs else (False,)):
+            rec = shard_kernel_check(c, st, cuts, dom, cfg, sp, tol,
+                                     n_rungs=n_rungs, quiet=quiet)
+            if rec is not None:
+                out[f"{str(dtype)[6:]}"
+                    + (f" {'none' if quiet else 'tick 0'}" if n_rungs
+                       else "")] = rec
+    return out
+
+
+def pencil_lockstep_rank(c, jobs):
+    """Phases 35 and 38 on one rank, for each job (rows, domain, cfg, spec,
+    cuts, ops, n_side, n_rungs, check): with ``check``,
+    ``jittered_checks``; then ``tests/_slab_helpers.pencil_lockstep``'s
+    ops in fp64 from the rows as given. Rank 0 returns [(records, its
+    kernel records)] a job."""
+    from tests._slab_helpers import pencil_lockstep
+
+    out = []
+    for rows, domain, cfg, spec, cuts, ops, n_side, n_rungs, check in jobs:
+        kchk = (jittered_checks(c, rows, domain, cfg, spec, cuts, n_side,
+                                n_rungs) if check else {})
+        out.append((pencil_lockstep(c, rows, domain, cfg, spec, cuts, ops,
+                                    None, True), kchk))
+    return out if c.rank == 0 else None
+
+
+def pencil_shapes_rank(c, jobs, rows_list):
+    """Phases 36-38's kernel shapes, for each job (spec, cuts, n_real, cfg,
+    n_rungs, fp64) and this rank's rows of it: the CLI's set-up of a resume
+    on this rank (its rows of the split checkpoint state, ``PencilRun``),
+    then ``shard_kernel_check`` in fp32 with times and bounds (and with
+    ``fp64`` again in fp64, at 1e-10); with rungs on the structure masked
+    to a span's first tick's closers. Under gravity also the total
+    momentum of one derived pass, over the ranks. Rank 0 returns its
+    records, a job each."""
+    from sphax_torch import convert
+    from sphax_torch.dist import pencil
+    from sphax_torch.dist.runner import PencilRun
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    recs = []
+    for (spec, cuts, n_real, cfg, n_rungs, fp64), rows in zip(jobs,
+                                                              rows_list):
+        out = {}
+        for dtype, tol, reps in ((torch.float32, 3e-5, 10),
+                                 (torch.float64, 1e-10, 0))[:1 + bool(fp64)]:
+            dom = convert.domain_from_numpy([0.0] * 3, [1.0] * 3, True,
+                                            device=c.device, dtype=dtype)
+            run = PencilRun(c, convert.state_from_numpy(rows, c.device,
+                                                        dtype),
+                            spec, cuts, n_real, cfg, dom, n_rungs=n_rungs)
+            rec = shard_kernel_check(c, run.state, run.cuts, dom, cfg,
+                                     run.spec, tol, reps=reps,
+                                     n_rungs=n_rungs)
+            if dtype == torch.float32:
+                out = rec
+                if cfg.gravity:
+                    st = run.state._replace(pos=pencil._wrap_other(
+                        run.state.pos, dom))
+                    wd, *built, _ = pencil._exchange_and_build(
+                        c, st, *run.cuts, dom, run.spec)
+                    s2 = pencil._local_derived(c, st, wd, *built, cfg, dom,
+                                               run.spec)
+                    ma = (s2.mass[:, None] * s2.acc).double()
+                    tot = c.all_reduce_sum(torch.cat([ma.sum(0),
+                                                      ma.abs().sum(0)]))
+                    if rec is not None:
+                        rec["momentum_over_sum_abs"] = float(
+                            (tot[:3].abs() / tot[3:]).max())
+            elif rec is not None:
+                out["fp64"] = {w: rec[w]["max_err_over_scale"] for w in "AC"}
+            del run
+        recs.append(out)
+    return recs if c.rank == 0 else None
+
+
+def staged_per_step(spec, dim, itemsize, steps, rebuild_every, ranks):
+    """The bytes a pencil chunk stages through the host on a card under
+    gloo, predicted from the plan: every message copied out and in. A
+    step ships kinematics (2 dim + 1 columns) over both hops and the
+    phase-2 hydro (6 columns) back; a build ships the x kinematics twice
+    more (to place the combined rows that the y faces select from, then
+    for the structure) and the y kinematics once more; the dt's MIN is
+    one value a step and the health's SUM two int64 a chunk."""
+    x, y = 2 * spec.ghost_cap0, 2 * spec.ghost_cap1
+    kin = (2 * dim + 1) * itemsize
+    step = (x + y) * (kin + 6 * itemsize) + itemsize
+    build = (2 * x + y) * kin
+    per_rank = steps * step + steps // rebuild_every * build + 16
+    return 2 * ranks * per_rank / steps
 
 
 def slab_compare(rec, ref, tol, tag):

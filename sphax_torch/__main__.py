@@ -46,9 +46,9 @@ Differences from the JAX CLI:
 - ``plot=1`` (``diag.plots``: a Sod or Sedov profile or a slice, and the
   metrics history, as PNGs at the end of the run) raises before the run
   where matplotlib does not import (the card's machine has none), and is
-  refused with ``shards=N`` (the JAX CLI ignores it there);
-- not ported yet, and refused: ``shards=AxB`` (the pencil decomposition,
-  ``ROADMAP.md`` queue 1, item 4).
+  refused with ``shards=N`` and ``shards=AxB`` (the JAX CLI ignores it
+  there);
+- a malformed ``shards`` (``0x2``, ``2xb``) raises SystemExit naming it.
 
 ``shards=N`` (N > 1) runs the slab decomposition (``sphax_torch.dist``):
 this process builds the kernels and the problem (a resume loads its
@@ -66,6 +66,16 @@ shards. ``shards=N rungs=B`` runs block timesteps on every rank
 (``dist.wrungs``): whole spans a chunk, the cuts rebalanced on the
 expected work, and each record carries ``dt_viol`` and ``active_frac``
 (its ``chunk`` also the work imbalance before and after the rebalance).
+
+``shards=AxB`` runs the 2D pencil decomposition (``dist.pencil``) on A x B
+ranks the same way: two-hop ghosts (x faces, then y faces from the combined
+rows), per-axis count rebalancing and migration, and each chunk's record
+also carries the host-staged bytes by grid axis and the count imbalance
+before and after the rebalance; the checkpoint records
+``extra={"shards": "AxB"}``. ``shards=AxB rungs=B`` runs block timesteps
+on the pencils (``dist.prungs``). ``adaptive=K`` is refused with pencils,
+as in the JAX CLI (the pencil loop keeps the fixed cadence); ``shards=1x1``
+is one device.
 """
 from __future__ import annotations
 
@@ -100,19 +110,29 @@ def _parse(argv):
     return name, kv
 
 
-def _refuse_unported(kv, profile: int, plot: int) -> int:
-    """Pop ``shards``; raise SystemExit for what the port has not ported or
-    cannot run here. Returns the shard count."""
-    shards = str(kv.pop("shards", 1))
-    if not shards.isdigit() or int(shards) < 1:
-        raise SystemExit(f"shards={shards}: shards=AxB (the pencil "
-                         "decomposition) is not ported yet, only shards=N "
-                         "(the slab decomposition): ROADMAP.md queue 1, "
-                         "item 4")
-    shards = int(shards)
-    if shards > 1 and profile:
+def _parse_shards(kv, profile: int, plot: int, adaptive: int):
+    """Pop ``shards``: N (slabs) or AxB (pencils, returned as (A, B); 1x1
+    is one device, as in the JAX CLI). Raise SystemExit for a malformed
+    value and for what the distributed loop does not run."""
+    raw = str(kv.pop("shards", 1))
+    parts = raw.split("x")
+    if len(parts) > 2 or not all(p.isdigit() and int(p) >= 1
+                                 for p in parts):
+        raise SystemExit(f"shards={raw}: expected N (slabs) or AxB "
+                         "(pencils) with N, A, B >= 1")
+    shards = (int(parts[0]) if len(parts) == 1
+              else (int(parts[0]), int(parts[1])))
+    n_dev = shards[0] * shards[1] if isinstance(shards, tuple) else shards
+    if n_dev == 1:
+        shards = 1
+    if isinstance(shards, tuple) and adaptive:
+        raise SystemExit(
+            "adaptive is wired for shards=N (wslab/wrungs: the drift gate "
+            "is a MAX all-reduced scalar); the pencil twin keeps fixed "
+            "cadence: use 1D slabs or drop adaptive=")
+    if n_dev > 1 and profile:
         raise SystemExit("profile=1 traces the single-device loop only")
-    if shards > 1 and plot:
+    if n_dev > 1 and plot:
         raise SystemExit("plot=1 plots the single-device run only")
     if plot:
         try:
@@ -120,7 +140,7 @@ def _refuse_unported(kv, profile: int, plot: int) -> int:
         except ImportError:
             raise SystemExit("plot=1 needs matplotlib, which this Python "
                              "cannot import; run without plot=1") from None
-    if shards == 1 and int(kv.get("rebuild_every", 2)) != 2:
+    if n_dev == 1 and int(kv.get("rebuild_every", 2)) != 2:
         raise SystemExit("rebuild_every: the single-device loop rebuilds "
                          "the window structure every 2 steps")
     return shards
@@ -179,7 +199,7 @@ def main(argv=None):
     # driving)
     n_rungs = int(kv.pop("rungs", 1))
     device = torch.device(str(kv.pop("device", "cuda")))
-    shards = _refuse_unported(kv, profile, plot)
+    shards = _parse_shards(kv, profile, plot, adaptive)
     rebuild_every = int(kv.pop("rebuild_every", 2))
     if chunk < 1 or rebuild_every < 1:
         raise SystemExit("chunk and rebuild_every must be >= 1")
@@ -187,7 +207,7 @@ def main(argv=None):
         if not torch.cuda.is_available():
             raise SystemExit("no CUDA device is visible; device=cpu runs on "
                              "the CPU")
-    if shards > 1:
+    if shards != 1:
         from sphax_torch.dist.runner import main_dist
 
         t, step = main_dist(dict(

@@ -1,9 +1,9 @@
 """Carry state across from NumPy (and so from the JAX package's arrays).
 
 The tests feed both packages the same arrays through these; a run can
-resume from arrays the reference wrote. The slab decomposition's spec and
-its sharded layout (the JAX package's [n_shards * n_local] arrays, shard
-after shard) carry across too.
+resume from arrays the reference wrote. The slab and pencil
+decompositions' specs and their sharded layout (the JAX package's
+[n_shards * n_local] arrays, shard after shard) carry across too.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from sphax_torch.core.state import Domain, ParticleState
+from sphax_torch.dist.pencil import PencilSpec
 from sphax_torch.dist.wslab import WSlabSpec
 from sphax_torch.neighbors.window import WindowSpec
 from sphax_torch.physics.driving import DriveState
@@ -65,9 +66,20 @@ def wslab_spec_from_fields(**fields) -> WSlabSpec:
                      **{k: int(v) for k, v in fields.items()})
 
 
-def shard_from_numpy(rows: Dict[str, np.ndarray], spec: WSlabSpec,
+def pencil_spec_from_fields(**fields) -> PencilSpec:
+    """PencilSpec from the fields of a reference spec
+    (``pencil_spec_from_fields(**dataclasses.asdict(jax_spec))``)."""
+    fields = dict(fields)
+    w = fields.pop("wspec")
+    return PencilSpec(wspec=w if isinstance(w, WindowSpec)
+                      else spec_from_fields(**w),
+                      **{k: int(v) for k, v in fields.items()})
+
+
+def shard_from_numpy(rows: Dict[str, np.ndarray], spec,
                      rank: int, device, dtype) -> ParticleState:
-    """Rank ``rank``'s [n_local] rows of a sharded layout: every field as
+    """Rank ``rank``'s [n_local] rows of a sharded layout (``spec`` a
+    WSlabSpec or a PencilSpec): every field as
     [n_shards * n_local] rows, shard after shard (a sharded JAX state
     through ``state_to_numpy``-like conversion, or ``runner.lockstep``'s
     records)."""

@@ -18,6 +18,11 @@ ranks on one device). gloo moves host memory, so on a CUDA device a gloo
 buffer and back, here and nowhere else; ``STAGED`` counts the bytes of
 those copies (both directions). With NCCL (one card per rank) tensors stay
 on their device; that configuration has not been run.
+
+``Comm.grid(ns0, ns1)`` lays the ranks out as the pencil decomposition's
+two-axis grid (the JAX package's ``Mesh(devs.reshape(ns0, ns1), ("sx",
+"sy"))``: rank = i0 * ns1 + i1), and ``ring(..., axis=0 or 1)`` runs the
+ring along one axis of it; all-reduces over both axes are the world's.
 """
 from __future__ import annotations
 
@@ -33,13 +38,17 @@ import torch
 import torch.distributed as dist
 
 # host-staged traffic of this process: bytes copied between the card and
-# pinned host buffers
-STAGED = {"bytes": 0}
+# pinned host buffers ("bytes", everything), and the part of them that the
+# rings along the grid's two axes moved ("sx", "sy")
+STAGED = {"bytes": 0, "sx": 0, "sy": 0}
 
 # message tags of the ring: a message sent to the left neighbour, and one
 # sent to the right. With two ranks both neighbours are the same peer, and
-# the tags keep the two messages of one exchange from swapping.
+# the tags keep the two messages of one exchange from swapping. The rings
+# along the grid's axes have tags of their own.
 _TO_LEFT, _TO_RIGHT = 1, 2
+_AXIS_TAGS = {0: (3, 4), 1: (5, 6)}
+_AXIS_NAMES = ("sx", "sy")
 
 
 class Comm:
@@ -50,6 +59,7 @@ class Comm:
         self.rank, self.world = int(rank), int(world)
         self.device = torch.device(device)
         self.staged = backend == "gloo" and self.device.type == "cuda"
+        self.shape = None
 
     @property
     def left(self) -> int:
@@ -59,52 +69,97 @@ class Comm:
     def right(self) -> int:
         return (self.rank + 1) % self.world
 
+    def grid(self, ns0: int, ns1: int) -> "Comm":
+        """Lay the ranks out as an ``ns0 x ns1`` grid, row-major (rank =
+        i0 * ns1 + i1); returns self."""
+        if ns0 < 1 or ns1 < 1 or ns0 * ns1 != self.world:
+            raise ValueError(f"a {ns0}x{ns1} grid of {self.world} ranks")
+        self.shape = (int(ns0), int(ns1))
+        return self
+
+    @property
+    def coords(self):
+        """(i0, i1): this rank's place in the grid."""
+        return divmod(self.rank, self.shape[1])
+
+    def _axis_peers(self, axis: int):
+        """(left, right) neighbours along one grid axis, cyclic."""
+        i = list(self.coords)
+        n = self.shape[axis]
+        out = []
+        for step in (-1, 1):
+            j = list(i)
+            j[axis] = (i[axis] + step) % n
+            out.append(j[0] * self.shape[1] + j[1])
+        return tuple(out)
+
     # -- host staging (gloo on a card) --------------------------------------
 
-    def _out(self, t):
+    def _out(self, t, key=None):
         """The buffer a collective sends or reduces in place: a pinned host
-        copy of a CUDA tensor under gloo, else a contiguous copy."""
+        copy of a CUDA tensor under gloo, else a contiguous copy. ``key``
+        names the grid axis whose ring moves it."""
         if not self.staged:
             return t.contiguous().clone()
         buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         buf.copy_(t)
-        STAGED["bytes"] += buf.numel() * buf.element_size()
+        self._count(buf, key)
         return buf
 
     def _empty(self, shape, dtype):
         return torch.empty(shape, dtype=dtype, pin_memory=self.staged,
                            device="cpu" if self.staged else self.device)
 
-    def _in(self, buf):
+    def _in(self, buf, key=None):
         """A received or reduced buffer, back on this rank's device."""
         if not self.staged:
             return buf
-        STAGED["bytes"] += buf.numel() * buf.element_size()
+        self._count(buf, key)
         return buf.to(self.device, non_blocking=True)
+
+    @staticmethod
+    def _count(buf, key):
+        nbytes = buf.numel() * buf.element_size()
+        STAGED["bytes"] += nbytes
+        if key is not None:
+            STAGED[key] += nbytes
 
     # -- collectives ----------------------------------------------------------
 
-    def ring(self, to_left=None, to_right=None):
+    def ring(self, to_left=None, to_right=None, axis=None):
         """Send ``to_left`` to the left neighbour (rank - 1, cyclic) and
         ``to_right`` to the right one; return (from_right, from_left), the
         messages the right neighbour sent left and the left one sent right.
         A message is None where nothing goes that way (the answer from the
-        other side is None then). Every rank must pass the same shapes."""
-        if self.world == 1:
+        other side is None then). Every rank must pass the same shapes.
+
+        ``axis`` (0 or 1, after ``grid``): the ring along that axis of the
+        grid, i0 +- 1 or i1 +- 1, cyclic. A ring of one returns the rank's
+        own messages, as ``ppermute`` over an axis of one does."""
+        if axis is None:
+            n, (left, right), tags, key = (self.world, (self.left,
+                                                        self.right),
+                                           (_TO_LEFT, _TO_RIGHT), None)
+        else:
+            n, (left, right), tags, key = (self.shape[axis],
+                                           self._axis_peers(axis),
+                                           _AXIS_TAGS[axis],
+                                           _AXIS_NAMES[axis])
+        if n == 1:
             return to_left, to_right       # a ring of one: mine come back
         ops, recv = [], [None, None]
-        for k, (msg, dst, tag) in enumerate(((to_left, self.left, _TO_LEFT),
-                                             (to_right, self.right,
-                                              _TO_RIGHT))):
+        for k, (msg, dst, tag) in enumerate(((to_left, left, tags[0]),
+                                             (to_right, right, tags[1]))):
             if msg is None:
                 continue
-            ops.append(dist.P2POp(dist.isend, self._out(msg), dst, tag=tag))
+            ops.append(dist.P2POp(dist.isend, self._out(msg, key), dst,
+                                  tag=tag))
             recv[k] = self._empty(msg.shape, msg.dtype)
-            src = self.right if k == 0 else self.left
+            src = right if k == 0 else left
             ops.append(dist.P2POp(dist.irecv, recv[k], src, tag=tag))
         for w in dist.batch_isend_irecv(ops):
             w.wait()
-        return tuple(None if r is None else self._in(r) for r in recv)
+        return tuple(None if r is None else self._in(r, key) for r in recv)
 
     def _reduce(self, t, op):
         if self.world == 1:

@@ -280,15 +280,16 @@ def _plan_routes(comm, st: ParticleState, cuts, domain: Domain,
     return ((take_lo, val_lo), (take_hi, val_hi)), slab_lo, drop_lo + drop_hi
 
 
-def _exchange(comm, cols, fills, routes):
+def _exchange(comm, cols, fills, routes, axis=None):
     """ONE packed message per face: ``cols`` [nl, K] carries all K fields
     stacked column-wise; the low face's rows go to the left neighbour and
     the high face's to the right one, invalid capacity rows filled with
-    ``fills`` [K]. Returns (from_right, from_left)."""
+    ``fills`` [K]. ``axis``: the grid axis whose ring carries them (the
+    pencil decomposition's). Returns (from_right, from_left)."""
     fillv = torch.tensor(fills, dtype=cols.dtype, device=cols.device)
     msgs = [torch.where(valid[:, None], cols[take], fillv[None, :])
             for take, valid in routes]
-    return comm.ring(msgs[0], msgs[1])
+    return comm.ring(msgs[0], msgs[1], axis=axis)
 
 
 def _ship_kinematics(comm, st: ParticleState, routes, slab_lo,

@@ -1,0 +1,172 @@
+"""The multi-rank dry run (torch twin of ``__graft_entry__.dryrun_multichip``).
+
+``dryrun_multichip(n_ranks, device)`` drives every topology of the
+distributed layer once on small shapes, on ``n_ranks`` ranks over gloo
+(``dist.comm.launch``; on a card they share it):
+
+  1. the slab decomposition (``dist.wslab``): wseg refined to the measured
+     run, a 2-step chunk at ``rebuild_every=2`` (a build step and a reuse
+     step), a count rebalance and migration to convergence;
+  2. block timesteps on the slabs (``dist.wrungs``): one B = 2 span on the
+     same state and cuts;
+  3. with 4 or more ranks, the 2D pencil decomposition (``dist.pencil``):
+     a 2-step chunk on a 2x2 grid (4 ranks of their own) with its own 12^3
+     state.
+
+It asserts what the JAX dry run asserts: health 0, no particle lost,
+finite density, dts > 0, some closing particle in the rung span. The
+flagship problem is the driven-turbulence lattice (``configs.TURB``,
+Newton warm-started with one update) at ceil(3.8 n_ranks)^3 particles in
+fp32, its derived fields from one single-device window-engine pass.
+
+    python -c "from sphax_torch.entry import dryrun_multichip; \\
+        dryrun_multichip(4, 'cpu')"
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from sphax_torch import configs, convert
+from sphax_torch.core.state import box, make_state
+from sphax_torch.dist import comm as comm_mod
+from sphax_torch.dist import pencil, wrungs, wslab
+from sphax_torch.ics import turbulence
+from sphax_torch.neighbors import window as win
+from sphax_torch.physics import wengine
+
+
+def _flagship(n_side: int, device):
+    """(state with its derived fields, cfg, domain) of the turbulence
+    lattice, fp32."""
+    ic = turbulence.build(n_side=n_side)
+    cfg = dataclasses.replace(configs.TURB, newton_iters=1)
+    f32 = dict(dtype=torch.float32, device=device)
+    dom = box(torch.zeros(3, **f32), torch.as_tensor(ic["box"], **f32))
+    st = make_state(*(torch.as_tensor(ic[k], **f32)
+                      for k in ("pos", "vel", "mass", "u", "h")))
+    spec = win.plan_measured(st.pos, dom, h_max=float(st.h.max()) * 1.1,
+                             dim=3)
+    return wengine.update_derived(st, cfg, dom, spec), cfg, dom
+
+
+def _rows(shards):
+    return {k: np.concatenate([s[k] for s in shards]) for k in shards[0]}
+
+
+def _rank(c, slab, pen):
+    """One rank of the dry run: ``slab`` (topologies 1 and 2) and ``pen``
+    (topology 3, on a 2x2 grid) are their arguments, or None. Rank 0
+    returns the records."""
+    out = {}
+    if slab is not None:
+        out["slab"] = _slab_part(c, *slab)
+    if pen is not None:
+        out["pencil"] = _pencil_part(c, *pen)
+    return out if c.rank == 0 else None
+
+
+def _slab_part(c, rows, domain, cfg, spec, cuts, n_real):
+    """Topologies 1 and 2 on one rank; its record."""
+    dev = c.device
+    st = convert.shard_from_numpy(rows, spec, c.rank, dev, torch.float32)
+    dom = convert.domain_from_numpy(*domain, device=dev, dtype=torch.float32)
+    mr, gdrop = wslab.max_run(c, st, cuts, dom, spec)
+    assert gdrop == 0, "ghost capacity exceeded at setup"
+    spec = wslab.refine_wseg(spec, mr, headroom=1.3)
+    st, _, dts, health, _ = wslab.chunk(c, st, cuts, dom, cfg, spec, 2,
+                                        rebuild_every=2)
+    assert not bool(health.any()), f"slab health {health.tolist()}"
+    assert bool((dts > 0).all())
+    cuts = wslab.rebalance_cuts(wslab.histogram(c, st, dom, spec), spec)
+    for passes in range(1, c.world + 1):
+        st, dropped = wslab.migrate(c, st, cuts, dom, spec)
+        assert int(dropped) == 0, "migration dropped particles"
+        if wslab.misplaced(c, st, cuts, dom, spec) == 0:
+            break
+    else:
+        raise AssertionError("migration did not converge")
+    got = wslab.gather_real(c, st)
+    if c.rank == 0:
+        assert got.n == n_real, f"lost particles: {got.n} != {n_real}"
+        assert bool(torch.isfinite(got.rho).all()), "non-finite density"
+    st_r, dts_r, nacts, health_r, _, _ = wrungs.chunk_rungs(
+        c, st, cuts, dom, cfg, spec, 1, n_rungs=2, rebuild_every=1)
+    assert not bool(health_r.any()), f"rung health {health_r.tolist()}"
+    assert bool((dts_r > 0).all()) and int(nacts.max()) > 0
+    return dict(steps=len(dts), dt_last=float(dts[-1]),
+                migrate_passes=passes, cuts=np.asarray(cuts).tolist(),
+                rung_ticks=len(dts_r), rung_closings=int(nacts.sum()))
+
+
+def _pencil_part(c, rows, domain, cfg, spec, cuts, n_real):
+    """Topology 3 on one rank of the 2x2 grid; its record."""
+    c.grid(spec.ns0, spec.ns1)
+    dev = c.device
+    st = convert.shard_from_numpy(rows, spec, c.rank, dev, torch.float32)
+    dom = convert.domain_from_numpy(*domain, device=dev, dtype=torch.float32)
+    mr, gdrop = pencil.max_run(c, st, *cuts, dom, spec)
+    assert gdrop == 0, "pencil ghost capacity exceeded at setup"
+    spec = pencil.refine_wseg(spec, mr, headroom=1.3)
+    st, _, dts, health, _ = pencil.chunk(c, st, *cuts, dom, cfg, spec, 2,
+                                         rebuild_every=2)
+    assert not bool(health.any()), f"pencil health {health.tolist()}"
+    assert bool((dts > 0).all())
+    got = wslab.gather_real(c, st)
+    if c.rank == 0:
+        assert got.n == n_real, f"lost particles: {got.n} != {n_real}"
+        assert bool(torch.isfinite(got.rho).all()), "non-finite density"
+    return dict(n=n_real, steps=len(dts))
+
+
+def dryrun_multichip(n_ranks: int, device="cuda", timeout: float = 300.0):
+    """Run the three topologies on ``n_ranks`` ranks on ``device`` (see the
+    module docstring); raises on any failed check. Returns the record it
+    prints."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        from sphax_torch import _build
+
+        _build.load()
+    st, cfg, dom = _flagship(math.ceil(3.8 * n_ranks), device)
+    domain = (dom.lo.cpu().numpy(), dom.hi.cpu().numpy(), dom.periodic)
+    spec = wslab.plan(dom, st.n, h_max=float(st.h.max()) * 1.1,
+                      n_shards=n_ranks)
+    cuts = wslab.equal_cuts(spec.ncell_ax, n_ranks)
+    rows = _rows([convert.state_to_numpy(wslab.distribute(st, dom, spec,
+                                                          cuts, r))
+                  for r in range(n_ranks)])
+    slab = (rows, domain, cfg, spec, cuts, st.n)
+    pen, msg = None, " (pencil skipped: < 4 ranks)"
+    if n_ranks >= 4:
+        stp, _, domp = _flagship(12, device)
+        pspec = pencil.plan(domp, stp.n, h_max=float(stp.h.max()) * 1.1,
+                            ns0=2, ns1=2)
+        pcuts = (pencil.equal_cuts(pspec.ncell0, 2),
+                 pencil.equal_cuts(pspec.ncell1, 2))
+        prows = _rows([convert.state_to_numpy(pencil.distribute(
+            stp, domp, pspec, *pcuts, r)) for r in range(4)])
+        pen = (prows, (domp.lo.cpu().numpy(), domp.hi.cpu().numpy(),
+                       domp.periodic), cfg, pspec, pcuts, stp.n)
+        msg = f", pencil 2x2 chunk OK (N={stp.n})"
+
+    def run(world, *jobs):
+        return comm_mod.launch(_rank, world, device, "gloo", timeout=timeout,
+                               args=jobs)
+
+    # on 4 ranks one launch runs all three (a launch's start-up is most of
+    # a dry run on a card); on more, the pencil takes 4 of its own
+    rec = (run(4, slab, pen) if n_ranks == 4
+           else {**run(n_ranks, slab, None),
+                 **(run(4, None, pen) if pen else {})})
+    rec.update(n_ranks=n_ranks, n=st.n)
+    s = rec["slab"]
+    print(f"dryrun_multichip OK: {n_ranks} ranks (window engine), N={st.n}, "
+          f"{s['steps']} steps (rebuild_every=2), dt_last={s['dt_last']:.3e},"
+          f" migrated to convergence ({s['migrate_passes']} passes), "
+          f"rebalanced; rung span B=2 OK ({s['rung_ticks']} ticks, active "
+          f"{s['rung_closings']}){msg}", flush=True)
+    return rec

@@ -107,14 +107,16 @@ def test_bad_overrides_raise(kv):
 @pytest.mark.parametrize("opt", ["shards=2x2", "plot=1", "rebuild_every=4",
                                  "plot=1 shards=2"])
 def test_unported_options_raise(opt, tmp_path, monkeypatch):
-    # shards=N runs the slab decomposition, with rungs=B too
-    # (tests/test_torch_dist_cli.py); plot=1 runs where matplotlib imports
+    # shards=N runs the slab decomposition and shards=AxB the pencil one,
+    # with rungs=B too (tests/test_torch_dist_cli.py,
+    # tests/test_torch_pencil_cli.py), but not on a box too thin for that
+    # many shards, as this Sod tube; plot=1 runs where matplotlib imports
     # (test_cli_plot_writes_pngs) and is refused before the run where it
     # does not, as on the card's machine
     if opt == "plot=1":
         monkeypatch.setitem(sys.modules, "matplotlib", None)
-    with pytest.raises(SystemExit,
-                       match="not ported|rebuilds|matplotlib|single-device"):
+    with pytest.raises(SystemExit, match="not ported|rebuilds|matplotlib|"
+                                         "single-device|thinner"):
         main(SOD + opt.split() + [f"out={tmp_path}"])
     assert not os.path.exists(tmp_path / "metrics.jsonl")
 

@@ -5,7 +5,9 @@ all-reduced metrics -> gathered checkpoint, and tracks the single-device
 CLI run of the same problem at that test's tolerances, at 2 and at 4
 ranks; a run resumes from its own checkpoint (re-distributing it, with
 drift-gated rebuilds) and still tracks it; block timesteps run on the
-ranks and resume; and what is not ported is refused.
+ranks and resume; and what the distributed loop does not run, or a
+malformed ``shards``, is refused (``shards=AxB`` itself runs:
+tests/test_torch_pencil_cli.py).
 """
 import json
 import os
@@ -157,10 +159,12 @@ def test_cli_dist_rungs_sedov(tmp_path, capfd):
 
 
 @pytest.mark.parametrize("extra,msg", [
-    (["shards=2x2"], "pencil"),
+    (["shards=2x2", "adaptive=4"], "pencil"),
     (["shards=2", "rungs=2", "gravity=1"], "self-gravity"),
     (["shards=2", "profile=1"], "profile"), (["shards=0"], "shards=0"),
-    (["rebuild_every=3"], "rebuild_every")])
+    (["rebuild_every=3"], "rebuild_every"), (["shards=0x2"], "shards=0x2"),
+    (["shards=2xb"], "shards=2xb"), (["shards=2x2x2"], "shards=2x2x2"),
+    (["shards=2x2", "plot=1"], "plot")])
 def test_cli_refuses_unported(extra, msg, tmp_path):
     with pytest.raises(SystemExit, match=msg):
         main(["sedov", "n=8", "device=cpu", f"out={tmp_path}"] + extra)

@@ -1,7 +1,9 @@
 """``sphax_torch.dist.comm``: the ring, the reductions and the gather on 1,
 2 and 4 gloo ranks over CPU tensors (the two messages of one exchange keep
-their direction when both neighbours are the same peer), and a rank that
-raises or hangs makes ``launch`` raise within its timeout. The rank
+their direction when both neighbours are the same peer), the rings along
+the two axes of a rank grid (a ring of one along an axis hands a rank its
+own messages), and a rank that raises or hangs makes ``launch`` raise
+within its timeout. The rank
 programs below are module-level so that the spawned ranks import them;
 this module imports no JAX."""
 import time
@@ -33,6 +35,19 @@ def _collectives(c):
         min=float(c.all_reduce_min(torch.tensor(r + 5.0))),
         max=int(c.all_reduce_max(torch.tensor(r + 5, dtype=torch.int64))),
         gather=None if gathered is None else gathered.tolist())
+
+
+def _grid_rings(c, ns0, ns1):
+    """On an ns0 x ns1 grid, each rank sends (rank, axis, 0) left and
+    (rank, axis, 1) right along each axis; every rank's (coords, what
+    arrived from the right and from the left on each axis) on rank 0."""
+    c.grid(ns0, ns1)
+    out = list(c.coords)
+    for axis in (0, 1):
+        fr, fl = c.ring(torch.tensor([c.rank, axis, 0.0]),
+                        torch.tensor([c.rank, axis, 1.0]), axis=axis)
+        out += fr.tolist() + fl.tolist()
+    return c.gather_rows(torch.tensor([out], dtype=torch.float64))
 
 
 def _own_rows(c, shared, own):
@@ -70,6 +85,30 @@ def test_collectives(world):
     assert (got["min"], got["max"]) == (5.0, 4 + world)
     assert got["gather"] == [[float(r)] * 2 for r in range(world)
                              for _ in range(r + 1)]
+
+
+@pytest.mark.parametrize("grid", [(2, 2), (1, 2), (2, 1), (2, 3)])
+def test_grid_rings(grid):
+    """rank = i0 * ns1 + i1; along axis 0 the neighbours are i0 -+ 1 and
+    along axis 1 i1 -+ 1, cyclic; with two along an axis both messages come
+    from the one peer, each in its own direction; with one, a rank's own
+    messages come back."""
+    ns0, ns1 = grid
+    got = comm.launch(_grid_rings, ns0 * ns1, "cpu", "gloo", timeout=30,
+                      deadline=120, args=grid)
+    for r, row in enumerate(got):
+        i0, i1 = divmod(r, ns1)
+        assert row[:2].tolist() == [i0, i1]
+        for axis, n, i in ((0, ns0, i0), (1, ns1, i1)):
+            def rank_at(j):
+                return ((j % n) * ns1 + i1) if axis == 0 else \
+                    (i0 * ns1 + j % n)
+            fr, fl = row[2 + 6 * axis:5 + 6 * axis], row[5 + 6 * axis:
+                                                         8 + 6 * axis]
+            assert fr.tolist() == [rank_at(i + 1), axis, 0.0], (r, axis)
+            assert fl.tolist() == [rank_at(i - 1), axis, 1.0], (r, axis)
+    with pytest.raises(Exception, match="grid"):
+        comm.Comm(0, 4, "cpu", "gloo").grid(3, 2)
 
 
 def test_rank_args():

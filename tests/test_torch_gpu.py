@@ -5,7 +5,9 @@ their plain torch versions, on a card; block timesteps with one rung
 against the global-dt loop; and the slab decomposition's ranks, sharing
 the card over gloo, against the single-device engine, with block
 timesteps too (kernels A and C on a shard masked to a rung tick's
-closers, a quiet rank's fully masked pass among them).
+closers, a quiet rank's fully masked pass among them); and a 2x2 grid of
+pencil ranks: A and C (and C's gravity mode) on a pencil shard's
+structure, and a lockstep with one device.
 
 These tests import no JAX (the machine with the card has none) and skip
 where no CUDA device is visible. Run them on the card without the suite's
@@ -28,14 +30,14 @@ import torch
 
 from sphax_torch import configs, convert, make_state
 from sphax_torch.core.state import box
-from sphax_torch.dist import comm, wslab
+from sphax_torch.dist import comm, pencil, wslab
 from sphax_torch.ics import kh, lattice, turbulence
 from sphax_torch.integrate import rungs
 from sphax_torch.neighbors import window as win
 from sphax_torch.physics import direct_gravity as dg
 from sphax_torch.physics import pm, wengine
 from sphax_torch.physics import window_kernels as wk
-from tests._slab_helpers import kernel_calls, lockstep
+from tests._slab_helpers import kernel_calls, lockstep, pencil_lockstep
 
 TOL = {torch.float32: 3e-5, torch.float64: 1e-10}
 A_CASES = {
@@ -555,6 +557,94 @@ def test_slab_lockstep_on_the_card(cuda):
                      dom.periodic), cfg, spec, cuts,
               [("step",)] * 3 + [("chunk", 2, 2, 0), ("migrate",)],
               None, True))
+    got_dts = np.concatenate([r["dts"] for r in recs if "dts" in r])
+    np.testing.assert_allclose(got_dts, dts.cpu().numpy(), rtol=1e-10)
+    real = recs[-1]["rows"]["mass"] > 0
+    got = {k: v[real] for k, v in recs[-1]["rows"].items()}
+    pa = np.mod(got["pos"], 1.0)
+    pb = np.mod(ref.pos.cpu().numpy(), 1.0)
+    oi = np.lexsort((pa[:, 2], pa[:, 1], pa[:, 0]))
+    oj = np.lexsort((pb[:, 2], pb[:, 1], pb[:, 0]))
+    np.testing.assert_allclose(pa[oi], pb[oj], rtol=1e-8, atol=1e-8)
+    for k in ("vel", "h", "rho", "acc", "du_dt"):
+        b = getattr(ref, k).cpu().numpy()[oj]
+        np.testing.assert_allclose(got[k][oi], b, rtol=1e-8,
+                                   atol=1e-8 * np.abs(b).max(), err_msg=k)
+
+
+def _pencil_parity(c, dtype, n_side, p3m):
+    """Every rank: its pencil of the 2x2 decomposition and one derived pass
+    that records kernel A's and C's arguments (with ``p3m``, C in its
+    gravity mode); then each kernel against its plain version on the
+    rank's own real rows, and finite on every row. Rank 0 returns the
+    largest relative errors."""
+    cfg = dataclasses.replace(configs.TURB, newton_iters=2)
+    if p3m:
+        cfg = dataclasses.replace(cfg, gravity=True, grav_solver="p3m",
+                                  grav_mesh=32)
+    st, dom, _ = _slab_state(c.device, dtype, n_side, cfg)
+    spec = pencil.plan(dom, st.n, float(st.h.max()) * 1.1, 2, 2,
+                       fast_sub=3, rgroups=2)
+    c.grid(2, 2)
+    cuts = (pencil.equal_cuts(spec.ncell0, 2),
+            pencil.equal_cuts(spec.ncell1, 2))
+    sh = pencil.distribute(st, dom, spec, *cuts, c.rank)
+    spec = pencil.refine_wseg(spec, pencil.max_run(c, sh, *cuts, dom,
+                                                   spec)[0])
+    calls, own = kernel_calls(c, sh, cuts, dom, cfg, spec)
+    assert (calls["C"][1].get("grav") is not None) == p3m
+    errs = {}
+    for name, cuda_fn, plain in (("A", wk.solve_h_density,
+                                  wk.solve_h_density_plain),
+                                 ("C", wk.forces, wk.forces_plain)):
+        a, k = calls[name]
+        got, want = cuda_fn(*a, **k), plain(*a, **k)
+        for i, (x, y) in enumerate(zip(got, want)):
+            assert bool(torch.isfinite(x).all()), (name, i)
+            _compare(x, y, own, TOL[dtype], f"pencil {name} output {i}")
+            x, y = x[own].double(), y[own].double()
+            errs[f"{name}{i}"] = float((x - y).abs().max() / y.abs().max())
+    return errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p3m", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pencil_shard_kernels_match_plain(cuda, dtype, p3m):
+    """Kernels A and C (with P3M, C's gravity mode) on a pencil shard's
+    structure (local real rows active, x and y ghosts imaged but
+    inactive, padding in the trash band below the x-slab), 4 ranks of a
+    2x2 grid on the card: against the plain versions on the rank's own
+    real rows, finite on every row."""
+    errs = comm.launch(_pencil_parity, 4, cuda, "gloo", timeout=120,
+                       deadline=600, args=(dtype, 24, p3m))
+    assert max(errs.values()) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_pencil_lockstep_on_the_card(cuda):
+    """2 steps, then a 2-step chunk, a rebalance and a migration, on a 2x2
+    grid of ranks sharing the card (fp64), against the single-device CUDA
+    engine at 1e-8 (the dts at 1e-10)."""
+    cfg = dataclasses.replace(configs.TURB, newton_iters=2)
+    st0, dom, spec1 = _slab_state(cuda, torch.float64, 24, cfg)
+    ref, _, dts, ovf = wengine.simulate(st0, cfg, dom, spec1, 4,
+                                        rebuild_every=1)
+    assert int(ovf) == 0
+    spec = pencil.plan(dom, st0.n, float(st0.h.max()) * 1.1, 2, 2,
+                       fast_sub=3, rgroups=2, pad_factor=2.0,
+                       migrate_frac=1.0)
+    cuts = (pencil.equal_cuts(spec.ncell0, 2),
+            pencil.equal_cuts(spec.ncell1, 2))
+    shards = [convert.state_to_numpy(pencil.distribute(st0, dom, spec, *cuts,
+                                                       r)) for r in range(4)]
+    rows = {k: np.concatenate([s[k] for s in shards]) for k in shards[0]}
+    recs = comm.launch(
+        pencil_lockstep, 4, cuda, "gloo", timeout=120, deadline=600,
+        args=(rows, (dom.lo.cpu().numpy(), dom.hi.cpu().numpy(),
+                     dom.periodic), cfg, spec, cuts,
+              [("step",)] * 2 + [("chunk", 2, 2), ("rebalance",),
+                                 ("migrate",)], None, True))
     got_dts = np.concatenate([r["dts"] for r in recs if "dts" in r])
     np.testing.assert_allclose(got_dts, dts.cpu().numpy(), rtol=1e-10)
     real = recs[-1]["rows"]["mass"] > 0
