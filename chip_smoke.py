@@ -23,7 +23,8 @@ decomposition (``dist.pencil``, ``dist.prungs``): a 2x2 grid of ranks in
 lockstep with the single-device engine, ``turb n=100 shards=2x2`` with and
 without P3M and ``sedov n=100 shards=2x2 rungs=4``, with kernels A and C
 (and C's gravity mode) on each rank's pencil shard structure, and the
-multi-rank dry run.
+multi-rank dry run; then the twin of ``__graft_entry__.entry()``, the JAX
+package's slow gates, and compute-sanitizer over the hand kernels.
 
     python3 chip_smoke.py
 
@@ -128,7 +129,8 @@ Phases, in order; any failed check raises and exits non-zero:
      gate      ``problems.sedov(n=14, fp64)`` (the test's own size) to
                t = 0.06 at global dt and with rungs=3: shock radius within
                25 % of R(t), energy within 2e-2 (4e-2 with rungs, as
-               tests/unit/test_rungs.py asks)
+               tests/unit/test_rungs.py asks, and some tick closing fewer
+               than N particles)
  26. dim=1     a periodic line of N = 2^20 particles (a lattice jittered by
                0.2 spacings, seeded velocity noise) through
                wengine.update_derived and wengine.simulate (4 steps), in
@@ -267,6 +269,36 @@ Phases, in order; any failed check raises and exits non-zero:
                besides the CLI runs one launch runs the four locksteps of
                phases 35 and 38 and one the kernel checks on the three
                checkpoints of phases 36-38 (printed at the end of 38)
+ 39. entry     ``sphax_torch.entry.entry()``, the twin of
+               ``__graft_entry__.entry()``, on the card (fp32, the
+               turbulence lattice at 16^3, configs.TURB with 6 Newton
+               updates, exact C): one call, then 8 more, all finite;
+               window overflow 0; one launch of A and of C a call; one step
+               through the kernels against the same step through the plain
+               versions (fp32 3e-5); a warm call's wall and enqueue (host
+               clock) beside its device time by kind (profiler); A and C
+               alone at the call's shapes (events), plain, bounds
+ 40. slow      the JAX package's slow gates with no other twin, fp64 on
+     gates     the card: tests/unit/test_h_predict.py's B = 3 rungs with
+               h_predict against full Newton (sedov n_side=10, 2 spans:
+               active fraction < 0.9, h < 3e-3, rho < 1e-2, overflow 0);
+               tests/problems/test_sedov.py's Morris-Monaghan variant
+               (problems.sedov(n=16, visc="mm") on the window engine to
+               t = 0.02: max alpha > 3 alpha_min, its 20th percentile
+               < 2 alpha_min, energy within 5 %); and
+               tests/problems/test_evrard.py's energy gate (n = 1024, the
+               dense engine, to t = 0.5: drift < 5e-3, kinetic energy
+               > 1e-3, the median radius shrinks), a minute a CPU thread
+ 41. sanitize  ``sphax_torch.sanitize``'s small launches of every hand
+               kernel (A and C in 3D, 2D and 1D, in place and compact,
+               unmasked, partly and fully masked, C's gravity mode, G at
+               N = 1, 257 and 65,537) in this process, each launched again
+               over NaN-filled free memory: finite and bitwise equal on the
+               rows the contract defines; then each of compute-sanitizer's
+               memcheck, racecheck and synccheck over them in a
+               subprocess: a reported error fails the script naming the
+               cases after which it came. Where the tool is absent, or
+               refuses the device before any case runs, the phase says so
 Each path runs with every launch count set to 0 just before it, and its
 counts are read just after; the slab and pencil CLIs' ranks are processes
 of their own whose counts start at 0, and each chunk's record carries their
@@ -291,6 +323,7 @@ import os
 import shutil
 import sys
 import time
+import types
 
 import torch
 
@@ -303,6 +336,7 @@ def log(*a):
 
 
 def main():
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
 
@@ -1580,10 +1614,12 @@ def main():
             st, _, t, n = run_mod.simulate_until(
                 st, prob.cfg, prob.domain, prob.engine, t_end=0.06,
                 chunk=32, max_steps=3000)
+        fracs = [1.0]
         while n_rungs > 1 and t < 0.06 and n < 6000:
-            st, dts, ovf, _, _, _ = rung_chunk(prob, st, n_rungs, 32)
+            st, dts, ovf, _, frac, _ = rung_chunk(prob, st, n_rungs, 32)
             assert int(ovf) == 0
             t, n = t + float(dts.sum()), n + len(dts)
+            fracs.append(frac)
         assert bool(torch.isfinite(st.rho).all())
         ic = dict(E=1.0, rho0=1.0)
         r_meas = sedov_diag.measured_shock_radius(
@@ -1591,12 +1627,13 @@ def main():
             np.array([0.5, 0.5, 0.5]), ic["rho0"])
         r_th = sedov_diag.shock_radius(t, ic["E"], ic["rho0"],
                                        prob.cfg.gamma)
-        return prob, n, t, r_meas, r_th, abs(energy(st) - e0) / e0
+        return (prob, n, t, r_meas, r_th, abs(energy(st) - e0) / e0,
+                min(fracs))
 
     gate_s = {}
     for n_rungs, e_tol in ((1, 2e-2), (3, 4e-2)):
         t0 = time.perf_counter()
-        prob25, n25, t25, r_meas, r_th, de = drive(
+        prob25, n25, t25, r_meas, r_th, de, frac25 = drive(
             "sedov gate " + (f"rungs={n_rungs}" if n_rungs > 1
                              else "global dt"),
             lambda: sedov_gate(n_rungs),
@@ -1607,13 +1644,20 @@ def main():
         wall25 = time.perf_counter() - t0
         assert abs(r_meas - r_th) / r_th < 0.25, (r_meas, r_th, t25)
         assert de < e_tol, de
+        # tests/unit/test_rungs.py:66's nact.min() < n: no tick closes more
+        # than N particles, so a chunk's mean active fraction below 1 means
+        # some tick of it closed fewer
+        assert n_rungs == 1 or frac25 < 1.0, frac25
         gate_s[n_rungs] = dict(steps=n25, t=t25, r_meas=r_meas, r_th=r_th,
-                               energy_drift=de, wall_s=wall25)
+                               energy_drift=de, wall_s=wall25,
+                               min_chunk_active_frac=frac25)
         log(f"[25 Sedov gate] rungs={n_rungs} N={prob25.state.n} fp64 "
             f"window engine: {n25} ticks to t={t25:.4f} in {wall25:.2f} s; "
             f"shock radius {r_meas:.4f} vs R(t) {r_th:.4f} "
             f"({abs(r_meas - r_th) / r_th:.3f} < 0.25); energy drift "
-            f"{de:.3g} (< {e_tol})")
+            f"{de:.3g} (< {e_tol})" + (
+                f"; least active fraction of a chunk {frac25:.4f} (< 1: "
+                "some tick closed fewer than N)" if n_rungs > 1 else ""))
 
     # ---- 26. dim=1: a periodic line of 2^20 particles --------------------
     st1, cfg1, dom1, spec1 = line_inputs(dev)
@@ -2723,6 +2767,22 @@ def main():
     log(f"[38 dryrun] sphax_torch.entry.dryrun_multichip(4) on the card: "
         f"{json.dumps(dry)}")
 
+    # ---- 39. entry(): the twin of __graft_entry__.entry() on the card ----
+    helpers = types.SimpleNamespace(
+        drive=drive, compare=compare, worst=worst, cuda_ms=cuda_ms,
+        device_ms_by_kind=device_ms_by_kind, plain_kernels=plain_kernels)
+    entry_rec, entry_rows = entry_phase(dev, helpers)
+
+    # ---- 40. the JAX package's slow gates, fp64, on the card -------------
+    t0 = time.perf_counter()
+    gates = slow_gates_phase(dev, helpers)
+    gates["seconds"] = time.perf_counter() - t0
+    log(f"[40 slow gates] {gates['seconds']:.1f} s")
+
+    # ---- 41. compute-sanitizer over the hand kernels ---------------------
+    san = sanitize_phase(dev)
+    log(f"[41 sanitize] {san['seconds']:.1f} s")
+
     def total(kernel):
         return sum(p_[kernel] for p_ in paths.values())
 
@@ -2970,6 +3030,7 @@ def main():
                              for k, v in g_by_n.items()},
          "slices": {k: v["slices"] for k, v in g_by_n.items()},
          "runtime_at_64_cubed": g_launch},
+        *entry_rows,
     ], "launches_by_path": paths, "mesh_accel_ms": mesh_ms,
         "mesh_accel_device_ms": mesh_dev_ms,
         "p3m_step_ms": step_g * 1e3, "rs_mesh_cells": rs_cells,
@@ -3014,12 +3075,308 @@ def main():
         "pencil_rungs": dict(prung, lockstep_fp64_2x2=prung_lock),
         "dryrun_multichip": dry,
         "h_predict": hp,
+        "entry": entry_rec, "slow_gates": gates, "sanitize": san,
+        "script_wall_s": time.perf_counter() - t_script,
         "build_s": _build.BUILD_INFO["seconds"],
         "card": card}
+    log(f"[done] phases 1-41 in {kernels['script_wall_s']:.1f} s")
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
+
+
+def entry_phase(dev, h):
+    """Phase 39: ``sphax_torch.entry.entry()`` on the card (fp32, n_side 16)
+    through kernels A and C, held to the same step through their plain
+    versions; the warm call's enqueue, wall and device time. ``h`` holds
+    main()'s helpers (drive, compare, cuda_ms, device_ms_by_kind,
+    plain_kernels). Returns (record, kernel rows for A and C)."""
+    from sphax_torch.ab_kernels import sorted_fields
+    from sphax_torch.entry import entry
+    from sphax_torch.neighbors import window as win
+    from sphax_torch.physics import wengine
+    from sphax_torch.physics import window_kernels as wk
+
+    t0 = time.perf_counter()
+    fn, (st0,) = entry()
+    cfg, dom, spec = fn.cfg, fn.domain, fn.spec
+    assert st0.pos.device.type == dev.type, st0.pos.device
+    assert st0.pos.dtype == torch.float32 and st0.n == 16 ** 3
+    calls = [h.drive("entry first call", lambda: fn(st0),
+                     {"solve_h_density": 1, "forces": 1})]
+
+    def eight():
+        for _ in range(8):
+            calls.append(fn(calls[-1]))
+        return calls[-1]
+    st9 = h.drive("entry 8 calls", eight, {"solve_h_density": 8,
+                                           "forces": 8})
+    fields = ("pos", "vel", "u", "h", "rho", "P", "cs", "omega", "divv",
+              "acc", "du_dt")
+    for k, s in enumerate(calls):
+        for f in fields:
+            assert bool(torch.isfinite(getattr(s, f)).all()), (k, f)
+    ovf = int(wengine.overflow_count(st9, dom, spec))
+    assert ovf == 0, f"window overflow {ovf} after 9 entry() calls"
+
+    # one step through the kernels against the same step through plain
+    with h.plain_kernels():
+        want = fn(st0)
+    torch.cuda.synchronize()
+    every = torch.ones(st0.n, dtype=torch.bool, device=dev)
+    step_err = max(h.compare(getattr(calls[0], f), getattr(want, f), every,
+                             3e-5, f"entry step {f}") for f in fields)
+
+    # a warm call: the host's enqueue, the wall, the device time by kind
+    s = calls[-1]
+    for _ in range(3):
+        s = fn(s)
+    torch.cuda.synchronize()
+    enq, wall = [], []
+    for _ in range(20):
+        t1 = time.perf_counter()
+        s = fn(s)
+        enq.append(time.perf_counter() - t1)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t1)
+    enq_ms = sorted(enq)[10] * 1e3
+    wall_ms = sorted(wall)[10] * 1e3
+
+    def ten():
+        s_ = s
+        for _ in range(10):
+            s_ = fn(s_)
+    by_kind = h.device_ms_by_kind(ten, 10)
+    busy = sum(by_kind.values())
+
+    # A and C alone at the call's shapes: CUDA events, plain, bounds
+    wd = win.build(s.pos, dom, spec)
+    f = sorted_fields(s, wd)
+    a_args = [f[k] for k in ("pos_s", "mass_s", "h0_s")]
+    c_args = [f[k] for k in ("pos_s", "vel_s", "mass_s", "h_s", "rho_s",
+                             "P_s", "cs_s", "om_s", "bf_s")]
+    ms_a, got_a = h.cuda_ms(lambda: wk.solve_h_density(
+        wd, spec, *a_args, cfg, vel_s=f["vel_s"]), 20)
+    pms_a, want_a = h.cuda_ms(lambda: wk.solve_h_density_plain(
+        wd, spec, *a_args, cfg, vel_s=f["vel_s"]), 2)
+    err_a = max(h.compare(a, b, wd.is_real, 3e-5, f"entry A out{k}")
+                for k, (a, b) in enumerate(zip(got_a, want_a)))
+    ms_c, got_c = h.cuda_ms(lambda: wk.forces(wd, spec, *c_args, cfg), 20)
+    pms_c, want_c = h.cuda_ms(lambda: wk.forces_plain(wd, spec, *c_args,
+                                                      cfg), 2)
+    err_c = max(h.compare(got_c[0], want_c[0], wd.is_real, 3e-5,
+                          "entry C acc"),
+                h.compare(got_c[1], want_c[1], wd.is_real, 3e-5,
+                          "entry C du"))
+    pa, pc, _ = pair_counts(wd, spec, f["pos_s"], f["mass_s"], f["h_s"])
+    b_a = kernel_bound("A", spec, f["pos_s"], pa,
+                       iters=wk._newton_iters(cfg), bals=True)
+    b_c = kernel_bound("C", spec, f["pos_s"], pc, bf=True)
+    n_real = int(wd.is_real.sum())
+    rec = dict(n=st0.n, n_sorted=spec.n_sorted, wseg=spec.wseg,
+               newton_iters=cfg.newton_iters, overflow=ovf,
+               step_vs_plain_max_err_over_scale=h.worst("entry step"),
+               step_vs_plain_max_abs_err=step_err,
+               call_enqueue_ms=enq_ms, call_wall_ms=wall_ms,
+               device_ms_per_call_by_kind=by_kind, device_busy_ms=busy,
+               seconds=time.perf_counter() - t0)
+    log(f"[39 entry] entry() on the card: N={st0.n} fp32, n_sorted "
+        f"{spec.n_sorted}, {cfg.newton_iters} Newton updates; 9 calls "
+        f"finite, overflow 0, one launch of A and of C a call; a step "
+        f"through the kernels vs plain: max abs err {step_err:.3g}, max "
+        f"err/scale {rec['step_vs_plain_max_err_over_scale']:.3g} (tol "
+        f"3e-5); a warm call {wall_ms:.3f} ms wall, {enq_ms:.3f} ms to "
+        f"enqueue, device busy {busy:.3f} ms (A "
+        f"{by_kind['kernel A']:.3f}, C {by_kind['kernel C']:.3f}, profiler)"
+        f"; A alone {ms_a:.4f} ms (plain {pms_a:.2f}, bound {b_a[0]:.4f} "
+        f"{b_a[1]}), C alone {ms_c:.4f} ms (plain {pms_c:.2f}, bound "
+        f"{b_c[0]:.4f} {b_c[1]}) (events); pairs inside the support per "
+        f"real row A {pa / n_real:.1f}, C {pc / n_real:.1f}; "
+        f"{rec['seconds']:.1f} s")
+    src = "sphax_torch/csrc/window_kernels.cu"
+    rows = [
+        {"name": "solve_h_density at entry()'s shapes", "route": "cuda",
+         "source": src, "replaces": "sphax/physics/pallas_kernels.py:315",
+         "launches": 9, "max_abs_err": err_a, "ms": ms_a, "plain_ms": pms_a,
+         "bound_ms": b_a[0], "bound_by": b_a[1], "library_ms": None,
+         "n": st0.n, "newton_iters": cfg.newton_iters,
+         "pairs_inside_per_row": pa / n_real},
+        {"name": "forces at entry()'s shapes", "route": "cuda",
+         "source": src, "replaces": "sphax/physics/pallas_kernels.py:563",
+         "launches": 9, "max_abs_err": err_c, "ms": ms_c, "plain_ms": pms_c,
+         "bound_ms": b_c[0], "bound_by": b_c[1], "library_ms": None,
+         "n": st0.n, "pairs_inside_per_row": pc / n_real}]
+    return rec, rows
+
+
+def slow_gates_phase(dev, h):
+    """Phase 40: the JAX package's ``slow`` gates with no twin, and the
+    Evrard energy gate, at their own sizes in fp64 on the card (through
+    kernels A and C where the engine is the window engine). Returns the
+    measured values."""
+    from sphax_torch import configs, make_state, problems
+    from sphax_torch.core.state import box
+    from sphax_torch.diag import conservation
+    from sphax_torch.ics import sedov as sedov_ics
+    from sphax_torch.integrate import rungs
+    from sphax_torch.neighbors import window as win
+    from sphax_torch.physics import wengine
+    from sphax_torch.run import simulate_until
+
+    f64 = dict(dtype=torch.float64, device=dev)
+    out = {}
+
+    # tests/unit/test_h_predict.py:175: per-closer predicted h with B = 3
+    # rungs tracks the full-Newton rung run
+    t0 = time.perf_counter()
+    base = dataclasses.replace(configs.SEDOV, newton_iters=6)
+    pred = dataclasses.replace(base, h_predict=True, newton_iters=1)
+    ic = sedov_ics.build(n_side=10, E=1.0)
+    st = make_state(*(torch.as_tensor(ic[k], **f64)
+                      for k in ("pos", "vel", "mass", "u", "h")))
+    dom = box(torch.zeros(3, **f64), torch.as_tensor(ic["box"], **f64))
+    spec = win.plan_measured(st.pos, dom, h_max=float(st.h.max()) * 1.3,
+                             dim=3, cutoff_scale=1.25)
+    st = wengine.update_derived(st, base, dom, spec)
+    runs = {}
+    for tag, cfg in (("newton", base), ("h_predict", pred)):
+        # the seeding pass of kernel A, then A and C once a tick (8 ticks)
+        runs[tag] = h.drive(f"h_predict rungs {tag}",
+                            lambda: rungs.simulate_rungs(
+                                st, cfg, dom, spec, nspans=2, n_rungs=3,
+                                rebuild_every=2),
+                            {"solve_h_density": 9, "forces": 8})
+    (st_n, _, nact_n, ovf_n, _, _), (st_p, _, _, ovf_p, _, _) = \
+        runs["newton"], runs["h_predict"]
+    assert int(ovf_n) == 0 and int(ovf_p) == 0
+    frac = float(nact_n.sum()) / (st.n * len(nact_n))
+    dh = float(((st_p.h - st_n.h).abs() / st_n.h).max())
+    drho = float(((st_p.rho - st_n.rho).abs() / st_n.rho).max())
+    assert frac < 0.9, f"the blast spread no rungs: active fraction {frac}"
+    assert dh < 3e-3, f"h drift vs full-Newton rungs: {dh}"
+    assert drho < 1e-2, f"rho drift vs full-Newton rungs: {drho}"
+    out["h_predict_rungs"] = dict(n=st.n, active_frac=frac, h_drift=dh,
+                                  rho_drift=drho,
+                                  seconds=time.perf_counter() - t0)
+    log(f"[40 slow gates] h_predict B=3 (sedov n_side=10, fp64, 2 spans): "
+        f"active fraction {frac:.4f} (< 0.9), max rel dh {dh:.3g} "
+        f"(< 3e-3), drho {drho:.3g} (< 1e-2), overflow 0; "
+        f"{out['h_predict_rungs']['seconds']:.1f} s")
+
+    # tests/problems/test_sedov.py:45: the Morris-Monaghan alpha(t) switch
+    # switches on at the front and stays near its floor outside
+    t0 = time.perf_counter()
+
+    def mm_run():
+        prob = problems.sedov(n=16, visc="mm", dtype=torch.float64,
+                              device=dev)
+        assert prob.cfg.mm_visc and not prob.cfg.balsara
+        assert prob.engine_name == "window", prob.engine_name
+        assert float(prob.state.alpha.max()) <= prob.cfg.mm_alpha_min * 1.001
+        e0 = float(conservation.total_energy(prob.state, prob.cfg))
+        st_, _, t_, n_ = simulate_until(prob.state, prob.cfg, prob.domain,
+                                        prob.engine, t_end=0.02, chunk=16,
+                                        max_steps=1500)
+        return prob, st_, t_, n_, e0
+    prob, st_m, t_m, n_m, e0 = h.drive(
+        "sedov mm gate", mm_run,
+        lambda o: {"solve_h_density": 1 + o[3], "forces": 1 + o[3]})
+    a_min = prob.cfg.mm_alpha_min
+    assert bool(torch.isfinite(st_m.rho).all())
+    a_max = float(st_m.alpha.max())
+    a_p20 = float(torch.quantile(st_m.alpha, 0.2))
+    de = abs(float(conservation.total_energy(st_m, prob.cfg)) - e0) / abs(e0)
+    assert a_max > 3.0 * a_min, a_max
+    assert a_p20 < 2.0 * a_min, a_p20
+    assert de < 0.05, de
+    out["sedov_mm"] = dict(n=st_m.n, steps=n_m, t=t_m, alpha_max=a_max,
+                           alpha_p20=a_p20, alpha_min=a_min,
+                           energy_drift=de,
+                           seconds=time.perf_counter() - t0)
+    log(f"[40 slow gates] Sedov Morris-Monaghan (n=16, fp64, window "
+        f"engine): {n_m} steps to t={t_m:.4f}; max alpha {a_max:.4g} "
+        f"(> {3 * a_min:.3g}), 20th percentile {a_p20:.4g} "
+        f"(< {2 * a_min:.3g}), energy drift {de:.3g} (< 0.05); "
+        f"{out['sedov_mm']['seconds']:.1f} s")
+
+    # tests/problems/test_evrard.py:12 (a minute a CPU thread, so here):
+    # the collapse through the dense engine conserves energy
+    t0 = time.perf_counter()
+
+    def evrard_run():
+        prob = problems.evrard(n=1024, dtype=torch.float64, device=dev)
+        r0 = prob.state.pos.norm(dim=-1).median()
+        e0 = float(conservation.total_energy(prob.state, prob.cfg))
+        st_, _, t_, n_ = simulate_until(prob.state, prob.cfg, prob.domain,
+                                        prob.engine, t_end=0.5, chunk=32,
+                                        max_steps=4000)
+        return prob, st_, t_, n_, e0, float(r0)
+    # the dense engine: no hand kernel
+    prob, st_e, t_e, n_e, e0, r0 = h.drive("evrard gate", evrard_run, {})
+    assert e0 < 0  # a bound cloud
+    assert bool(torch.isfinite(st_e.rho).all())
+    ek = float(conservation.kinetic_energy(st_e))
+    drift = abs(float(conservation.total_energy(st_e, prob.cfg)) - e0) / abs(
+        e0)
+    r1 = float(st_e.pos.norm(dim=-1).median())
+    assert ek > 1e-3, ek
+    assert drift < 5e-3, f"energy drift {drift}"
+    assert r1 < r0, (r1, r0)
+    out["evrard"] = dict(n=st_e.n, steps=n_e, t=t_e, e_kin=ek,
+                         energy_drift=drift, median_r=[r0, r1],
+                         seconds=time.perf_counter() - t0)
+    log(f"[40 slow gates] Evrard (n=1024, fp64, dense engine): {n_e} steps "
+        f"to t={t_e:.4f}; energy drift {drift:.3g} (< 5e-3), kinetic "
+        f"energy {ek:.4g} (> 1e-3), median radius {r0:.4f} -> {r1:.4f}; "
+        f"{out['evrard']['seconds']:.1f} s")
+    return out
+
+
+def sanitize_phase(dev):
+    """Phase 41: every hand kernel's small launches (``sphax_torch.sanitize``)
+    in this process, each again over NaN-filled free memory; then under
+    compute-sanitizer's memcheck, racecheck and synccheck, each in a
+    subprocess. Fails where a poisoned launch differs or the tool reports
+    an error after a case; says so where the tool is absent or refuses the
+    device. Returns the record."""
+    from sphax_torch import sanitize
+
+    t0 = time.perf_counter()
+    names = sanitize.launch_all(dev, poison=True)
+    rec = {"cases": len(names), "poisoned_free_memory": "bitwise equal"}
+    log(f"[41 sanitize] {len(names)} cases, each launch over NaN-filled "
+        f"free memory finite and bitwise equal to the first: "
+        f"{time.perf_counter() - t0:.1f} s")
+    path, where = sanitize.sanitizer_path()
+    if path is None:
+        rec.update(present=False, looked_in=where,
+                   seconds=time.perf_counter() - t0)
+        log(f"[41 sanitize] {len(names)} cases launched; compute-sanitizer "
+            f"is not on this machine (looked in {', '.join(where)}): no "
+            f"tool ran")
+        return rec
+    rec.update(present=True, path=path, version=sanitize.version(path),
+               tools={})
+    for tool in sanitize.TOOLS:
+        r = sanitize.check(tool, path)
+        rec["tools"][tool] = {k: r[k] for k in ("rc", "seconds", "cases",
+                                                 "errors", "refused",
+                                                 "summary")}
+        log(f"[41 sanitize] {rec['version']} --tool {tool}: exit {r['rc']},"
+            f" {r['cases']} of {len(names)} cases reached, "
+            f"{r['seconds']:.1f} s; " + (
+                f"the tool refused before any case ran: {r['refused']} "
+                f"({r['summary']}): no result" if r["refused"] else
+                r["summary"]))
+        if r["errors"] or (not r["refused"] and r["rc"] != 0):
+            log(r["output"])
+            raise AssertionError(
+                f"compute-sanitizer --tool {tool} reported errors after "
+                f"the cases {r['errors'] or '(none reached)'}")
+    rec.update(ran=[t for t, v in rec["tools"].items() if not v["refused"]],
+               seconds=time.perf_counter() - t0)
+    return rec
 
 
 # the slab lockstep's configurations (phase 30): the main path's, and

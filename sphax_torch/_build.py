@@ -58,16 +58,23 @@ _ARGTYPES.update({f"{k}{c}_{d}d": _ARGTYPES[f"{k}{c}"]
                   for c in ("", "_compact") for d in (2, 1)})
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str):
+    """The path of the CUDA toolkit's ``name`` (``nvcc``,
+    ``compute-sanitizer``): under ``$CUDA_HOME/bin``, then on ``PATH``;
+    None where neither has it."""
     from torch.utils.cpp_extension import CUDA_HOME
 
-    cands = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []
-    cands.append(shutil.which("nvcc"))
-    for c in cands:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
-                       "the CUDA kernels cannot be built")
+    cands = [os.path.join(CUDA_HOME, "bin", name)] if CUDA_HOME else []
+    cands.append(shutil.which(name))
+    return next((c for c in cands if c and os.path.exists(c)), None)
+
+
+def _nvcc() -> str:
+    nvcc = cuda_tool("nvcc")
+    if nvcc is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
+                           "PATH); the CUDA kernels cannot be built")
+    return nvcc
 
 
 def library_path(sources=SOURCES) -> Path:

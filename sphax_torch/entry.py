@@ -1,4 +1,18 @@
-"""The multi-rank dry run (torch twin of ``__graft_entry__.dryrun_multichip``).
+"""Entry points, the torch twins of ``__graft_entry__``'s.
+
+``entry(device, dtype, n_side)`` returns ``(fn, (state,))``: ``fn`` is one
+full KDK step of the flagship model, exactly as ``__graft_entry__.entry()``
+builds it. The turbulence lattice at ``n_side``^3 (16^3 = 4,096 particles),
+``configs.TURB`` unchanged (6 Newton updates, Balsara, isothermal), the
+window plan measured at h_max = 1.3 max h with cutoff_scale 1.25, one
+derived pass, then ``leapfrog.step`` through ``wengine.update_derived``:
+kernels A and C once each a call on a card, their plain versions on CPU
+tensors. It runs on the card unless the caller passes ``device="cpu"``;
+with no card visible it raises. ``fn`` is eager (no ``torch.compile``, no
+CUDA graph); its ``cfg``, ``domain`` and ``spec`` attributes are the
+step's.
+
+    python -c "from sphax_torch.entry import entry; fn, (s,) = entry(); fn(s)"
 
 ``dryrun_multichip(n_ranks, device)`` drives every topology of the
 distributed layer once on small shapes, on ``n_ranks`` ranks over gloo
@@ -35,13 +49,46 @@ from sphax_torch.core.state import box, make_state
 from sphax_torch.dist import comm as comm_mod
 from sphax_torch.dist import pencil, wrungs, wslab
 from sphax_torch.ics import turbulence
+from sphax_torch.integrate import leapfrog
 from sphax_torch.neighbors import window as win
 from sphax_torch.physics import wengine
 
 
-def _flagship(n_side: int, device):
-    """(state with its derived fields, cfg, domain) of the turbulence
-    lattice, fp32."""
+def _entry_flagship(n_side: int, dtype, device):
+    """(state, cfg, domain) of ``__graft_entry__._flagship``: the turbulence
+    lattice and ``configs.TURB`` as they stand."""
+    ic = turbulence.build(n_side=n_side)
+    kw = dict(dtype=dtype, device=device)
+    dom = box(torch.zeros(3, **kw), torch.as_tensor(ic["box"], **kw))
+    st = make_state(*(torch.as_tensor(ic[k], **kw)
+                      for k in ("pos", "vel", "mass", "u", "h")))
+    return st, configs.TURB, dom
+
+
+def entry(device="cuda", dtype=torch.float32, n_side: int = 16):
+    """(fn, (state,)): one full KDK step of the flagship model and its
+    example input, the state after one derived pass (module docstring)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("entry() runs on a CUDA device and none is "
+                           "visible; pass device='cpu' to run on the CPU")
+    st, cfg, dom = _entry_flagship(n_side, dtype, device)
+    spec = win.plan_measured(st.pos, dom, h_max=float(st.h.max()) * 1.3,
+                             dim=3, cutoff_scale=1.25)
+
+    def engine(s):
+        return wengine.update_derived(s, cfg, dom, spec)
+
+    def fn(state):
+        return leapfrog.step(state, cfg, dom, engine)[0]
+
+    fn.cfg, fn.domain, fn.spec = cfg, dom, spec
+    return fn, (engine(st),)
+
+
+def _dryrun_flagship(n_side: int, device):
+    """(state with its derived fields, cfg, domain) of the dry run's
+    turbulence lattice: fp32, Newton warm-started with one update."""
     ic = turbulence.build(n_side=n_side)
     cfg = dataclasses.replace(configs.TURB, newton_iters=1)
     f32 = dict(dtype=torch.float32, device=device)
@@ -131,7 +178,7 @@ def dryrun_multichip(n_ranks: int, device="cuda", timeout: float = 300.0):
         from sphax_torch import _build
 
         _build.load()
-    st, cfg, dom = _flagship(math.ceil(3.8 * n_ranks), device)
+    st, cfg, dom = _dryrun_flagship(math.ceil(3.8 * n_ranks), device)
     domain = (dom.lo.cpu().numpy(), dom.hi.cpu().numpy(), dom.periodic)
     spec = wslab.plan(dom, st.n, h_max=float(st.h.max()) * 1.1,
                       n_shards=n_ranks)
@@ -142,7 +189,7 @@ def dryrun_multichip(n_ranks: int, device="cuda", timeout: float = 300.0):
     slab = (rows, domain, cfg, spec, cuts, st.n)
     pen, msg = None, " (pencil skipped: < 4 ranks)"
     if n_ranks >= 4:
-        stp, _, domp = _flagship(12, device)
+        stp, _, domp = _dryrun_flagship(12, device)
         pspec = pencil.plan(domp, stp.n, h_max=float(stp.h.max()) * 1.1,
                             ns0=2, ns1=2)
         pcuts = (pencil.equal_cuts(pspec.ncell0, 2),

@@ -7,7 +7,9 @@ the card over gloo, against the single-device engine, with block
 timesteps too (kernels A and C on a shard masked to a rung tick's
 closers, a quiet rank's fully masked pass among them); and a 2x2 grid of
 pencil ranks: A and C (and C's gravity mode) on a pencil shard's
-structure, and a lockstep with one device.
+structure, and a lockstep with one device; the flagship step of
+``sphax_torch.entry.entry()`` against its plain step; and the small
+launches that ``compute-sanitizer`` checks.
 
 These tests import no JAX (the machine with the card has none) and skip
 where no CUDA device is visible. Run them on the card without the suite's
@@ -775,3 +777,41 @@ def test_rung_lockstep_on_the_card(cuda):
         b = getattr(ref, k).cpu().numpy()[oj]
         np.testing.assert_allclose(got[k][oi], b, rtol=1e-8,
                                    atol=1e-8 * np.abs(b).max(), err_msg=k)
+
+
+@pytest.mark.gpu
+def test_entry_step_matches_plain_on_the_card(cuda, monkeypatch):
+    """``sphax_torch.entry.entry()`` (the twin of ``__graft_entry__.entry()``,
+    fp32, 16^3) on the card: one launch of A and of C a call, no window
+    overflow, and the step within 3e-5 of the same step through the plain
+    versions (``chip_smoke.py`` phase 39's check)."""
+    from sphax_torch.entry import entry
+
+    fn, (st,) = entry()
+    assert st.pos.is_cuda and st.n == 16 ** 3
+    n0 = {k: wk.LAUNCHES[k] for k in wk.LAUNCHES}
+    got = fn(st)
+    torch.cuda.synchronize()
+    assert {k: wk.LAUNCHES[k] - n0[k] for k in n0 if wk.LAUNCHES[k] != n0[k]
+            } == {"solve_h_density": 1, "forces": 1}
+    assert int(wengine.overflow_count(got, fn.domain, fn.spec)) == 0
+    monkeypatch.setattr(wk, "solve_h_density", wk.solve_h_density_plain)
+    monkeypatch.setattr(wk, "forces", wk.forces_plain)
+    want = fn(st)
+    every = torch.ones(st.n, dtype=torch.bool, device=cuda)
+    for f in ("pos", "vel", "u", "h", "rho", "P", "cs", "omega", "divv",
+              "acc", "du_dt"):
+        _compare(getattr(got, f), getattr(want, f), every, 3e-5, f)
+
+
+@pytest.mark.gpu
+def test_sanitize_cases_launch_every_kernel(cuda):
+    """The small launches that ``compute-sanitizer`` checks
+    (``sphax_torch.sanitize``) run, one launch each, reach every launch key
+    of the window kernels and kernel G, and give the same bits again over
+    NaN-filled free memory."""
+    from sphax_torch import _build, sanitize
+
+    _build.load()
+    names = sanitize.launch_all(cuda, poison=True)
+    assert len(names) == len(set(names)) > len(wk.LAUNCHES)

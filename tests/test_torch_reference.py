@@ -22,6 +22,7 @@ import torch
 import sphax
 import sphax.reference_cpu as ref
 from sphax_torch import SPHConfig, make_state
+from sphax_torch import reference_cpu as ref_np
 from sphax_torch.core.state import box
 from sphax_torch.integrate import leapfrog
 from sphax_torch.neighbors import window as win
@@ -50,13 +51,17 @@ CONFIGS = {
 N_SIDE = {"dense": {3: 6, 2: 10}, "window": {3: 8, 2: 12}}
 
 
-def _engine(which, kw, seed):
+def _engine(which, kw, seed, flow=None, alpha0=1.0):
     """(numpy problem, state, domain, derived function, window spec or
-    None) of one of the port's engines under ``SPHConfig(**kw)``."""
+    None) of one of the port's engines under ``SPHConfig(**kw)``;
+    ``flow(vel, pos)`` replaces the problem's velocities."""
     cfg = SPHConfig(**kw)
     prob = make_problem(dim=cfg.dim, n_side=N_SIDE[which][cfg.dim], seed=seed)
+    if flow is not None:
+        pos, vel, mass, u, h = prob
+        prob = pos, flow(vel, pos), mass, u, h
     state = make_state(*(torch.as_tensor(a, dtype=torch.float64)
-                         for a in prob))
+                         for a in prob), alpha0=alpha0)
     dom = box(torch.zeros(cfg.dim, dtype=torch.float64),
               torch.ones(cfg.dim, dtype=torch.float64))
     if which == "dense":
@@ -112,3 +117,39 @@ def test_kdk_step_parity(which):
                                atol=RTOL * np.max(np.abs(v)))
     np.testing.assert_allclose(state.u.numpy(), uu, rtol=RTOL)
     np.testing.assert_allclose(state.rho.numpy(), der["rho"], rtol=RTOL)
+
+
+@pytest.mark.parametrize("which", ["dense", "window"])
+def test_mm_viscosity_lockstep(which):
+    """tests/parity/test_dense_vs_reference.py::test_mm_viscosity_lockstep
+    on the port against its own copy of the reference
+    (``sphax_torch.reference_cpu``): a convergent flow (div v < 0) raises
+    the Morris-Monaghan alpha from its floor, and alpha, rho and acc stay at
+    1e-6 of the reference, dt at 1e-12, through 4 KDK steps. Dense at the
+    test's 6^3, the window engine's plain path at 8^3."""
+    kw = dict(dim=3, adaptive_h=True, newton_iters=25, mm_visc=True,
+              alpha_visc=1.0, beta_visc=2.0)
+    cfg = SPHConfig(**kw)
+    (pos, vel, mass, u, h), state, dom, derived, _ = _engine(
+        which, kw, seed=9, flow=lambda v, p: v * 0.1 - 0.6 * (p - 0.5),
+        alpha0=cfg.mm_alpha_min)
+    box_arr = np.ones(3)
+    a_np = np.full(len(pos), cfg.mm_alpha_min)
+    der = ref_np.update_derived(pos, vel, mass, u, h, cfg, box=box_arr,
+                                alpha=a_np)
+    rp, rv, ru, rh = pos, vel, u, h
+    state = derived(state)
+    for k in range(4):
+        rp, rv, ru, rh, der, rdt = ref_np.step(rp, rv, mass, ru, rh, der,
+                                               cfg, box=box_arr, alpha=a_np)
+        a_np = der["alpha"]
+        state, dt = leapfrog.step(state, cfg, dom, derived)
+        np.testing.assert_allclose(float(dt), rdt, rtol=1e-12)
+        np.testing.assert_allclose(state.alpha.numpy(), a_np, rtol=RTOL,
+                                   err_msg=f"alpha step {k}")
+        np.testing.assert_allclose(state.rho.numpy(), der["rho"], rtol=RTOL)
+        scale = np.max(np.abs(der["acc"]))
+        np.testing.assert_allclose(state.acc.numpy(), der["acc"], rtol=RTOL,
+                                   atol=RTOL * scale)
+    # the switch switched on somewhere
+    assert float(state.alpha.max()) > 2.0 * cfg.mm_alpha_min
