@@ -25,8 +25,16 @@ passed through, and each record carries ``dt_viol`` and ``active_frac``. It
 needs the window engine without self-gravity or OU driving, and a run
 aborts when more than a quarter of a chunk's closings wanted a dt below the
 span's. On the CPU one device refuses every problem (all but ``turb`` take
-the dense engine there, and ``turb`` is driven); ``shards=N`` always runs
-the window engine, so ``sedov``, ``kh`` and ``sod`` take rungs there.
+the dense engine or the cell list there, and ``turb`` is driven);
+``shards=N`` always runs the window engine, so ``sedov``, ``kh`` and ``sod``
+take rungs there.
+
+A window-engine run with P3M gravity logs ``mesh_fb`` in each record: the
+rows that would fall back from the sorted-order mesh
+(``wengine.mesh_fallback_count``), as the JAX CLI does, counted outside
+the record's ``particle_steps_per_sec``. The run itself takes the scatter
+mesh (``pm.mesh_accel``), the cheaper one on a card, which drops no row:
+so unlike the JAX CLI it does not abort on the sorted mesh's dropped rows.
 Differences from the JAX CLI:
 
 - every fixed-cadence chunk is a whole number of rebuild periods (2
@@ -38,9 +46,6 @@ Differences from the JAX CLI:
   anything else (the JAX CLI reads ``h_predict=false`` as True);
 - ``profile=1`` traces the first chunk of the loop with ``torch.profiler``
   (``out/trace/trace.json``) and counts it in t and step;
-- the P3M metric ``mesh_fb`` is not logged: it counts the rows that fall
-  back from the JAX package's sorted mesh, which the port does not have
-  (``ROADMAP.md`` queue 1, item 11);
 - with ``rungs=B`` and ``adaptive=K`` each record carries ``rebuilds``, as
   the global-dt adaptive loop's do;
 - ``plot=1`` (``diag.plots``: a Sod or Sedov profile or a slice, and the
@@ -251,7 +256,7 @@ def main(argv=None):
         raise SystemExit(
             "rungs>1 needs the window engine without self-gravity or OU "
             "driving (see sphax_torch/integrate/rungs.py scope); on the CPU "
-            "the problems take the dense engine")
+            "the problems take the dense engine or the cell list")
     rung_info = {}
 
     def run_chunk(state, drive, nsteps):
@@ -305,6 +310,13 @@ def main(argv=None):
                 # structural h-cap saturation: silent physics change if > 0
                 extra["h_capped"] = int(wengine.capped_count(state,
                                                              prob.wspec))
+                if prob.cfg.gravity and prob.cfg.grav_solver == "p3m":
+                    # the JAX CLI's metric, for the sorted-order mesh the
+                    # run does not take: logged, not timed, not a gate
+                    with log.untimed():
+                        n_fb, _ = wengine.mesh_fallback_count(
+                            state, prob.cfg, prob.domain, prob.wspec)
+                        extra["mesh_fb"] = int(n_fb)
             if gated:
                 extra["rebuilds"] = builds
             extra.update(rung_info)

@@ -3,7 +3,8 @@
 The tests feed both packages the same arrays through these; a run can
 resume from arrays the reference wrote. The slab and pencil
 decompositions' specs and their sharded layout (the JAX package's
-[n_shards * n_local] arrays, shard after shard) carry across too.
+[n_shards * n_local] arrays, shard after shard), the cell list's grid and
+the sorted mesh's plan carry across too.
 """
 from __future__ import annotations
 
@@ -14,9 +15,12 @@ import torch
 
 from sphax_torch.core.state import Domain, ParticleState
 from sphax_torch.dist.pencil import PencilSpec
+from sphax_torch.dist.slab import DistSpec
 from sphax_torch.dist.wslab import WSlabSpec
+from sphax_torch.neighbors.cell_list import Grid
 from sphax_torch.neighbors.window import WindowSpec
 from sphax_torch.physics.driving import DriveState
+from sphax_torch.physics.pm_sorted import MeshPlan
 
 
 def state_from_numpy(arrays: Dict[str, np.ndarray], device,
@@ -48,6 +52,19 @@ def spec_from_fields(**fields) -> WindowSpec:
     return WindowSpec(**fields)
 
 
+def grid_from_fields(**fields) -> Grid:
+    """cell_list.Grid from the fields of a reference grid
+    (``grid_from_fields(**dataclasses.asdict(jax_grid))``)."""
+    return Grid(res=tuple(int(r) for r in fields["res"]),
+                capacity=int(fields["capacity"]))
+
+
+def mesh_plan_from_fields(**fields) -> MeshPlan:
+    """pm_sorted.MeshPlan from the fields of a reference plan
+    (``mesh_plan_from_fields(**dataclasses.asdict(jax_plan))``)."""
+    return MeshPlan(**{k: int(v) for k, v in fields.items()})
+
+
 def drive_from_numpy(amp_re, amp_im, device=None, dtype=None) -> DriveState:
     re = torch.as_tensor(np.array(amp_re), dtype=dtype, device=device)
     im = torch.as_tensor(np.array(amp_im), dtype=re.dtype, device=device)
@@ -64,6 +81,18 @@ def wslab_spec_from_fields(**fields) -> WSlabSpec:
     return WSlabSpec(wspec=w if isinstance(w, WindowSpec)
                      else spec_from_fields(**w),
                      **{k: int(v) for k, v in fields.items()})
+
+
+def dist_spec_from_fields(**fields) -> DistSpec:
+    """slab.DistSpec from the fields of a reference spec
+    (``dist_spec_from_fields(**dataclasses.asdict(jax_spec))``); the JAX
+    package's mesh axis name has no counterpart and is dropped."""
+    fields = dict(fields)
+    fields.pop("axis_name", None)
+    g = fields.pop("grid")
+    return DistSpec(grid=g if isinstance(g, Grid) else grid_from_fields(**g),
+                    margin=float(fields.pop("margin")),
+                    **{k: int(v) for k, v in fields.items()})
 
 
 def pencil_spec_from_fields(**fields) -> PencilSpec:

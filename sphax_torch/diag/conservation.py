@@ -26,11 +26,13 @@ def gravitational_energy(state: ParticleState, cfg: SPHConfig,
                          block: int = None):
     """Direct-sum softened potential energy (matches the Plummer force law):
     -G/2 sum_{i != j} m_i m_j (r_ij^2 + eps^2)^-1/2, summed over row blocks
-    of about 2^22 pairs, never the whole N x N matrix."""
+    of about 2^22 pairs (2^26 on a card, where a block is a round of
+    launches: at N = 1e6 small blocks make the sum launch-bound), never the
+    whole N x N matrix."""
     pos, mass = state.pos, state.mass
     n = pos.shape[0]
     if block is None:
-        block = max(1, (1 << 22) // max(n, 1))
+        block = max(1, (1 << (26 if pos.is_cuda else 22)) // max(n, 1))
     eps2 = float(cfg.grav_eps) ** 2
     total = pos.new_zeros(())
     for i0 in range(0, n, block):

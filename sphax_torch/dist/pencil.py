@@ -40,8 +40,8 @@ rank's ``Comm`` here: ``step``, ``chunk``, ``migrate``, ``misplaced``,
 ``equal_cuts`` and ``refine_wseg`` are the slab engine's (reductions over
 the world span both axes). ``cuts0`` and ``cuts1``
 are host arrays of ``ns0 + 1`` and ``ns1 + 1`` cell indices, the same on
-every rank. The sorted-order P3M mesh (``sorted_mesh`` and ``_mesh_plan``)
-is not ported: P3M runs its scatter mesh.
+every rank. P3M runs the scatter mesh, as ``wslab`` does: the JAX
+package's ``sorted_mesh`` option and its ``_mesh_plan`` are not taken.
 """
 from __future__ import annotations
 

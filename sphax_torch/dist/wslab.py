@@ -32,8 +32,10 @@ per-rank functions here that take the rank's ``Comm``: ``step``,
 ``max_run``; with block timesteps (``wrungs``) ``work_histogram`` and
 ``shard_work`` take the place of ``make_work_histogram`` and
 ``make_shard_work``. ``cuts`` is a host array of ``n_shards + 1`` cell indices,
-the same on every rank. The JAX package's sorted-order P3M mesh
-(``sorted_mesh``) is not ported; P3M runs its scatter mesh.
+the same on every rank. P3M runs the scatter mesh (``pm.mesh_accel``),
+the cheaper one on a card; the JAX package's ``sorted_mesh`` option and
+its ``_mesh_plan`` are not taken (the sorted-order CIC is
+``pm.mesh_accel_sorted``, a library function).
 """
 from __future__ import annotations
 

@@ -31,7 +31,8 @@ It asserts what the JAX dry run asserts: health 0, no particle lost,
 finite density, dts > 0, some closing particle in the rung span. The
 flagship problem is the driven-turbulence lattice (``configs.TURB``,
 Newton warm-started with one update) at ceil(3.8 n_ranks)^3 particles in
-fp32, its derived fields from one single-device window-engine pass.
+fp32, its derived fields from one single-device cell-list pass
+(``clist.update_derived`` on the flagship's grid), as in the JAX dry run.
 
     python -c "from sphax_torch.entry import dryrun_multichip; \\
         dryrun_multichip(4, 'cpu')"
@@ -51,18 +52,21 @@ from sphax_torch.dist import pencil, wrungs, wslab
 from sphax_torch.ics import turbulence
 from sphax_torch.integrate import leapfrog
 from sphax_torch.neighbors import window as win
-from sphax_torch.physics import wengine
+from sphax_torch.neighbors.cell_list import choose_grid
+from sphax_torch.physics import clist, wengine
 
 
 def _entry_flagship(n_side: int, dtype, device):
-    """(state, cfg, domain) of ``__graft_entry__._flagship``: the turbulence
-    lattice and ``configs.TURB`` as they stand."""
+    """(state, cfg, domain, grid) of ``__graft_entry__._flagship``: the
+    turbulence lattice and ``configs.TURB`` as they stand, and the cell
+    grid at h_max = max h."""
     ic = turbulence.build(n_side=n_side)
     kw = dict(dtype=dtype, device=device)
     dom = box(torch.zeros(3, **kw), torch.as_tensor(ic["box"], **kw))
     st = make_state(*(torch.as_tensor(ic[k], **kw)
                       for k in ("pos", "vel", "mass", "u", "h")))
-    return st, configs.TURB, dom
+    grid = choose_grid(dom, h_max=float(st.h.max()), n=st.n)
+    return st, configs.TURB, dom, grid
 
 
 def entry(device="cuda", dtype=torch.float32, n_side: int = 16):
@@ -72,7 +76,7 @@ def entry(device="cuda", dtype=torch.float32, n_side: int = 16):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("entry() runs on a CUDA device and none is "
                            "visible; pass device='cpu' to run on the CPU")
-    st, cfg, dom = _entry_flagship(n_side, dtype, device)
+    st, cfg, dom, _ = _entry_flagship(n_side, dtype, device)
     spec = win.plan_measured(st.pos, dom, h_max=float(st.h.max()) * 1.3,
                              dim=3, cutoff_scale=1.25)
 
@@ -88,16 +92,11 @@ def entry(device="cuda", dtype=torch.float32, n_side: int = 16):
 
 def _dryrun_flagship(n_side: int, device):
     """(state with its derived fields, cfg, domain) of the dry run's
-    turbulence lattice: fp32, Newton warm-started with one update."""
-    ic = turbulence.build(n_side=n_side)
-    cfg = dataclasses.replace(configs.TURB, newton_iters=1)
-    f32 = dict(dtype=torch.float32, device=device)
-    dom = box(torch.zeros(3, **f32), torch.as_tensor(ic["box"], **f32))
-    st = make_state(*(torch.as_tensor(ic[k], **f32)
-                      for k in ("pos", "vel", "mass", "u", "h")))
-    spec = win.plan_measured(st.pos, dom, h_max=float(st.h.max()) * 1.1,
-                             dim=3)
-    return wengine.update_derived(st, cfg, dom, spec), cfg, dom
+    turbulence lattice: fp32, Newton warm-started with one update, one
+    cell-list pass on the flagship's grid."""
+    st, cfg, dom, grid = _entry_flagship(n_side, torch.float32, device)
+    cfg = dataclasses.replace(cfg, newton_iters=1)
+    return clist.update_derived(st, cfg, dom, grid), cfg, dom
 
 
 def _rows(shards):

@@ -57,6 +57,16 @@ class MetricsLogger:
                 f.write(json.dumps(rec) + "\n")
         return rec
 
+    @contextlib.contextmanager
+    def untimed(self):
+        """Leave the wall time of the work inside out of the next record's
+        particle-steps rate."""
+        t0 = time.time()
+        try:
+            yield
+        finally:
+            self._last_wall += time.time() - t0
+
 
 @contextlib.contextmanager
 def profile_trace(dirname: str):

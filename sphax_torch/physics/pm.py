@@ -18,9 +18,11 @@ the long-range force on a CIC mesh solved by FFT:
 
 The mesh is plain torch, as it is jnp in the JAX package: the deposit is an
 ``index_add_`` on the flattened grid (atomics on a GPU, so its sums are not
-bitwise deterministic there), the solve ``torch.fft``. The JAX package's
-scatter-free sorted CIC (``mesh_accel_sorted``, ``pm_sorted``) worked
-around the TPU's serialized scatter and has no counterpart here.
+bitwise deterministic there), the solve ``torch.fft``. ``mesh_accel_sorted``
+is the JAX package's sorted-order CIC (``pm_sorted``: brick matrix
+products over the window structure's sorted rows), which worked around the
+TPU's serialized scatter; on a card the scatter mesh is the cheaper one,
+and every engine runs it.
 """
 from __future__ import annotations
 
@@ -203,6 +205,34 @@ def mesh_accel(pos, mass, cfg: SPHConfig, domain: Domain, rs=None,
         grid = group.all_reduce_sum(grid)
     return _solve_and_interp(grid, pos_dep, domain, float(cfg.G), rs, M,
                              periodic)
+
+
+def mesh_accel_sorted(pos_s, mass_s, real_s, cfg: SPHConfig,
+                      domain: Domain, plan, rs=None, group=None):
+    """``mesh_accel`` over the SORTED window rows (ghost and pad rows
+    masked off by ``real_s``) through ``pm_sorted``'s brick products.
+    Returns ([Ns, 3] acceleration at the sorted rows, the fallback rows
+    dropped past ``plan.cap``; callers raise on it as on h_capped).
+    ``group``: the distributed mesh, as in ``mesh_accel``."""
+    from sphax_torch.physics import pm_sorted
+
+    M = int(cfg.grav_mesh)
+    dtype = pos_s.dtype
+    if rs is None:
+        rs = rs_traced(cfg, domain, dtype)
+    per = domain.periodic_axes(pos_s.shape[1])
+    periodic = all(per)
+    if not periodic and any(per):
+        raise NotImplementedError("P3M needs fully periodic or fully open "
+                                  "box")
+    w = torch.where(real_s, mass_s, 0.0)
+    grid, d1 = pm_sorted.deposit_sorted(pos_s, w, domain, M, periodic, plan)
+    if group is not None:
+        grid = group.all_reduce_sum(grid)
+    grids = _solve_grids(grid, domain, float(cfg.G), rs, M, periodic)
+    acc, d2 = pm_sorted.interp_sorted(grids, pos_s, real_s, domain, M,
+                                      periodic, plan)
+    return acc, d1 + d2
 
 
 def rs_value(cfg: SPHConfig, domain: Domain) -> float:

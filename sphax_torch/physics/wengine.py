@@ -14,7 +14,10 @@ Self-gravity (``cfg.gravity``) takes the JAX package's three branches:
 P3M fuses the screened short range into kernel C and adds the FFT mesh
 (``pm.mesh_accel``); the direct solver runs kernel G
 (``direct_gravity.gravity``) on an open box and the min-image direct sum
-(``clist.gravity_dense``) on a periodic one.
+(``clist.gravity_dense``) on a periodic one. The JAX package takes its
+sorted-order mesh wherever it runs Pallas; the port keeps the scatter
+mesh, the cheaper of the two on a card, and ``mesh_fallback_count``
+reports what the sorted one (``pm.mesh_accel_sorted``) would drop.
 """
 from __future__ import annotations
 
@@ -389,6 +392,24 @@ def overflow_count(state: ParticleState, domain: Domain, spec: WindowSpec):
     """Tiles whose candidate range exceeded wseg, plus dropped ghosts
     (must be 0)."""
     return win.build(state.pos, domain, spec).overflow
+
+
+def mesh_fallback_count(state: ParticleState, cfg: SPHConfig,
+                        domain: Domain, spec: WindowSpec):
+    """(fallback rows, dropped rows) of the sorted-order P3M mesh
+    (``pm.mesh_accel_sorted``) on a fresh structure: rows past the
+    fallback's capacity would lose their mesh gravity there. The CLI logs
+    the fallback rows of its P3M runs, as the JAX CLI does; its runs take
+    the scatter mesh, which drops nothing."""
+    from sphax_torch.physics import pm_sorted
+
+    M = int(cfg.grav_mesh)
+    plan = pm_sorted.plan_mesh(spec, M)
+    wd = win.build(state.pos, domain, spec)
+    periodic = all(domain.periodic_axes(state.dim))
+    mass_s = win.gather_sorted(state.mass, wd)
+    return pm_sorted.fallback_stats(wd.pos_s, wd.is_real & (mass_s > 0),
+                                    domain, M, periodic, plan)
 
 
 def capped_count(state: ParticleState, spec: WindowSpec):

@@ -8,17 +8,17 @@ no card is visible; the CPU runs only when a caller passes
 problem and device:
 
 - on CUDA, the sorted-window engine (kernels A and C) where the window
-  planner accepts the box, the dense engine where it raises, as the JAX
-  version does;
-- on the CPU, the dense engine at every N. The JAX version takes its cell
-  list above 3k particles there; the port has no cell list (it agrees with
-  dense to roundoff, ``tests/parity/test_clist_vs_dense.py``);
-- ``turb`` always takes the window engine and ``evrard`` always dense, as
-  in the JAX version.
+  planner accepts the box;
+- otherwise (on the CPU, or where the planner rejects the box) the cell
+  list above 3,000 particles (``choose_grid`` at h_max = h_margin max h)
+  and the dense engine at or below it;
+- ``turb`` always takes the window engine and ``evrard`` always dense.
 
-``Problem.engine_name`` says which ran. A driven problem (``turb``) carries
-its noise source: standard normals from a ``torch.Generator`` seeded with
-``seed`` (the JAX version keeps a ``jax.random`` key instead).
+This is the JAX version's choice on every device. ``Problem.engine_name``
+says which ran, and ``Problem.grid`` holds the cell list's grid. A driven
+problem (``turb``) carries its noise source: standard normals from a
+``torch.Generator`` seeded with ``seed`` (the JAX version keeps a
+``jax.random`` key instead).
 """
 from __future__ import annotations
 
@@ -31,8 +31,9 @@ from sphax_torch import configs
 from sphax_torch.configs import SPHConfig
 from sphax_torch.core.state import Domain, ParticleState, box, make_state
 from sphax_torch.neighbors import window as win
+from sphax_torch.neighbors.cell_list import Grid, choose_grid
 from sphax_torch.neighbors.window import WindowSpec
-from sphax_torch.physics import dense, driving, wengine
+from sphax_torch.physics import clist, dense, driving, wengine
 from sphax_torch.physics.driving import DriveSpec, DriveState
 
 
@@ -46,9 +47,10 @@ class Problem(NamedTuple):
     drive: Optional[DriveState] = None
     drive_spec: Optional[DriveSpec] = None
     wspec: Optional[WindowSpec] = None   # when the window engine is used
-    engine_name: str = "dense"           # "window" or "dense"
+    engine_name: str = "dense"           # "window", "clist" or "dense"
     noise: Optional[driving.GaussianNoise] = None  # driven problems only
     seed: int = 0                        # the noise stream's seed
+    grid: Optional[Grid] = None          # when the cell list is used
 
 
 _CFG_FIELDS = {f.name: f.type for f in dataclasses.fields(SPHConfig)}
@@ -123,15 +125,28 @@ def _dense_engine(cfg, dom):
 
 
 def _auto_engine(st, cfg, dom, h_margin=1.3, cutoff_scale=1.25):
-    """(engine, spec, name): the window engine on CUDA where the planner
-    accepts the box, else dense (see the module docstring)."""
+    """(engine, spec or grid, name): the window engine on CUDA where the
+    planner accepts the box, else the cell list above 3,000 particles and
+    dense at or below (see the module docstring)."""
     if st.pos.is_cuda:
         try:
             eng, spec = _window_engine(st, cfg, dom, h_margin, cutoff_scale)
             return eng, spec, "window"
         except ValueError:
             pass  # box too small/thin for the window grid
+    if st.n > 3000:
+        grid = choose_grid(dom, h_max=float(st.h.max()) * h_margin, n=st.n)
+
+        def eng(s):
+            return clist.update_derived(s, cfg, dom, grid)
+        return eng, grid, "clist"
     return _dense_engine(cfg, dom), None, "dense"
+
+
+def _engine_kw(spec, name):
+    """Problem fields for ``_auto_engine``'s answer."""
+    return dict(wspec=spec if name == "window" else None,
+                grid=spec if name == "clist" else None, engine_name=name)
 
 
 def sod(n: int = 32, dtype=torch.float32, device=None, **kw) -> Problem:
@@ -143,8 +158,8 @@ def sod(n: int = 32, dtype=torch.float32, device=None, **kw) -> Problem:
     dom = _box(ic, 3, dtype, dev)
     st = _state(ic, dtype, dev)
     eng, spec, name = _auto_engine(st, cfg, dom)
-    return Problem("sod", eng(st), cfg, dom, eng, t_end=0.1, wspec=spec,
-                   engine_name=name)
+    return Problem("sod", eng(st), cfg, dom, eng, t_end=0.1,
+                   **_engine_kw(spec, name))
 
 
 def sedov(n: int = 20, visc: str = "balsara", dtype=torch.float32,
@@ -166,8 +181,8 @@ def sedov(n: int = 20, visc: str = "balsara", dtype=torch.float32,
                 alpha0=cfg.mm_alpha_min if visc == "mm" else 1.0)
     # the blast centre evacuates -> h grows ~1.6x; margin 1.5 covers it
     eng, spec, name = _auto_engine(st, cfg, dom, h_margin=1.5)
-    return Problem("sedov", eng(st), cfg, dom, eng, t_end=0.06, wspec=spec,
-                   engine_name=name)
+    return Problem("sedov", eng(st), cfg, dom, eng, t_end=0.06,
+                   **_engine_kw(spec, name))
 
 
 def kh(n: int = 64, dtype=torch.float32, device=None, **kw) -> Problem:
@@ -179,8 +194,8 @@ def kh(n: int = 64, dtype=torch.float32, device=None, **kw) -> Problem:
     dom = _box(ic, 2, dtype, dev)
     st = _state(ic, dtype, dev)
     eng, spec, name = _auto_engine(st, cfg, dom)
-    return Problem("kh", eng(st), cfg, dom, eng, t_end=1.0, wspec=spec,
-                   engine_name=name)
+    return Problem("kh", eng(st), cfg, dom, eng, t_end=1.0,
+                   **_engine_kw(spec, name))
 
 
 def evrard(n: int = 4096, solver: str = "direct", mesh: int = 64,

@@ -1,6 +1,7 @@
 """Scripted slab and pencil runs for the tests and ``chip_smoke.py``:
-``lockstep`` (slabs) and ``pencil_lockstep`` (pencils) interpret a list of
-ops on a distributed state and return every state after them, and
+``lockstep`` (slabs), ``pencil_lockstep`` (pencils) and
+``eq_slab_lockstep`` (the equal-extent slabs of ``dist.slab``) interpret a
+list of ops on a distributed state and return every state after them, and
 ``kernel_calls`` records what one derived pass hands kernels A and C. All
 are rank programs of ``sphax_torch.dist.comm.launch`` (or called inside
 one); this module imports no JAX."""
@@ -12,7 +13,7 @@ import torch
 from sphax_torch import convert
 from sphax_torch.configs import SPHConfig
 from sphax_torch.core.state import Domain, ParticleState
-from sphax_torch.dist import pencil, prungs, wrungs, wslab
+from sphax_torch.dist import pencil, prungs, slab, wrungs, wslab
 from sphax_torch.physics import window_kernels as wk
 
 
@@ -124,6 +125,53 @@ def lockstep(comm, rows: dict, domain, cfg: SPHConfig,
                 wslab._unpack(full, st.dim))
         recs.append(rec)
     return recs if comm.rank == 0 else None
+
+
+def eq_slab_lockstep(comm, rows: dict, domain, cfg: SPHConfig,
+                     spec: slab.DistSpec, ops, dtype=torch.float64):
+    """Run ``ops`` on the equal-extent slabs (``dist.slab``) and return, on
+    rank 0, one record per op with the whole sharded state after it.
+
+    ``rows``: the [n_shards * n_local] sharded layout (NumPy); ``domain`` =
+    (lo, hi, periodic). ``ops``: ("step",) one ``slab.step``; ("chunk", n)
+    one ``slab.chunk`` of n steps; ("redistribute",) a wrap and re-shard.
+    Each record holds the op, its dts and health where it has them, its
+    wall in seconds (the device synchronised) and ``rows``, the sharded
+    layout after it; the last record also holds ``real``, the real rows in
+    ``slab.gather_real``'s order."""
+    import time
+
+    dev = comm.device
+    st = convert.shard_from_numpy(rows, spec, comm.rank, dev, dtype)
+    dom = convert.domain_from_numpy(*domain, device=dev, dtype=dtype)
+    recs = []
+    for op in ops:
+        rec = {"op": op}
+        t0 = time.perf_counter()
+        if op[0] == "step":
+            st, dt, health = slab.step(comm, st, dom, cfg, spec)
+            rec.update(dts=np.atleast_1d(dt.cpu().numpy()),
+                       health=health.cpu().numpy())
+        elif op[0] == "chunk":
+            st, dts, health = slab.chunk(comm, st, dom, cfg, spec, op[1])
+            rec.update(dts=dts.cpu().numpy(), health=health.cpu().numpy())
+        elif op[0] == "redistribute":
+            st = slab.redistribute(comm, st, dom, spec)
+        else:
+            raise ValueError(f"unknown op {op!r}")
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        rec["seconds"] = time.perf_counter() - t0
+        full = comm.gather_rows(wslab._pack(st))
+        if comm.rank == 0:
+            rec["rows"] = convert.state_to_numpy(
+                wslab._unpack(full, st.dim))
+        recs.append(rec)
+    real = slab.gather_real(comm, st)
+    if comm.rank != 0:
+        return None
+    recs[-1]["real"] = convert.state_to_numpy(real)
+    return recs
 
 
 def _noise_from(drive, dev, dtype):

@@ -15,6 +15,11 @@ entry point's 16^3), the same window plan, the jnp walks (``use_pallas=False``)
 on the JAX side and the plain walks on the port's. The set-up pass and two
 steps from the same bits are held at 1e-10 (rtol, and atol 1e-10 of the
 field's largest value), the dts at 1e-12.
+
+The flagship's cell grid (``_entry_flagship``) and the dry run's set-up
+pass through the cell list (``clist.update_derived``, one Newton update)
+against ``__graft_entry__._flagship``'s grid and the JAX cell-list pass on
+it, in float64 at the dry run's 16^3: the same grid, the fields at 1e-10.
 """
 import jax
 import numpy as np
@@ -23,7 +28,7 @@ import torch
 
 import __graft_entry__ as graft
 from sphax_torch import convert
-from sphax_torch.entry import dryrun_multichip, entry
+from sphax_torch.entry import _entry_flagship, dryrun_multichip, entry
 from sphax_torch.integrate.timestep import local_dt
 
 torch.set_num_threads(1)
@@ -40,6 +45,26 @@ def test_dryrun_multichip_four_ranks(capfd):
     assert 1 <= s["migrate_passes"] <= 4 and s["rung_closings"] > 0
     assert rec["pencil"]["steps"] == 2
     assert "dryrun_multichip OK: 4 ranks" in capfd.readouterr().out
+
+
+def test_flagship_grid_and_setup_pass_match_jax():
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from sphax.physics import clist as jclist
+    from sphax_torch.physics import clist
+
+    jst, jcfg, jdom, jgrid = graft._flagship(n_side=16, dtype=jnp.float64)
+    st, cfg, dom, grid = _entry_flagship(16, torch.float64, "cpu")
+    assert dataclasses.asdict(grid) == dataclasses.asdict(jgrid)
+    np.testing.assert_array_equal(st.pos.numpy(), np.asarray(jst.pos))
+    want = jclist.update_derived(
+        jst, dataclasses.replace(jcfg, newton_iters=1), jdom, jgrid)
+    got = clist.update_derived(st, dataclasses.replace(cfg, newton_iters=1),
+                               dom, grid)
+    _close(got, want, ("h", "rho", "P", "omega", "divv", "acc", "du_dt"),
+           "dry run set-up pass")
 
 
 def _jax_entry():

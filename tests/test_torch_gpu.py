@@ -8,8 +8,10 @@ timesteps too (kernels A and C on a shard masked to a rung tick's
 closers, a quiet rank's fully masked pass among them); and a 2x2 grid of
 pencil ranks: A and C (and C's gravity mode) on a pencil shard's
 structure, and a lockstep with one device; the flagship step of
-``sphax_torch.entry.entry()`` against its plain step; and the small
-launches that ``compute-sanitizer`` checks.
+``sphax_torch.entry.entry()`` against its plain step; the small
+launches that ``compute-sanitizer`` checks; and the cell-list engine
+against the window engine, the equal-extent slabs against one device and
+the sorted-order P3M mesh against the scatter mesh.
 
 These tests import no JAX (the machine with the card has none) and skip
 where no CUDA device is visible. Run them on the card without the suite's
@@ -815,3 +817,105 @@ def test_sanitize_cases_launch_every_kernel(cuda):
     _build.load()
     names = sanitize.launch_all(cuda, poison=True)
     assert len(names) == len(set(names)) > len(wk.LAUNCHES)
+
+
+# ---------------------------------------------------------------------------
+# the cell-list engine, the equal-extent slabs and the sorted mesh
+# ---------------------------------------------------------------------------
+
+
+def _order(pos):
+    p = np.mod(pos, 1.0)
+    return np.lexsort((p[:, 2], p[:, 1], p[:, 0]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_clist_on_the_card_matches_the_window_engine(cuda, dtype):
+    """clist.update_derived on the card (card blocks, and blocks of 7
+    cells) against wengine.update_derived through kernels A and C on the
+    same state: fp32 3e-5, fp64 1e-10; overflow and h saturation 0."""
+    from sphax_torch.neighbors.cell_list import choose_grid
+    from sphax_torch.physics import clist
+
+    cfg = dataclasses.replace(configs.TURB, newton_iters=2)
+    st, dom, spec = _slab_state(cuda, dtype, 20, cfg)
+    grid = choose_grid(dom, float(st.h.max()) * 1.3, st.n)
+    want = wengine.update_derived(st, cfg, dom, spec)
+    every = torch.ones(st.n, dtype=torch.bool, device=cuda)
+    for block in (0, 7):
+        got = clist.update_derived(st, cfg, dom, grid, cell_block=block)
+        for k in ("h", "rho", "P", "omega", "divv", "acc", "du_dt"):
+            _compare(getattr(got, k), getattr(want, k), every, TOL[dtype],
+                     f"clist {k}, cell_block {block}")
+    assert int(clist.overflow_count(st, dom, grid)) == 0
+    assert int(clist.h_saturation_count(got, dom, grid)) == 0
+
+
+@pytest.mark.gpu
+def test_eq_slab_on_the_card_matches_one_device(cuda):
+    """dist.slab on 2 ranks sharing the card (fp64): 2 steps against the
+    single-device cell list at 1e-10, health 0, no particle lost."""
+    from sphax_torch.dist import slab
+    from sphax_torch.integrate import leapfrog
+    from sphax_torch.neighbors.cell_list import choose_grid
+    from sphax_torch.physics import clist
+    from tests._slab_helpers import eq_slab_lockstep
+
+    cfg = dataclasses.replace(configs.TURB, newton_iters=2)
+    st, dom, _ = _slab_state(cuda, torch.float64, 16, cfg)
+    grid = choose_grid(dom, float(st.h.max()) * 1.3, st.n)
+
+    def engine(s):
+        return clist.update_derived(s, cfg, dom, grid)
+    ref, dts = st, []
+    for _ in range(2):
+        ref, dt = leapfrog.step(ref, cfg, dom, engine, wrap=False)
+        dts.append(float(dt))
+    spec = slab.plan(dom, st.n, float(st.h.max()) * 1.1, 2)
+    shards = [convert.state_to_numpy(slab.distribute(st, dom, spec, r))
+              for r in range(2)]
+    rows = {k: np.concatenate([s[k] for s in shards]) for k in shards[0]}
+    recs = comm.launch(
+        eq_slab_lockstep, 2, cuda, "gloo", timeout=120, deadline=600,
+        args=(rows, (dom.lo.cpu().numpy(), dom.hi.cpu().numpy(),
+                     dom.periodic), cfg, spec, [("step",), ("step",)]))
+    np.testing.assert_allclose(np.concatenate([r["dts"] for r in recs]),
+                               dts, rtol=1e-10)
+    assert not any(np.any(r["health"]) for r in recs)
+    got = recs[-1]["real"]
+    assert got["pos"].shape[0] == st.n
+    oi, oj = _order(got["pos"]), _order(ref.pos.cpu().numpy())
+    for k in ("pos", "vel", "u", "h", "rho", "acc", "du_dt"):
+        b = getattr(ref, k).cpu().numpy()[oj]
+        np.testing.assert_allclose(got[k][oi], b, rtol=1e-10,
+                                   atol=1e-10 * np.abs(b).max(), err_msg=k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sorted_mesh_on_the_card(cuda, dtype):
+    """pm.mesh_accel_sorted against pm.mesh_accel at M = 32 (fp32 3e-5,
+    fp64 1e-10, with TF32 allowed by the process: the brick products
+    switch it off), dropped 0; wengine.mesh_fallback_count counts the
+    rows that fell back, as fallback_stats does."""
+    st, dom, spec, wd, _ = _inputs(cuda, dtype)
+    from sphax_torch.physics import pm_sorted
+
+    plan = pm_sorted.plan_mesh(spec, 32)
+    mass_s = win.gather_sorted(st.mass, wd)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got, drop = pm.mesh_accel_sorted(wd.pos_s, mass_s, wd.is_real, P3M,
+                                         dom, plan)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    want = pm.mesh_accel(st.pos, st.mass, P3M, dom)
+    assert int(drop) == 0
+    every = torch.ones(st.n, dtype=torch.bool, device=cuda)
+    _compare(got[wd.inv], want, every, TOL[dtype], "sorted mesh")
+    stats = pm_sorted.fallback_stats(wd.pos_s, wd.is_real & (mass_s > 0),
+                                     dom, 32, True, plan)
+    n_fb, n_drop = wengine.mesh_fallback_count(st, P3M, dom, spec)
+    assert (int(n_fb), int(n_drop)) == (int(stats[0]), 0)

@@ -277,7 +277,8 @@ def test_window_engine_spec_matches_reference():
 
 
 def test_auto_engine_and_device():
-    """On the CPU every problem takes dense; device=None means CUDA and
+    """On the CPU a problem at or below 3,000 particles takes dense (above,
+    the cell list: tests/test_torch_clist.py); device=None means CUDA and
     raises where no card is visible."""
     ic = tsod.build(nx_left=8, n_trans=4)
     st = problems._state(ic, torch.float64, torch.device("cpu"))
