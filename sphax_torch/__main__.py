@@ -45,7 +45,13 @@ Differences from the JAX CLI:
 - bool overrides parse 0/1, true/false, yes/no, on/off, and raise on
   anything else (the JAX CLI reads ``h_predict=false`` as True);
 - ``profile=1`` traces the first chunk of the loop with ``torch.profiler``
-  (``out/trace/trace.json``) and counts it in t and step;
+  (``out/trace/trace.json``) and counts it in t and step; the trace's host
+  timeline carries the program's spans (``io.metrics.SPANS``):
+  ``sphax_torch.step`` or ``sphax_torch.tick`` around each step or tick,
+  ``sphax_torch.build`` around each window build, ``sphax_torch.derived``
+  around each derived pass, and ``sphax_torch.kernel_a`` and
+  ``sphax_torch.kernel_c`` around the wrappers of kernels A and C. Without
+  a profiler no span is entered, so tracing costs nothing measurable;
 - with ``rungs=B`` and ``adaptive=K`` each record carries ``rebuilds``, as
   the global-dt adaptive loop's do;
 - ``plot=1`` (``diag.plots``: a Sod or Sedov profile or a slice, and the

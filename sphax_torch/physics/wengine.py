@@ -29,6 +29,7 @@ from sphax_torch.configs import SPHConfig
 from sphax_torch.core.state import Domain, ParticleState
 from sphax_torch.integrate import leapfrog
 from sphax_torch.integrate.timestep import local_dt
+from sphax_torch.io.metrics import span
 from sphax_torch.neighbors import window as win
 from sphax_torch.neighbors.window import WindowData, WindowSpec
 from sphax_torch.physics import clist, direct_gravity, pm
@@ -216,53 +217,55 @@ def derived_with(state: ParticleState, wd, cfg: SPHConfig, domain: Domain,
     build."""
     if state.dim != cfg.dim:
         raise ValueError(f"state dim {state.dim} != cfg.dim {cfg.dim}")
-    dim = state.dim
-    # ONE packed input gather; pos gets the image shifts added back
-    cols = [state.pos, state.vel, state.mass[:, None], state.u[:, None],
-            state.h[:, None]]
-    fills = [0.0] * (2 * dim) + [0.0, 0.0, 1.0]
-    if cfg.mm_visc:
-        cols.append(state.alpha[:, None])
-        fills.append(1.0)
-    g_s = win.gather_sorted_cols(torch.cat(cols, dim=-1), wd, fills)
-    pos_s = g_s[:, :dim] + wd.shift_s
-    vel_s = g_s[:, dim:2 * dim]
-    mass_s = g_s[:, 2 * dim]
-    u_s = g_s[:, 2 * dim + 1]
-    h_s = g_s[:, 2 * dim + 2]
-    alpha_s = g_s[:, 2 * dim + 3] if cfg.mm_visc else None
-    h_s, rho_s, om_s, bf_s, divv_s = stage_density(
-        wd, spec, cfg, pos_s, vel_s, mass_s, u_s, h_s, alpha_s=alpha_s)
-    # one packed owner-mirror gather fixes the four window-shipped scalars
-    mirrored = torch.stack([h_s, rho_s, om_s, bf_s], dim=-1)[wd.src]
-    h_s, rho_s, om_s, bf_s = mirrored.unbind(-1)
-    P_s, cs_s = eos(rho_s, u_s, cfg)
-    p3m = cfg.gravity and cfg.grav_solver == "p3m"
-    grav = None
-    if p3m:
-        # the screened short range rides kernel C's walk; rs stays a device
-        # tensor (it depends on domain.extent)
-        rs = pm.rs_traced(cfg, domain, pos_s.dtype, cutoff=spec.cutoff)
-        grav = (rs, float(cfg.grav_eps))
-    acc_s, du_s = stage_forces(wd, spec, cfg, pos_s, vel_s, mass_s, h_s,
-                               rho_s, P_s, cs_s, om_s, bf_s, grav=grav)
-    # one packed unsort gather for all outputs
-    out = torch.stack([h_s, rho_s, P_s, cs_s, om_s, du_s, divv_s]
-                      + list(acc_s.unbind(-1)), dim=-1)[wd.inv]
-    acc = out[:, 7:7 + dim]
-    if p3m:
-        # O(N log N) FFT mesh long range on the unsorted state (Ewald on a
-        # periodic box, Hockney free space on an open one)
-        acc = acc + pm.mesh_accel(state.pos, state.mass, cfg, domain, rs=rs)
-    elif cfg.gravity and not any(domain.periodic_axes(dim)):
-        # direct sum, kernel G (open-boundary convention)
-        acc = acc + direct_gravity.gravity(state.pos, state.mass, cfg)
-    elif cfg.gravity:
-        # direct sum with the min-image convention on a periodic box
-        acc = acc + clist.gravity_dense(state.pos, state.mass, cfg, domain)
-    return state._replace(h=out[:, 0], rho=out[:, 1], P=out[:, 2],
-                          cs=out[:, 3], omega=out[:, 4], acc=acc,
-                          du_dt=out[:, 5], divv=out[:, 6])
+    with span("sphax_torch.derived"):
+        dim = state.dim
+        # ONE packed input gather; pos gets the image shifts added back
+        cols = [state.pos, state.vel, state.mass[:, None], state.u[:, None],
+                state.h[:, None]]
+        fills = [0.0] * (2 * dim) + [0.0, 0.0, 1.0]
+        if cfg.mm_visc:
+            cols.append(state.alpha[:, None])
+            fills.append(1.0)
+        g_s = win.gather_sorted_cols(torch.cat(cols, dim=-1), wd, fills)
+        pos_s = g_s[:, :dim] + wd.shift_s
+        vel_s = g_s[:, dim:2 * dim]
+        mass_s = g_s[:, 2 * dim]
+        u_s = g_s[:, 2 * dim + 1]
+        h_s = g_s[:, 2 * dim + 2]
+        alpha_s = g_s[:, 2 * dim + 3] if cfg.mm_visc else None
+        h_s, rho_s, om_s, bf_s, divv_s = stage_density(
+            wd, spec, cfg, pos_s, vel_s, mass_s, u_s, h_s, alpha_s=alpha_s)
+        # one packed owner-mirror gather fixes the four window-shipped scalars
+        mirrored = torch.stack([h_s, rho_s, om_s, bf_s], dim=-1)[wd.src]
+        h_s, rho_s, om_s, bf_s = mirrored.unbind(-1)
+        P_s, cs_s = eos(rho_s, u_s, cfg)
+        p3m = cfg.gravity and cfg.grav_solver == "p3m"
+        grav = None
+        if p3m:
+            # the screened short range rides kernel C's walk; rs stays a device
+            # tensor (it depends on domain.extent)
+            rs = pm.rs_traced(cfg, domain, pos_s.dtype, cutoff=spec.cutoff)
+            grav = (rs, float(cfg.grav_eps))
+        acc_s, du_s = stage_forces(wd, spec, cfg, pos_s, vel_s, mass_s, h_s,
+                                   rho_s, P_s, cs_s, om_s, bf_s, grav=grav)
+        # one packed unsort gather for all outputs
+        out = torch.stack([h_s, rho_s, P_s, cs_s, om_s, du_s, divv_s]
+                          + list(acc_s.unbind(-1)), dim=-1)[wd.inv]
+        acc = out[:, 7:7 + dim]
+        if p3m:
+            # O(N log N) FFT mesh long range on the unsorted state (Ewald on a
+            # periodic box, Hockney free space on an open one)
+            acc = acc + pm.mesh_accel(state.pos, state.mass, cfg, domain,
+                                      rs=rs)
+        elif cfg.gravity and not any(domain.periodic_axes(dim)):
+            # direct sum, kernel G (open-boundary convention)
+            acc = acc + direct_gravity.gravity(state.pos, state.mass, cfg)
+        elif cfg.gravity:
+            # direct sum with the min-image convention on a periodic box
+            acc = acc + clist.gravity_dense(state.pos, state.mass, cfg, domain)
+        return state._replace(h=out[:, 0], rho=out[:, 1], P=out[:, 2],
+                              cs=out[:, 3], omega=out[:, 4], acc=acc,
+                              du_dt=out[:, 5], divv=out[:, 6])
 
 
 def update_derived(state: ParticleState, cfg: SPHConfig, domain: Domain,
@@ -345,20 +348,22 @@ def simulate(state: ParticleState, cfg: SPHConfig, domain: Domain,
         state, wd = rebuild(state)
         ref, since = state.pos, 0
         for _ in range(nsteps):
-            dt = local_dt(state, cfg)
-            if (since + 1 >= adaptive_rebuild
-                    or drift_gate(state, ref, dt, spec, skin_safety)):
-                state, wd = rebuild(state)
-                ref, since = state.pos, 0
-            else:
-                since += 1
-            state, drive, dt = step_with(state, wd, drive, dt)
-            dts.append(dt)
+            with span("sphax_torch.step"):
+                dt = local_dt(state, cfg)
+                if (since + 1 >= adaptive_rebuild
+                        or drift_gate(state, ref, dt, spec, skin_safety)):
+                    state, wd = rebuild(state)
+                    ref, since = state.pos, 0
+                else:
+                    since += 1
+                state, drive, dt = step_with(state, wd, drive, dt)
+                dts.append(dt)
         return (state._replace(pos=domain.wrap(state.pos)), drive,
                 torch.stack(dts), torch.stack(ovfs).amax(), len(ovfs))
-    for _ in range(nsteps // rebuild_every):
-        state, wd = rebuild(state)
-        for _ in range(rebuild_every):
+    for i in range(nsteps):
+        with span("sphax_torch.step"):
+            if i % rebuild_every == 0:
+                state, wd = rebuild(state)
             state, drive, dt = step_with(state, wd, drive,
                                          local_dt(state, cfg))
             dts.append(dt)

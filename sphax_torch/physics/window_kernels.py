@@ -48,6 +48,7 @@ import math
 import torch
 
 from sphax_torch.configs import SPHConfig
+from sphax_torch.io.metrics import span
 from sphax_torch.neighbors.window import WindowData, WindowSpec
 from sphax_torch.physics import kernels as K
 from sphax_torch.physics import pairs
@@ -456,31 +457,33 @@ def solve_h_density(wd: WindowData, spec: WindowSpec, pos_s, mass_s, h0_s,
     """Kernel A, in 3D, 2D or 1D, in place or (spec.cwidth > 0) compact.
     Returns (h, rho, drho_dh[, div_sum, curl_mag]) per sorted row; the last
     two only when cfg.need_divv and vel_s is given."""
-    if pos_s.device.type == "cpu":
-        return solve_h_density_plain(wd, spec, pos_s, mass_s, h0_s, cfg,
-                                     vel_s=vel_s)
-    if pos_s.device.type != "cuda":
-        raise ValueError(f"no kernel for device {pos_s.device}")
-    fuse_bals = bool(cfg.need_divv) and vel_s is not None
-    tensors = dict(pos_s=pos_s, mass_s=mass_s, h0_s=h0_s)
-    if fuse_bals:
-        tensors["vel_s"] = vel_s
-    _check_cuda(wd, spec, cfg, pos_s, tensors)
-    dim = cfg.dim
-    # SoA [F, Ns] candidate fields: the dim positions, m (, dim velocities)
-    win = torch.cat([pos_s.T, mass_s[None]]
-                    + ([vel_s.T] if fuse_bals else [])).contiguous()
-    h0 = h0_s.contiguous()
-    outs = [torch.empty_like(h0) for _ in range(5 if fuse_bals else 3)]
-    null = ctypes.c_void_p(None)
-    name, tabs, size = _walk("solve_h_density", wd, spec, dim)
-    _launch(name, pos_s.dtype, _ptr(win), _ptr(h0), *tabs, *size,
-            float(K.sigma(dim)), float(cfg.eta) ** dim,
-            0.5 * float(spec.cutoff),
-            _newton_iters(cfg), int(fuse_bals),
-            *[_ptr(o) for o in outs],
-            *([] if fuse_bals else [null, null]))
-    return tuple(outs)
+    with span("sphax_torch.kernel_a"):
+        if pos_s.device.type == "cpu":
+            return solve_h_density_plain(wd, spec, pos_s, mass_s, h0_s, cfg,
+                                         vel_s=vel_s)
+        if pos_s.device.type != "cuda":
+            raise ValueError(f"no kernel for device {pos_s.device}")
+        fuse_bals = bool(cfg.need_divv) and vel_s is not None
+        tensors = dict(pos_s=pos_s, mass_s=mass_s, h0_s=h0_s)
+        if fuse_bals:
+            tensors["vel_s"] = vel_s
+        _check_cuda(wd, spec, cfg, pos_s, tensors)
+        dim = cfg.dim
+        # SoA [F, Ns] candidate fields: the dim positions, m (, dim
+        # velocities)
+        win = torch.cat([pos_s.T, mass_s[None]]
+                        + ([vel_s.T] if fuse_bals else [])).contiguous()
+        h0 = h0_s.contiguous()
+        outs = [torch.empty_like(h0) for _ in range(5 if fuse_bals else 3)]
+        null = ctypes.c_void_p(None)
+        name, tabs, size = _walk("solve_h_density", wd, spec, dim)
+        _launch(name, pos_s.dtype, _ptr(win), _ptr(h0), *tabs, *size,
+                float(K.sigma(dim)), float(cfg.eta) ** dim,
+                0.5 * float(spec.cutoff),
+                _newton_iters(cfg), int(fuse_bals),
+                *[_ptr(o) for o in outs],
+                *([] if fuse_bals else [null, null]))
+        return tuple(outs)
 
 
 def forces(wd: WindowData, spec: WindowSpec, pos_s, vel_s, mass_s, h_s,
@@ -491,49 +494,51 @@ def forces(wd: WindowData, spec: WindowSpec, pos_s, vel_s, mass_s, h_s,
     the screened P3M short range over the same candidates, hard-cut at
     spec.cutoff; ``rs`` is a 0-d tensor on the inputs' device, so no step
     waits on the host."""
-    if pos_s.device.type == "cpu":
-        return forces_plain(wd, spec, pos_s, vel_s, mass_s, h_s, rho_s, P_s,
-                            cs_s, om_s, bf_s, cfg, grav=grav)
-    if pos_s.device.type != "cuda":
-        raise ValueError(f"no kernel for device {pos_s.device}")
-    use_bf = bool(cfg.visc_factor_on)
-    tensors = dict(pos_s=pos_s, vel_s=vel_s, mass_s=mass_s, h_s=h_s,
-                   rho_s=rho_s, P_s=P_s, cs_s=cs_s, om_s=om_s)
-    if use_bf:
-        tensors["bf_s"] = bf_s
-    _check_cuda(wd, spec, cfg, pos_s, tensors, grav=grav is not None)
-    dim = cfg.dim
-    # per-particle hoisted fields, as the Pallas kernel ships them
-    invh = 1.0 / h_s
-    ci = P_s / (om_s * rho_s * rho_s)
-    gc1 = float(K.sigma(dim)) * invh ** (dim + 1)
-    gc2 = gc1 * invh
-    # SoA [F, Ns]: the dim positions and velocities, then
-    # m h invh rho cs ci gc1 gc2 (bf)
-    win = torch.cat([pos_s.T, vel_s.T]
-                    + [f[None] for f in (mass_s, h_s, invh, rho_s, cs_s, ci,
-                                         gc1, gc2)]
-                    + ([bf_s[None]] if use_bf else [])).contiguous()
-    acc = torch.empty_like(pos_s, memory_format=torch.contiguous_format)
-    du = torch.empty_like(h_s, memory_format=torch.contiguous_format)
-    fast = bool(cfg.fast_math) and pos_s.dtype == torch.float32
-    name, tabs, size = _walk("forces" if grav is None else "forces_grav",
-                             wd, spec, dim)
-    args = [_ptr(win), *tabs, *size, float(cfg.alpha_visc),
-            float(cfg.beta_visc), float(cfg.eps_visc), int(use_bf), int(fast)]
-    if grav is None:
-        _launch(name, pos_s.dtype, *args, _ptr(acc), _ptr(du))
+    with span("sphax_torch.kernel_c"):
+        if pos_s.device.type == "cpu":
+            return forces_plain(wd, spec, pos_s, vel_s, mass_s, h_s, rho_s,
+                                P_s, cs_s, om_s, bf_s, cfg, grav=grav)
+        if pos_s.device.type != "cuda":
+            raise ValueError(f"no kernel for device {pos_s.device}")
+        use_bf = bool(cfg.visc_factor_on)
+        tensors = dict(pos_s=pos_s, vel_s=vel_s, mass_s=mass_s, h_s=h_s,
+                       rho_s=rho_s, P_s=P_s, cs_s=cs_s, om_s=om_s)
+        if use_bf:
+            tensors["bf_s"] = bf_s
+        _check_cuda(wd, spec, cfg, pos_s, tensors, grav=grav is not None)
+        dim = cfg.dim
+        # per-particle hoisted fields, as the Pallas kernel ships them
+        invh = 1.0 / h_s
+        ci = P_s / (om_s * rho_s * rho_s)
+        gc1 = float(K.sigma(dim)) * invh ** (dim + 1)
+        gc2 = gc1 * invh
+        # SoA [F, Ns]: the dim positions and velocities, then
+        # m h invh rho cs ci gc1 gc2 (bf)
+        win = torch.cat([pos_s.T, vel_s.T]
+                        + [f[None] for f in (mass_s, h_s, invh, rho_s, cs_s,
+                                             ci, gc1, gc2)]
+                        + ([bf_s[None]] if use_bf else [])).contiguous()
+        acc = torch.empty_like(pos_s, memory_format=torch.contiguous_format)
+        du = torch.empty_like(h_s, memory_format=torch.contiguous_format)
+        fast = bool(cfg.fast_math) and pos_s.dtype == torch.float32
+        name, tabs, size = _walk("forces" if grav is None else "forces_grav",
+                                 wd, spec, dim)
+        args = [_ptr(win), *tabs, *size, float(cfg.alpha_visc),
+                float(cfg.beta_visc), float(cfg.eps_visc), int(use_bf),
+                int(fast)]
+        if grav is None:
+            _launch(name, pos_s.dtype, *args, _ptr(acc), _ptr(du))
+            return acc, du
+        rs, eps = grav
+        if (not isinstance(rs, torch.Tensor) or rs.device != pos_s.device
+                or rs.numel() != 1):
+            raise ValueError(f"grav rs must be a one-element tensor on "
+                             f"{pos_s.device}")
+        rs = rs.reshape(()).to(pos_s.dtype)
+        e = torch.full_like(rs, float(eps))
+        # the per-pair form needs only these: x = r * sc0,
+        # screen = erfc(x) + r * sc1 * exp(-x^2), soft = rsqrt(r^2 + sc2)^3
+        gsc = torch.stack([0.5 / rs, 1.0 / (rs * math.sqrt(math.pi)), e * e])
+        _launch(name, pos_s.dtype, *args, _ptr(gsc), float(cfg.G),
+                float(spec.cutoff) ** 2, _ptr(acc), _ptr(du))
         return acc, du
-    rs, eps = grav
-    if (not isinstance(rs, torch.Tensor) or rs.device != pos_s.device
-            or rs.numel() != 1):
-        raise ValueError(f"grav rs must be a one-element tensor on "
-                         f"{pos_s.device}")
-    rs = rs.reshape(()).to(pos_s.dtype)
-    e = torch.full_like(rs, float(eps))
-    # the per-pair form needs only these: x = r * sc0,
-    # screen = erfc(x) + r * sc1 * exp(-x^2), soft = rsqrt(r^2 + sc2)^3
-    gsc = torch.stack([0.5 / rs, 1.0 / (rs * math.sqrt(math.pi)), e * e])
-    _launch(name, pos_s.dtype, *args, _ptr(gsc), float(cfg.G),
-            float(spec.cutoff) ** 2, _ptr(acc), _ptr(du))
-    return acc, du
