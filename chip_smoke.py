@@ -322,8 +322,19 @@ Phases, in order; any failed check raises and exits non-zero:
                (events); the CLI's ``turb n=100 gravity=1 grav_solver=p3m
                grav_mesh=128`` (the scatter mesh, kernel C's gravity mode)
                for 4 steps with ``mesh_fb`` in its record
+ 45. rowpack   the derived pass's three row-packing kernels
+               (``physics/rowpack.py``) at turb256's shapes (``problems.turb
+               n=256 accel_rms=0.2``, fp32): each bitwise equal to its plain
+               version; ms a launch, bound (bytes over 3.35 TB/s), plain
+               ms; a derived pass bitwise equal to the plain versions' and
+               to the frozen pass of tests/_rowpack_frozen.py, one launch
+               of each kernel
 Each path runs with every launch count set to 0 just before it, and its
-counts are read just after; the slab and pencil CLIs' ranks are processes
+counts are read just after: those of kernels A, C and G
+(``window_kernels.LAUNCHES``) and of the three row-packing kernels
+(``rowpack.LAUNCHES``), which launch once each in every derived pass of
+the window engine (``wengine.derived_with``) and never on the block
+timesteps' ticks or in a shard's pass; the slab and pencil CLIs' ranks are processes
 of their own whose counts start at 0, and each chunk's record carries their
 sums (``SlabRun.chunk_record``), which phases 31, 34 and 36-38 add up. Each kernel's
 bound is the larger of its bytes over 3.35 TB/s and its operations on the
@@ -382,7 +393,7 @@ def main():
     from sphax_torch.io import checkpoint
     from sphax_torch.neighbors import window as win
     from sphax_torch.physics import direct_gravity as dg
-    from sphax_torch.physics import driving, pm, wengine
+    from sphax_torch.physics import driving, pm, rowpack, wengine
     from sphax_torch.physics import window_kernels as wk
 
     dev = torch.device("cuda")
@@ -531,10 +542,11 @@ def main():
         saved = wk.solve_h_density, wk.forces
         wk.solve_h_density, wk.forces = wk.solve_h_density_plain, \
             wk.forces_plain
-        try:
-            yield
-        finally:
-            wk.solve_h_density, wk.forces = saved
+        with plain_rowpack():
+            try:
+                yield
+            finally:
+                wk.solve_h_density, wk.forces = saved
 
     cfg = dataclasses.replace(configs.TURB, newton_iters=1)
     st, dom, spec = bench.setup(48, cfg, dev, vel_scale=0.4, **knobs)
@@ -551,23 +563,42 @@ def main():
 
     paths = {}
 
+    def zero_counts():
+        """Set the launch counts of kernels A, C and G and of the three
+        row-packing kernels to 0."""
+        for c_ in (wk.LAUNCHES, rowpack.LAUNCHES):
+            for k in c_:
+                c_[k] = 0
+
+    def counts():
+        return dict(wk.LAUNCHES) | dict(rowpack.LAUNCHES)
+
+    # one derived pass of the window engine: each row-packing kernel once
+    one_pass = {k: 1 for k in rowpack.LAUNCHES}
+
     def _key(base, compact, dim):
         """The launch key of a walk (window_kernels._walk's)."""
         return wk._kernel_name(f"{base}_compact" if compact else base, dim)
 
-    def drive(name, run, want):
+    def drive(name, run, want, derived=None):
         """Run one path with every launch count set to 0 just before it;
         read the counts just after and hold them to ``want`` (kernels
         absent from it must not launch), or to ``want(out)`` where the
-        count depends on the run."""
-        for k in wk.LAUNCHES:
-            wk.LAUNCHES[k] = 0
+        count depends on the run. Each row-packing kernel must launch
+        ``derived`` times, once a derived pass of the window engine; by
+        default as often as kernel C, as on every path without block
+        timesteps (whose ticks launch C outside that pass)."""
+        zero_counts()
         out = run()
         torch.cuda.synchronize()
-        paths[name] = dict(wk.LAUNCHES)
+        paths[name] = counts()
         if callable(want):
             want = want(out)
-        assert paths[name] == {k: want.get(k, 0) for k in wk.LAUNCHES}, (
+        if derived is None:
+            derived = sum(v for k, v in want.items()
+                          if k.startswith("forces"))
+        want = want | {k: derived for k in rowpack.LAUNCHES}
+        assert paths[name] == {k: want.get(k, 0) for k in paths[name]}, (
             name, paths[name])
         return out
 
@@ -1462,7 +1493,7 @@ def main():
         "rungs B=1", lambda: rungs.simulate_rungs(
             st_s, cfg_s, dom_s, spec_s, nspans=2, n_rungs=1,
             rebuild_every=1),
-        {"solve_h_density": 3, "forces": 2})
+        {"solve_h_density": 3, "forces": 2}, derived=0)
     assert int(ovf_g1) == 0 and int(ovf_r1) == 0 and int(viol1) == 0
     assert builds1 == 2 and bool((nact1 == st_s.n).all())
     torch.testing.assert_close(dts_r1, dts_g1, rtol=1e-6, atol=0.0)
@@ -1498,7 +1529,7 @@ def main():
             st_c, t_c, step_c = drive(label, lambda: cli(
                 ["sedov", "n=100", "rungs=4", "max_steps=16", "chunk=16",
                  f"out={out}"] + extra_args),
-                {"solve_h_density": 18, "forces": 17})
+                {"solve_h_density": 18, "forces": 17}, derived=1)
         finally:
             rungs.mask_structure = real_mask
         wall_c = time.perf_counter() - t0
@@ -1664,7 +1695,8 @@ def main():
             lambda out: ({"solve_h_density": 1 + out[1],
                           "forces": 1 + out[1]} if n_rungs == 1 else
                          {"solve_h_density": 1 + out[1] + out[1] // 32,
-                          "forces": 1 + out[1]}))
+                          "forces": 1 + out[1]}),
+            derived=None if n_rungs == 1 else 1)
         wall25 = time.perf_counter() - t0
         assert abs(r_meas - r_th) / r_th < 0.25, (r_meas, r_th, t25)
         assert de < e_tol, de
@@ -2070,8 +2102,7 @@ def main():
     torch.cuda.empty_cache()
     slab_args = ["turb", "n=100", "chunk=8", "max_steps=16"]
     d2 = fresh(os.path.join("build", "smoke", "slab2"))
-    for k in wk.LAUNCHES:
-        wk.LAUNCHES[k] = 0
+    zero_counts()
     builds0 = win.BUILDS["n"]
     t0 = time.perf_counter()
     _, t2, step2 = cli(slab_args + ["shards=2", "checkpoint_every=1",
@@ -2080,10 +2111,10 @@ def main():
     torch.cuda.synchronize()
     # this process builds the problem (one single-device derived pass) and
     # splits it; the ranks' counts come with their records
-    setup2 = dict(wk.LAUNCHES)
+    setup2 = counts()
     setup2_builds = win.BUILDS["n"] - builds0
     assert {k: v for k, v in setup2.items() if v} == {
-        "solve_h_density": 1, "forces": 1}, setup2
+        "solve_h_density": 1, "forces": 1} | one_pass, setup2
     recs2 = records(d2)
     assert step2 == 16 and all(r["finite"] for r in recs2)
     chunks2 = [r["chunk"] for r in recs2 if "chunk" in r]
@@ -2095,7 +2126,7 @@ def main():
     assert slab_launches == {"solve_h_density": 32, "forces": 32}, \
         slab_launches
     paths["slab shards=2"] = {k: slab_launches.get(k, 0) + setup2[k]
-                              for k in wk.LAUNCHES}
+                              for k in setup2}
     st2, _, _, _, x2 = checkpoint.load(os.path.join(d2, "checkpoint.npz"),
                                        device="cpu")
     assert x2["shards"] == "2" and st2.n == 100 ** 3
@@ -2297,7 +2328,8 @@ def main():
         ref, dts_ref, nact_ref, ovf, viol_ref, _ = drive(
             f"rungs lockstep {tag}", lambda: rungs.simulate_rungs(
                 st0, cfg_r, dom, spec1, nspans=1, n_rungs=3,
-                rebuild_every=2), {"solve_h_density": 5, "forces": 4})
+                rebuild_every=2), {"solve_h_density": 5, "forces": 4},
+            derived=0)
         assert int(ovf) == 0 and int(nact_ref.min()) < st0.n
         # shards and send buffers that hold a cut moved by whole cells
         spec = wslab.plan(dom, st0.n, float(st0.h.max()) * 1.1, 2,
@@ -2355,16 +2387,16 @@ def main():
     # ---- 34. the slice at full size: sedov n=100 shards=2 rungs=4 --------
     torch.cuda.empty_cache()
     dr = fresh(os.path.join("build", "smoke", "rung2"))
-    for k in wk.LAUNCHES:
-        wk.LAUNCHES[k] = 0
+    zero_counts()
     t0 = time.perf_counter()
     _, t_r2, step_r2 = cli(["sedov", "n=100", "shards=2", "rungs=4",
                             "chunk=8", "max_steps=16", "checkpoint_every=1",
                             f"out={dr}"])
     wall_r2 = time.perf_counter() - t0
     torch.cuda.synchronize()
-    setup_r2 = {k: v for k, v in wk.LAUNCHES.items() if v}
-    assert setup_r2 == {"solve_h_density": 1, "forces": 1}, setup_r2
+    setup_r2 = {k: v for k, v in counts().items() if v}
+    assert setup_r2 == {"solve_h_density": 1, "forces": 1} | one_pass, \
+        setup_r2
     recs_r2 = records(dr)
     assert step_r2 == 16 and all(r["finite"] for r in recs_r2)
     chunks_r2 = [r["chunk"] for r in recs_r2 if "chunk" in r]
@@ -2377,7 +2409,7 @@ def main():
     want_r2 = {"solve_h_density": 2 * 2 * (1 + 8), "forces": 2 * 2 * 8}
     assert rung_launches == want_r2, rung_launches
     paths["rung shards=2"] = {k: rung_launches.get(k, 0)
-                              + setup_r2.get(k, 0) for k in wk.LAUNCHES}
+                              + setup_r2.get(k, 0) for k in counts()}
     for r in recs_r2[:2]:
         closings = r["active_frac"] * 100 ** 3 * 8
         assert r["dt_viol"] < 0.05 * closings, r
@@ -2545,17 +2577,17 @@ def main():
 
     def pencil_cli(tag, args, setup_want, rank_want, out):
         """One pencil CLI run with the counts at 0 just before it: the
-        set-up's launches in this process held to ``setup_want``, the
+        set-up's launches in this process (one single-device derived pass)
+        held to ``setup_want`` and one pass of the row packing, the
         ranks' (the records' sums) to ``rank_want``; (t, step, records,
         chunk records, rank launches, wall, |sum m v| / sum m|v|)."""
-        for k in wk.LAUNCHES:
-            wk.LAUNCHES[k] = 0
+        zero_counts()
         t0 = time.perf_counter()
         _, t_, step_ = cli(args + ["checkpoint_every=1", f"out={out}"])
         wall = time.perf_counter() - t0
         torch.cuda.synchronize()
-        setup = {k: v for k, v in wk.LAUNCHES.items() if v}
-        assert setup == setup_want, (tag, setup)
+        setup = {k: v for k, v in counts().items() if v}
+        assert setup == setup_want | one_pass, (tag, setup)
         recs = records(out)
         assert all(r["finite"] for r in recs), tag
         chunks = [r["chunk"] for r in recs if "chunk" in r]
@@ -2565,7 +2597,7 @@ def main():
                 ranks[k] = ranks.get(k, 0) + v
         assert ranks == rank_want, (tag, ranks)
         paths[tag] = {k: ranks.get(k, 0) + setup.get(k, 0)
-                      for k in wk.LAUNCHES}
+                      for k in counts()}
         st_, _, _, _, x_ = checkpoint.load(os.path.join(out,
                                                         "checkpoint.npz"),
                                            device="cpu")
@@ -2823,8 +2855,15 @@ def main():
     log(f"[44 sorted mesh] {sm_rec['seconds']:.1f} s; phases 42-44 "
         f"{new_s:.1f} s")
 
+    # ---- 45. the derived pass's row gathers and packing at turb256 -------
+    rp_rec = rowpack_phase(dev, helpers)
+
     def total(kernel):
         return sum(p_[kernel] for p_ in paths.values())
+
+    # each row-packing kernel's launches over every path, as A's and C's
+    for row in rp_rec["kernels"]:
+        row["launches"] = total(row["name"])
 
     src = "sphax_torch/csrc/window_kernels.cu"
     a_ms, a_pms, a_e = times["A h_predict"]
@@ -3117,11 +3156,11 @@ def main():
         "h_predict": hp,
         "entry": entry_rec, "slow_gates": gates, "sanitize": san,
         "clist": clist_rec, "eq_slab": eq_rec, "sorted_mesh": sm_rec,
-        "phases_42_44_s": new_s,
+        "phases_42_44_s": new_s, "rowpack": rp_rec,
         "script_wall_s": time.perf_counter() - t_script,
         "build_s": _build.BUILD_INFO["seconds"],
         "card": card}
-    log(f"[done] phases 1-44 in {kernels['script_wall_s']:.1f} s")
+    log(f"[done] phases 1-45 in {kernels['script_wall_s']:.1f} s")
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -3288,7 +3327,7 @@ def slow_gates_phase(dev, h):
                             lambda: rungs.simulate_rungs(
                                 st, cfg, dom, spec, nspans=2, n_rungs=3,
                                 rebuild_every=2),
-                            {"solve_h_density": 9, "forces": 8})
+                            {"solve_h_density": 9, "forces": 8}, derived=0)
     (st_n, _, nact_n, ovf_n, _, _), (st_p, _, _, ovf_p, _, _) = \
         runs["newton"], runs["h_predict"]
     assert int(ovf_n) == 0 and int(ovf_p) == 0
@@ -4103,6 +4142,154 @@ def candidate_rows(wd, spec):
     real = wd.is_real
     return tuple(float(x.repeat_interleave(spec.group)[real].double().mean())
                  for x in (walked, computed))
+
+
+@contextlib.contextmanager
+def plain_rowpack():
+    """The derived pass's row gathers and packing through their plain torch
+    versions (the composition they replaced), on any device."""
+    from sphax_torch.physics import rowpack
+
+    names = ("gather_a", "gather_c", "scatter_out")
+    saved = [getattr(rowpack, k) for k in names]
+    for k in names:
+        setattr(rowpack, k, getattr(rowpack, f"{k}_plain"))
+    try:
+        yield
+    finally:
+        for k, fn in zip(names, saved):
+            setattr(rowpack, k, fn)
+
+
+def rowpack_bytes(dim, n, Ns, size, alpha=False, bf=True):
+    """Bytes a launch of each row-packing kernel moves, each input read
+    once and each output written once: gather_a reads g, shift_s and (for
+    the N rows that are particles) pos, vel, m, u, h (, alpha), and writes
+    A's window and h0, u (, alpha); gather_c reads A's window and src,
+    and six sorted fields (five without bf) at the N + 1 rows that src
+    names (the N owner rows and the one row every pad row mirrors), and
+    writes C's window; scatter_out reads inv and, at the N owner rows, 7
+    scalars and acc, and writes them."""
+    from sphax_torch.physics import rowpack
+
+    fa = 2 * dim + 3 + int(alpha)
+    return {
+        "rowpack_gather_a": Ns * (4 + dim * size) + n * fa * size
+        + Ns * (2 * dim + 3 + int(alpha)) * size,
+        "rowpack_gather_c": Ns * ((2 * dim + 1) * size + 4)
+        + (n + 1) * (5 + int(bf)) * size
+        + Ns * rowpack.c_rows(dim, bf) * size,
+        "rowpack_scatter_out": n * (4 + 2 * (7 + dim) * size),
+    }
+
+
+def rowpack_phase(dev, h, n_side=256):
+    """Phase 45: the three row-packing kernels at turb256's shapes
+    (``problems.turb(n=256, accel_rms=0.2)``, the benchmark's turbulence
+    configuration, fp32): each launch bit for bit equal to its plain
+    version; a derived pass (a path of ``h.drive``: one launch of A, C and
+    each row-packing kernel) equal bit for bit to the same pass through
+    the plain versions (the composition they replaced) and to the frozen
+    copy of that composition in tests/_rowpack_frozen.py; ms a launch
+    (CUDA events), its bound (bytes over 3.35 TB/s) and the plain
+    version's ms. Returns its record."""
+    from sphax_torch import problems
+    from sphax_torch.neighbors import window as win
+    from sphax_torch.physics import rowpack, wengine
+    from sphax_torch.physics import window_kernels as wk
+    from sphax_torch.physics.eos import eos
+    from tests._rowpack_frozen import frozen_derived
+
+    t_phase = time.perf_counter()
+    prob = problems.turb(n=n_side, accel_rms=0.2, device=dev)
+    st, cfg, dom, spec = prob.state, prob.cfg, prob.domain, prob.wspec
+    wd = win.build(st.pos, dom, spec)
+    dim, n, Ns = st.dim, st.n, spec.n_sorted
+    size = st.pos.element_size()
+
+    def same(a, b, what):
+        assert a.shape == b.shape and torch.equal(a, b), (
+            f"{what}: {int((a != b).sum())} entries differ")
+
+    def ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(reps):
+            out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / reps, out
+
+    # the inputs gather_c and scatter_out see in a derived pass
+    win_a, h0_s, u_s, _ = rowpack.gather_a(st, wd, cfg)
+    h_s, rho_s, om_s, bf_s, divv_s = wengine.stage_density(
+        wd, spec, cfg, win_a[:dim].T, win_a[dim + 1:].T, win_a[dim], u_s,
+        h0_s, win=win_a)
+    P_s, cs_s = eos(rho_s, u_s, cfg)
+    c_args = (win_a, wd, cfg, h_s, rho_s, om_s, bf_s, P_s, cs_s)
+    win_c, mirrored = rowpack.gather_c(*c_args)
+    acc_s, du_s = wengine.stage_forces(wd, spec, cfg, win_a[:dim].T,
+                                       win_a[dim + 1:].T, win_a[dim],
+                                       *mirrored, win=win_c)
+    s_args = (wd, h_s, rho_s, P_s, cs_s, om_s, du_s, divv_s, acc_s)
+    runs = {"rowpack_gather_a": (lambda: rowpack.gather_a(st, wd, cfg),
+                                 lambda: rowpack.gather_a_plain(st, wd, cfg)),
+            "rowpack_gather_c": (lambda: rowpack.gather_c(*c_args),
+                                 lambda: rowpack.gather_c_plain(*c_args)),
+            "rowpack_scatter_out": (
+                lambda: rowpack.scatter_out(*s_args),
+                lambda: rowpack.scatter_out_plain(*s_args))}
+    nbytes = rowpack_bytes(dim, n, Ns, size, alpha=cfg.mm_visc,
+                           bf=cfg.visc_factor_on)
+    rows = []
+    for name, (kern, plain) in runs.items():
+        k_ms, got = ms(kern, 20)
+        p_ms, want = ms(plain, 5)
+        got = got[:1] if name == "rowpack_gather_c" else got
+        want = want[:1] if name == "rowpack_gather_c" else want
+        for k, (a, b) in enumerate(zip(got, want)):
+            if b is not None:
+                same(a, b, f"{name} output {k}")
+        b_ms, by = bound(nbytes[name], 0, st.pos.dtype)
+        rows.append({"name": name, "ms": k_ms, "bound_ms": b_ms, "by": by,
+                     "bytes": nbytes[name], "plain_ms": p_ms,
+                     "bitwise_equal": True})
+        log(f"[45 rowpack] {name:20s} {k_ms:.3f} ms  bound {b_ms:.3f} ms "
+            f"({by}, {nbytes[name] / 1e9:.2f} GB)  plain {p_ms:.3f} ms  "
+            f"bitwise equal")
+    del win_a, h0_s, u_s, h_s, rho_s, om_s, bf_s, divv_s, P_s, cs_s, c_args
+    del win_c, mirrored, acc_s, du_s, s_args
+
+    # the whole derived pass: the kernels, the plain versions, the frozen
+    # composition
+    compact = "_compact" if spec.cwidth > 0 else ""
+    got = h.drive("rowpack derived pass", lambda: wengine.derived_with(
+        st, wd, cfg, dom, spec), {
+            wk._kernel_name(f"solve_h_density{compact}", dim): 1,
+            wk._kernel_name(f"forces{compact}", dim): 1})
+    fields = ("h", "rho", "P", "cs", "omega", "acc", "du_dt", "divv")
+    with plain_rowpack():
+        want = wengine.derived_with(st, wd, cfg, dom, spec)
+    for f in fields:
+        same(getattr(got, f), getattr(want, f), f"derived {f} (plain)")
+    del want
+    frozen = frozen_derived(st, wd, cfg, dom, spec)
+    for f in fields:
+        same(getattr(got, f), getattr(frozen, f), f"derived {f} (frozen)")
+    del frozen
+    d_ms, _ = ms(lambda: wengine.derived_with(st, wd, cfg, dom, spec), 5)
+    with plain_rowpack():
+        dp_ms, _ = ms(lambda: wengine.derived_with(st, wd, cfg, dom, spec),
+                      5)
+    log(f"[45 rowpack] derived_with at n={n} (Ns={Ns}): bitwise equal to "
+        f"the plain versions' and the frozen pass, one launch of each "
+        f"row-packing kernel; {d_ms:.2f} ms a pass, {dp_ms:.2f} ms through "
+        f"the plain versions")
+    return {"n": n, "n_sorted": Ns, "kernels": rows, "derived_ms": d_ms,
+            "derived_plain_ms": dp_ms,
+            "seconds": time.perf_counter() - t_phase}
 
 
 if __name__ == "__main__":

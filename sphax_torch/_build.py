@@ -19,7 +19,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "window_kernels.cu", CSRC / "gravity_kernel.cu")
+SOURCES = (CSRC / "window_kernels.cu", CSRC / "gravity_kernel.cu",
+           CSRC / "rowpack.cu")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "sphax_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
@@ -56,6 +57,18 @@ _ARGTYPES.update({f"{k}_compact": v[:v.index(_D)] + [_I] + v[v.index(_D):]
 _ARGTYPES.update({f"{k}{c}_{d}d": _ARGTYPES[f"{k}{c}"]
                   for k in ("sphax_solve_h_density", "sphax_forces")
                   for c in ("", "_compact") for d in (2, 1)})
+# the derived pass's row gathers and packing (csrc/rowpack.cu): dim and
+# the optional field's flag (and kernel C's sigma) after the sizes
+_ARGTYPES.update({
+    # pos, vel, mass, u, h, alpha, g, shift, n, Ns, dim, use_alpha, win,
+    # h_s, u_s, alpha_s, stream
+    "sphax_rowpack_gather_a": [_P] * 8 + [_I] * 4 + [_P] * 5,
+    # win_a, src, h, rho, om, bf, P, cs, Ns, dim, use_bf, sigma, win, stream
+    "sphax_rowpack_gather_c": [_P] * 8 + [_I] * 3 + [_D, _P, _P],
+    # inv, h_s, rho_s, P_s, cs_s, om_s, du_s, divv_s, acc_s, n, dim, h, rho,
+    # P, cs, om, du, divv, acc, stream
+    "sphax_rowpack_scatter_out": [_P] * 9 + [_I] * 2 + [_P] * 9,
+})
 
 
 def cuda_tool(name: str):

@@ -32,6 +32,7 @@ from sphax_torch.configs import SPHConfig
 from sphax_torch.core.state import Domain, ParticleState
 from sphax_torch.dist import comm as comm_mod
 from sphax_torch.dist import pencil, prungs, wrungs, wslab
+from sphax_torch.physics import rowpack
 from sphax_torch.physics import window_kernels as wk
 
 
@@ -76,6 +77,11 @@ def split_pencil(state: ParticleState, domain: Domain, ns0: int, ns1: int):
     return spec, cuts, rows
 
 
+def _launches() -> dict:
+    """This process's launch counts of every hand-written CUDA kernel."""
+    return dict(wk.LAUNCHES) | dict(rowpack.LAUNCHES)
+
+
 class SlabRun:
     """One rank's share of a distributed simulation: its shard of the
     state, the decomposition's spec and cuts, and the chunk loop.
@@ -85,8 +91,9 @@ class SlabRun:
     is the rank's OU noise source when ``drive_spec`` is given: every rank
     must draw the same stream. After ``run_chunk``, ``stats`` holds this
     rank's share of the chunk: its steps, builds, wall seconds, host-staged
-    bytes, kernel launches (``window_kernels.LAUNCHES`` keys), the
-    rebalance's seconds and the migration's passes and seconds.
+    bytes, kernel launches (``window_kernels.LAUNCHES`` and
+    ``rowpack.LAUNCHES`` keys), the rebalance's seconds and the
+    migration's passes and seconds.
 
     ``n_rungs = B > 1`` runs block timesteps on B rungs: a chunk is whole
     spans of 2^(B-1) ticks, ``rebuild_every`` falls to 1 where it does not
@@ -152,7 +159,7 @@ class SlabRun:
         # that is still writing a checkpoint
         self.comm.barrier()
         staged0 = dict(comm_mod.STAGED)
-        launches0 = dict(wk.LAUNCHES)
+        launches0 = _launches()
         t0 = time.perf_counter()
         dts, health, builds, tot = self._advance(nsteps)
         self.last_rebuilds = builds
@@ -162,7 +169,7 @@ class SlabRun:
                           staged={k: v - staged0[k]
                                   for k, v in comm_mod.STAGED.items()},
                           launches={k: v - launches0[k]
-                                    for k, v in wk.LAUNCHES.items()})
+                                    for k, v in _launches().items()})
         if dropped:
             raise RuntimeError(f"{dropped} ghosts dropped in chunk; re-plan "
                                "with larger ghost capacity")
@@ -267,7 +274,7 @@ class SlabRun:
         passes; with rungs also the active fraction and the dt violations;
         and the imbalance (``imbalance``) before and after the rebalance
         where the run tracks it."""
-        keys = sorted(wk.LAUNCHES)
+        keys = sorted(_launches())
         st = self.stats
         dev = self.comm.device
         sums = self.comm.all_reduce_sum(torch.tensor(

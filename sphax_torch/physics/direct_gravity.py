@@ -20,6 +20,7 @@ import torch
 
 from sphax_torch.configs import SPHConfig
 from sphax_torch.physics import window_kernels as wk
+from sphax_torch.physics.cuda_call import launch, ptr
 
 
 def _check_eps(cfg: SPHConfig):
@@ -122,7 +123,7 @@ def _launch(pos, mass, cfg: SPHConfig, plan):
     src = torch.cat([pos, mass[:, None]], 1)
     work = (torch.empty((slices, 3, n), dtype=pos.dtype, device=pos.device)
             if slices > 1 else None)
-    wk._launch("gravity", pos.dtype, wk._ptr(src), n,
-               float(cfg.grav_eps) ** 2, float(cfg.G), rows, slices, cols,
-               None if work is None else wk._ptr(work), wk._ptr(acc))
+    launch(wk.LAUNCHES, "gravity", pos.dtype, ptr(src), n,
+           float(cfg.grav_eps) ** 2, float(cfg.G), rows, slices, cols,
+           ptr(work), ptr(acc))
     return acc

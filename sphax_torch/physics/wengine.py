@@ -34,7 +34,7 @@ from sphax_torch.neighbors import window as win
 from sphax_torch.neighbors.window import WindowData, WindowSpec
 from sphax_torch.physics import clist, direct_gravity, pm
 from sphax_torch.physics import driving as drv
-from sphax_torch.physics import pairs
+from sphax_torch.physics import pairs, rowpack
 from sphax_torch.physics import window_kernels as wk
 from sphax_torch.physics.eos import eos
 
@@ -151,11 +151,12 @@ def gravity_short_pass(wd, spec: WindowSpec, pos_s, mass_s, cfg: SPHConfig,
 
 
 def stage_density(wd, spec: WindowSpec, cfg: SPHConfig, pos_s, vel_s, mass_s,
-                  u_s, h_s, alpha_s=None):
+                  u_s, h_s, alpha_s=None, win=None):
     """Density stage: Newton-h + density + Omega + viscosity factor.
 
     Returns (h, rho, om, vf, divv) in SORTED order, valid on OWNER rows only
-    (ghost rows ran on junk windows); the caller mirrors ghosts.
+    (ghost rows ran on junk windows); the caller mirrors ghosts. ``win``:
+    kernel A's window prepacked (``window_kernels.solve_h_density``).
     """
     if cfg.h_predict and cfg.adaptive_h:
         # the continuity predictor can push h past the structural cap, and
@@ -164,7 +165,7 @@ def stage_density(wd, spec: WindowSpec, cfg: SPHConfig, pos_s, vel_s, mass_s,
         h_s = torch.where(mass_s > 0,
                           torch.clamp_max(h_s, 0.5 * spec.cutoff), h_s)
     outs = wk.solve_h_density(wd, spec, pos_s, mass_s, h_s, cfg,
-                              vel_s=vel_s if cfg.need_divv else None)
+                              vel_s=vel_s if cfg.need_divv else None, win=win)
     h_s, rho_s, drho_dh = outs[:3]
     rho_s = torch.clamp_min(rho_s, 1e-15)
     if cfg.grad_h:
@@ -202,12 +203,13 @@ def stage_density(wd, spec: WindowSpec, cfg: SPHConfig, pos_s, vel_s, mass_s,
 
 
 def stage_forces(wd, spec: WindowSpec, cfg: SPHConfig, pos_s, vel_s, mass_s,
-                 h_s, rho_s, P_s, cs_s, om_s, bf_s, grav=None):
+                 h_s, rho_s, P_s, cs_s, om_s, bf_s, grav=None, win=None):
     """Force stage: symmetrized pressure + viscosity + du/dt (sorted order),
     with ``grav=(rs, eps)`` the fused screened P3M short range. All j-side
-    inputs must already be owner-correct on every sorted row."""
+    inputs must already be owner-correct on every sorted row. ``win``:
+    kernel C's window prepacked (``window_kernels.forces``)."""
     return wk.forces(wd, spec, pos_s, vel_s, mass_s, h_s, rho_s, P_s, cs_s,
-                     om_s, bf_s, cfg, grav=grav)
+                     om_s, bf_s, cfg, grav=grav, win=win)
 
 
 def derived_with(state: ParticleState, wd, cfg: SPHConfig, domain: Domain,
@@ -219,26 +221,19 @@ def derived_with(state: ParticleState, wd, cfg: SPHConfig, domain: Domain,
         raise ValueError(f"state dim {state.dim} != cfg.dim {cfg.dim}")
     with span("sphax_torch.derived"):
         dim = state.dim
-        # ONE packed input gather; pos gets the image shifts added back
-        cols = [state.pos, state.vel, state.mass[:, None], state.u[:, None],
-                state.h[:, None]]
-        fills = [0.0] * (2 * dim) + [0.0, 0.0, 1.0]
-        if cfg.mm_visc:
-            cols.append(state.alpha[:, None])
-            fills.append(1.0)
-        g_s = win.gather_sorted_cols(torch.cat(cols, dim=-1), wd, fills)
-        pos_s = g_s[:, :dim] + wd.shift_s
-        vel_s = g_s[:, dim:2 * dim]
-        mass_s = g_s[:, 2 * dim]
-        u_s = g_s[:, 2 * dim + 1]
-        h_s = g_s[:, 2 * dim + 2]
-        alpha_s = g_s[:, 2 * dim + 3] if cfg.mm_visc else None
+        # the state's fields into kernel A's window (pos with the image
+        # shifts added back, m, vel) and the sorted h0, u, alpha
+        win_a, h_s, u_s, alpha_s = rowpack.gather_a(state, wd, cfg)
+        pos_s, mass_s, vel_s = win_a[:dim].T, win_a[dim], win_a[dim + 1:].T
         h_s, rho_s, om_s, bf_s, divv_s = stage_density(
-            wd, spec, cfg, pos_s, vel_s, mass_s, u_s, h_s, alpha_s=alpha_s)
-        # one packed owner-mirror gather fixes the four window-shipped scalars
-        mirrored = torch.stack([h_s, rho_s, om_s, bf_s], dim=-1)[wd.src]
-        h_s, rho_s, om_s, bf_s = mirrored.unbind(-1)
+            wd, spec, cfg, pos_s, vel_s, mass_s, u_s, h_s, alpha_s=alpha_s,
+            win=win_a if cfg.need_divv else win_a[:dim + 1])
+        # on the stage's own rows: u_s is owner-correct, so gather_c's
+        # owner mirror of P and cs is the EOS of the mirrored rows
         P_s, cs_s = eos(rho_s, u_s, cfg)
+        # kernel C's window, the four window-shipped scalars owner-mirrored
+        win_c, mirrored = rowpack.gather_c(win_a, wd, cfg, h_s, rho_s, om_s,
+                                           bf_s, P_s, cs_s)
         p3m = cfg.gravity and cfg.grav_solver == "p3m"
         grav = None
         if p3m:
@@ -246,12 +241,11 @@ def derived_with(state: ParticleState, wd, cfg: SPHConfig, domain: Domain,
             # tensor (it depends on domain.extent)
             rs = pm.rs_traced(cfg, domain, pos_s.dtype, cutoff=spec.cutoff)
             grav = (rs, float(cfg.grav_eps))
-        acc_s, du_s = stage_forces(wd, spec, cfg, pos_s, vel_s, mass_s, h_s,
-                                   rho_s, P_s, cs_s, om_s, bf_s, grav=grav)
-        # one packed unsort gather for all outputs
-        out = torch.stack([h_s, rho_s, P_s, cs_s, om_s, du_s, divv_s]
-                          + list(acc_s.unbind(-1)), dim=-1)[wd.inv]
-        acc = out[:, 7:7 + dim]
+        acc_s, du_s = stage_forces(wd, spec, cfg, pos_s, vel_s, mass_s,
+                                   *mirrored, grav=grav, win=win_c)
+        # the outputs back to original order (owner rows)
+        h, rho, P, cs, om, du, divv, acc = rowpack.scatter_out(
+            wd, h_s, rho_s, P_s, cs_s, om_s, du_s, divv_s, acc_s)
         if p3m:
             # O(N log N) FFT mesh long range on the unsorted state (Ewald on a
             # periodic box, Hockney free space on an open one)
@@ -263,9 +257,8 @@ def derived_with(state: ParticleState, wd, cfg: SPHConfig, domain: Domain,
         elif cfg.gravity:
             # direct sum with the min-image convention on a periodic box
             acc = acc + clist.gravity_dense(state.pos, state.mass, cfg, domain)
-        return state._replace(h=out[:, 0], rho=out[:, 1], P=out[:, 2],
-                              cs=out[:, 3], omega=out[:, 4], acc=acc,
-                              du_dt=out[:, 5], divv=out[:, 6])
+        return state._replace(h=h, rho=rho, P=P, cs=cs, omega=om, acc=acc,
+                              du_dt=du, divv=divv)
 
 
 def update_derived(state: ParticleState, cfg: SPHConfig, domain: Domain,

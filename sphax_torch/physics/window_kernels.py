@@ -42,7 +42,6 @@ keeps; the tests hold that it drops no pair inside the support.
 """
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -51,7 +50,9 @@ from sphax_torch.configs import SPHConfig
 from sphax_torch.io.metrics import span
 from sphax_torch.neighbors.window import WindowData, WindowSpec
 from sphax_torch.physics import kernels as K
-from sphax_torch.physics import pairs
+from sphax_torch.physics import pairs, rowpack
+from sphax_torch.physics.cuda_call import (check_fields, check_index,
+                                           launch, ptr)
 
 # Launches of each CUDA kernel; a wrapper adds one where it launches.
 # "forces_grav" counts kernel C's gravity mode, "forces" its plain SPH mode,
@@ -277,10 +278,11 @@ def cull_stats(wd: WindowData, spec: WindowSpec, pos_s, mass_s, h_s,
 
 
 def solve_h_density_plain(wd: WindowData, spec: WindowSpec, pos_s, mass_s,
-                          h0_s, cfg: SPHConfig, vel_s=None):
+                          h0_s, cfg: SPHConfig, vel_s=None, win=None):
     """Returns (h, rho, drho_dh[, div_sum, curl_mag]) per sorted row;
     ``div_sum`` and ``curl_mag`` are the raw sums that stage_density
-    divides by rho."""
+    divides by rho. Takes the wrapper's arguments; a prepacked ``win`` is
+    the kernel's and is not read here."""
     from sphax_torch.physics.wengine import _tile_pass
 
     dim = cfg.dim
@@ -337,10 +339,13 @@ def solve_h_density_plain(wd: WindowData, spec: WindowSpec, pos_s, mass_s,
 
 
 def forces_plain(wd: WindowData, spec: WindowSpec, pos_s, vel_s, mass_s, h_s,
-                 rho_s, P_s, cs_s, om_s, bf_s, cfg: SPHConfig, grav=None):
+                 rho_s, P_s, cs_s, om_s, bf_s, cfg: SPHConfig, grav=None,
+                 win=None):
     """Returns (acc_s [Ns, D], du_s [Ns]) — pairs.force_terms summed over
     the window candidates, plus ``wengine.gravity_short_pass`` with
-    ``grav=(rs, eps)``. Always divides exactly (no fast_math)."""
+    ``grav=(rs, eps)``. Always divides exactly (no fast_math). Takes the
+    wrapper's arguments; a prepacked ``win`` is the kernel's and is not
+    read here: the fields must be given."""
     from sphax_torch.physics.wengine import _tile_pass, gravity_short_pass
 
     use_bf = bool(cfg.visc_factor_on)
@@ -377,13 +382,11 @@ def forces_plain(wd: WindowData, spec: WindowSpec, pos_s, vel_s, mass_s, h_s,
 # ---------------------------------------------------------------------------
 
 
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
-
-
 def _check_cuda(wd: WindowData, spec: WindowSpec, cfg: SPHConfig, ref,
-                tensors, grav=False):
-    """Raise on anything the CUDA kernels do not take."""
+                tensors, grav=False, win=None):
+    """Raise on anything the CUDA kernels do not take: ``tensors`` maps a
+    name to a field of n_sorted rows; ``win=(window, rows)`` is a
+    prepacked window, contiguous [rows, n_sorted]."""
     if cfg.dim != spec.dim or cfg.dim not in (1, 2, 3):
         raise NotImplementedError(f"the CUDA window kernels are built for "
                                   f"dim 1, 2 and 3 (cfg.dim={cfg.dim}, "
@@ -391,27 +394,17 @@ def _check_cuda(wd: WindowData, spec: WindowSpec, cfg: SPHConfig, ref,
     if grav and cfg.dim != 3:
         raise NotImplementedError("kernel C's gravity mode is 3D only, as "
                                   "the P3M mesh is")
-    if ref.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"unsupported dtype {ref.dtype}")
     if spec.group % 32 or spec.tile > 1024:
         raise ValueError(f"row-group of {spec.group} rows (tile "
                          f"{spec.tile}) must be a multiple of 32 rows in a "
                          "tile of at most 1024")
     Ns = spec.n_sorted
-    for name, t in tensors.items():
-        if t.device != ref.device:
-            raise ValueError(f"{name} is on {t.device}, not {ref.device}")
-        if t.dtype != ref.dtype:
-            raise TypeError(f"{name} is {t.dtype}, not {ref.dtype}")
-        if t.shape[0] != Ns:
-            raise ValueError(f"{name} has {t.shape[0]} rows, not {Ns}")
-    shape = (spec.n_groups, spec.n_seg)
+    check_fields(ref, {k: (t, Ns) for k, t in tensors.items()})
+    if win is not None:
+        check_fields(ref, dict(win=(win[0], (win[1], Ns))), contiguous=True)
     for name in _tables(spec):
-        t = getattr(wd, name)
-        if (t is None or t.device != ref.device or t.dtype != torch.int32
-                or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(f"wd.{name} must be a contiguous int32 {shape} "
-                             f"tensor on {ref.device}")
+        check_index(ref, f"wd.{name}", getattr(wd, name),
+                    (spec.n_groups, spec.n_seg))
 
 
 def _tables(spec: WindowSpec):
@@ -427,7 +420,7 @@ def _walk(base: str, wd: WindowData, spec: WindowSpec, dim: int):
     and cwidth when compact."""
     compact = spec.cwidth > 0
     name = _kernel_name(f"{base}_compact" if compact else base, dim)
-    tabs = [_ptr(getattr(wd, t)) for t in _tables(spec)]
+    tabs = [ptr(getattr(wd, t)) for t in _tables(spec)]
     size = [spec.n_sorted, spec.tile, spec.group] + (
         [spec.cwidth] if compact else [])
     return name, tabs, size
@@ -439,24 +432,14 @@ def _kernel_name(base: str, dim: int) -> str:
     return base if dim == 3 else f"{base}_{dim}d"
 
 
-def _launch(fn_name, dtype, *args):
-    from sphax_torch import _build
-
-    lib = _build.load()
-    suffix = "f32" if dtype == torch.float32 else "f64"
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    err = getattr(lib, f"sphax_{fn_name}_{suffix}")(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {fn_name} failed to launch: "
-                           f"{_build.error_string(err)}")
-    LAUNCHES[fn_name] += 1
-
-
 def solve_h_density(wd: WindowData, spec: WindowSpec, pos_s, mass_s, h0_s,
-                    cfg: SPHConfig, vel_s=None):
+                    cfg: SPHConfig, vel_s=None, win=None):
     """Kernel A, in 3D, 2D or 1D, in place or (spec.cwidth > 0) compact.
     Returns (h, rho, drho_dh[, div_sum, curl_mag]) per sorted row; the last
-    two only when cfg.need_divv and vel_s is given."""
+    two only when cfg.need_divv and vel_s is given. ``win``, optional, is
+    A's window prepacked ([dim + 1 (+ dim with the Balsara sums), Ns],
+    ``rowpack.gather_a``'s rows): the kernel then reads it in place of
+    pos_s, mass_s and vel_s, which the plain version reads."""
     with span("sphax_torch.kernel_a"):
         if pos_s.device.type == "cpu":
             return solve_h_density_plain(wd, spec, pos_s, mass_s, h0_s, cfg,
@@ -464,36 +447,43 @@ def solve_h_density(wd: WindowData, spec: WindowSpec, pos_s, mass_s, h0_s,
         if pos_s.device.type != "cuda":
             raise ValueError(f"no kernel for device {pos_s.device}")
         fuse_bals = bool(cfg.need_divv) and vel_s is not None
-        tensors = dict(pos_s=pos_s, mass_s=mass_s, h0_s=h0_s)
-        if fuse_bals:
-            tensors["vel_s"] = vel_s
-        _check_cuda(wd, spec, cfg, pos_s, tensors)
         dim = cfg.dim
-        # SoA [F, Ns] candidate fields: the dim positions, m (, dim
-        # velocities)
-        win = torch.cat([pos_s.T, mass_s[None]]
-                        + ([vel_s.T] if fuse_bals else [])).contiguous()
+        if win is None:
+            tensors = dict(pos_s=pos_s, mass_s=mass_s, h0_s=h0_s)
+            if fuse_bals:
+                tensors["vel_s"] = vel_s
+            _check_cuda(wd, spec, cfg, pos_s, tensors)
+            # SoA [F, Ns] candidate fields: the dim positions, m (, dim
+            # velocities)
+            win = torch.cat([pos_s.T, mass_s[None]]
+                            + ([vel_s.T] if fuse_bals else [])).contiguous()
+        else:
+            _check_cuda(wd, spec, cfg, pos_s, dict(h0_s=h0_s),
+                        win=(win, (2 if fuse_bals else 1) * dim + 1))
         h0 = h0_s.contiguous()
         outs = [torch.empty_like(h0) for _ in range(5 if fuse_bals else 3)]
-        null = ctypes.c_void_p(None)
         name, tabs, size = _walk("solve_h_density", wd, spec, dim)
-        _launch(name, pos_s.dtype, _ptr(win), _ptr(h0), *tabs, *size,
-                float(K.sigma(dim)), float(cfg.eta) ** dim,
-                0.5 * float(spec.cutoff),
-                _newton_iters(cfg), int(fuse_bals),
-                *[_ptr(o) for o in outs],
-                *([] if fuse_bals else [null, null]))
+        launch(LAUNCHES, name, pos_s.dtype, ptr(win), ptr(h0), *tabs, *size,
+               float(K.sigma(dim)), float(cfg.eta) ** dim,
+               0.5 * float(spec.cutoff),
+               _newton_iters(cfg), int(fuse_bals),
+               *[ptr(o) for o in outs],
+               *([] if fuse_bals else [ptr(None), ptr(None)]))
         return tuple(outs)
 
 
 def forces(wd: WindowData, spec: WindowSpec, pos_s, vel_s, mass_s, h_s,
-           rho_s, P_s, cs_s, om_s, bf_s, cfg: SPHConfig, grav=None):
+           rho_s, P_s, cs_s, om_s, bf_s, cfg: SPHConfig, grav=None,
+           win=None):
     """Kernel C, in 3D, 2D or 1D, in place or (spec.cwidth > 0) compact.
     Returns (acc_s [Ns, D], du_s [Ns]); ``bf_s``
     is read only when cfg.visc_factor_on. ``grav=(rs, eps)`` (3D only) adds
     the screened P3M short range over the same candidates, hard-cut at
     spec.cutoff; ``rs`` is a 0-d tensor on the inputs' device, so no step
-    waits on the host."""
+    waits on the host. ``win``, optional, is C's window prepacked ([2 dim +
+    8 (+ 1 with bf), Ns], ``rowpack.gather_c``'s rows): the kernel then
+    reads it alone, and every field but pos_s (its dtype and device) may
+    be None; the plain version reads the fields."""
     with span("sphax_torch.kernel_c"):
         if pos_s.device.type == "cpu":
             return forces_plain(wd, spec, pos_s, vel_s, mass_s, h_s, rho_s,
@@ -501,33 +491,29 @@ def forces(wd: WindowData, spec: WindowSpec, pos_s, vel_s, mass_s, h_s,
         if pos_s.device.type != "cuda":
             raise ValueError(f"no kernel for device {pos_s.device}")
         use_bf = bool(cfg.visc_factor_on)
-        tensors = dict(pos_s=pos_s, vel_s=vel_s, mass_s=mass_s, h_s=h_s,
-                       rho_s=rho_s, P_s=P_s, cs_s=cs_s, om_s=om_s)
-        if use_bf:
-            tensors["bf_s"] = bf_s
-        _check_cuda(wd, spec, cfg, pos_s, tensors, grav=grav is not None)
         dim = cfg.dim
-        # per-particle hoisted fields, as the Pallas kernel ships them
-        invh = 1.0 / h_s
-        ci = P_s / (om_s * rho_s * rho_s)
-        gc1 = float(K.sigma(dim)) * invh ** (dim + 1)
-        gc2 = gc1 * invh
-        # SoA [F, Ns]: the dim positions and velocities, then
-        # m h invh rho cs ci gc1 gc2 (bf)
-        win = torch.cat([pos_s.T, vel_s.T]
-                        + [f[None] for f in (mass_s, h_s, invh, rho_s, cs_s,
-                                             ci, gc1, gc2)]
-                        + ([bf_s[None]] if use_bf else [])).contiguous()
-        acc = torch.empty_like(pos_s, memory_format=torch.contiguous_format)
-        du = torch.empty_like(h_s, memory_format=torch.contiguous_format)
+        if win is None:
+            tensors = dict(pos_s=pos_s, vel_s=vel_s, mass_s=mass_s, h_s=h_s,
+                           rho_s=rho_s, P_s=P_s, cs_s=cs_s, om_s=om_s)
+            if use_bf:
+                tensors["bf_s"] = bf_s
+            _check_cuda(wd, spec, cfg, pos_s, tensors, grav=grav is not None)
+            win = rowpack.pack_c(pos_s, vel_s, mass_s, h_s, rho_s, P_s,
+                                 cs_s, om_s, bf_s, cfg)
+        else:
+            _check_cuda(wd, spec, cfg, pos_s, {}, grav=grav is not None,
+                        win=(win, rowpack.c_rows(dim, use_bf)))
+        Ns = spec.n_sorted
+        acc = win.new_empty((Ns, dim))
+        du = win.new_empty(Ns)
         fast = bool(cfg.fast_math) and pos_s.dtype == torch.float32
         name, tabs, size = _walk("forces" if grav is None else "forces_grav",
                                  wd, spec, dim)
-        args = [_ptr(win), *tabs, *size, float(cfg.alpha_visc),
+        args = [ptr(win), *tabs, *size, float(cfg.alpha_visc),
                 float(cfg.beta_visc), float(cfg.eps_visc), int(use_bf),
                 int(fast)]
         if grav is None:
-            _launch(name, pos_s.dtype, *args, _ptr(acc), _ptr(du))
+            launch(LAUNCHES, name, pos_s.dtype, *args, ptr(acc), ptr(du))
             return acc, du
         rs, eps = grav
         if (not isinstance(rs, torch.Tensor) or rs.device != pos_s.device
@@ -539,6 +525,6 @@ def forces(wd: WindowData, spec: WindowSpec, pos_s, vel_s, mass_s, h_s,
         # the per-pair form needs only these: x = r * sc0,
         # screen = erfc(x) + r * sc1 * exp(-x^2), soft = rsqrt(r^2 + sc2)^3
         gsc = torch.stack([0.5 / rs, 1.0 / (rs * math.sqrt(math.pi)), e * e])
-        _launch(name, pos_s.dtype, *args, _ptr(gsc), float(cfg.G),
-                float(spec.cutoff) ** 2, _ptr(acc), _ptr(du))
+        launch(LAUNCHES, name, pos_s.dtype, *args, ptr(gsc), float(cfg.G),
+               float(spec.cutoff) ** 2, ptr(acc), ptr(du))
         return acc, du

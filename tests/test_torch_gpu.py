@@ -39,7 +39,7 @@ from sphax_torch.ics import kh, lattice, turbulence
 from sphax_torch.integrate import rungs
 from sphax_torch.neighbors import window as win
 from sphax_torch.physics import direct_gravity as dg
-from sphax_torch.physics import pm, wengine
+from sphax_torch.physics import pm, rowpack, wengine
 from sphax_torch.physics import window_kernels as wk
 from tests._slab_helpers import kernel_calls, lockstep, pencil_lockstep
 
@@ -451,8 +451,9 @@ def test_gravity_kernel_is_bitwise_repeatable(cuda, dtype, n):
 
 @pytest.mark.gpu
 def test_cuda_tensor_never_runs_the_plain_version(cuda, monkeypatch):
-    """A derived pass on the card launches each kernel of its branch once
-    and calls no plain version: no gravity, P3M (kernel C in its gravity
+    """A derived pass on the card launches each kernel of its branch once,
+    and each of the three row-packing kernels once, and calls no plain
+    version: no gravity, P3M (kernel C in its gravity
     mode), direct gravity in an open box (kernel G), the 2D kh
     configuration (the dim=2 kernels) and the 1D line (the dim=1 kernels);
     and all but the direct one with a compact spec (the compact walks)."""
@@ -461,6 +462,8 @@ def test_cuda_tensor_never_runs_the_plain_version(cuda, monkeypatch):
 
     monkeypatch.setattr(wk, "solve_h_density_plain", refuse)
     monkeypatch.setattr(wk, "forces_plain", refuse)
+    for name in ("gather_a_plain", "gather_c_plain", "scatter_out_plain"):
+        monkeypatch.setattr(rowpack, name, refuse)
     monkeypatch.setattr(wengine, "gravity_short_pass", refuse)
     monkeypatch.setattr(dg, "gravity_plain", refuse)
     direct = dataclasses.replace(P3M, grav_solver="direct")
@@ -482,11 +485,13 @@ def test_cuda_tensor_never_runs_the_plain_version(cuda, monkeypatch):
     for cfg, periodic, compact, kernels in cases:
         st, dom, spec, _, _ = _inputs(cuda, torch.float32, periodic=periodic,
                                       dim=cfg.dim, compact=compact)
-        n0 = dict(wk.LAUNCHES)
+        n0, r0 = dict(wk.LAUNCHES), dict(rowpack.LAUNCHES)
         out = wengine.update_derived(st, cfg, dom, spec)
         torch.cuda.synchronize()
         assert {k: wk.LAUNCHES[k] - n0[k] for k in n0} == {
             k: int(k in kernels) for k in n0}, (cfg, compact)
+        assert {k: rowpack.LAUNCHES[k] - r0[k] for k in r0} == {
+            k: 1 for k in r0}, (cfg, compact)
         assert bool(torch.isfinite(out.acc).all())
 
 
@@ -786,7 +791,8 @@ def test_entry_step_matches_plain_on_the_card(cuda, monkeypatch):
     """``sphax_torch.entry.entry()`` (the twin of ``__graft_entry__.entry()``,
     fp32, 16^3) on the card: one launch of A and of C a call, no window
     overflow, and the step within 3e-5 of the same step through the plain
-    versions (``chip_smoke.py`` phase 39's check)."""
+    versions, the row packing's included (``chip_smoke.py`` phase 39's
+    check)."""
     from sphax_torch.entry import entry
 
     fn, (st,) = entry()
@@ -799,6 +805,8 @@ def test_entry_step_matches_plain_on_the_card(cuda, monkeypatch):
     assert int(wengine.overflow_count(got, fn.domain, fn.spec)) == 0
     monkeypatch.setattr(wk, "solve_h_density", wk.solve_h_density_plain)
     monkeypatch.setattr(wk, "forces", wk.forces_plain)
+    for name in ("gather_a", "gather_c", "scatter_out"):
+        monkeypatch.setattr(rowpack, name, getattr(rowpack, f"{name}_plain"))
     want = fn(st)
     every = torch.ones(st.n, dtype=torch.bool, device=cuda)
     for f in ("pos", "vel", "u", "h", "rho", "P", "cs", "omega", "divv",
