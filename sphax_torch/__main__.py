@@ -6,9 +6,14 @@ metrics, npz snapshots, checkpoint/resume and an optional profiler trace.
 Examples:
 
     python -m sphax_torch kh n=1024 max_steps=16 out=runs/kh
+    python -m sphax_torch kh n=1024 smooth=1 out=runs/kh_mcnally
     python -m sphax_torch turb n=100 t_end=1.0 out=runs/turb
     python -m sphax_torch turb resume=runs/turb/checkpoint.npz
     python -m sphax_torch sod n=8 device=cpu
+
+``kh smooth=1`` sets up McNally, Lyra & Passy 2012's well-posed
+Kelvin-Helmholtz test (interfaces smoothed over L = 0.025, vy = 0.01
+sin(4 pi x)) in place of the sharp interfaces of ``smooth=0``, the default.
 
 ``device=cuda`` (the default) runs on the card and raises where none is
 visible; ``device=cpu`` runs on the CPU. Window-engine problems run through

@@ -17,6 +17,16 @@ kernels A and C, packing and checks included). So ``profile=1``'s Chrome
 trace carries them. A span is a ``torch.profiler.record_function`` range
 only while a profiler records; otherwise it is one shared no-op context,
 whose cost (under a microsecond, a few a step) nothing measures.
+
+Beside the spans the program keeps one counter, always on:
+``neighbors.window.CANDIDATES["sums"]``, a device tensor [candidate rows,
+rows] summed over the process's window builds. Each build adds the rows
+kernel A's walk offers each row that defines windows (its group's
+segments, as ``window.candidate_sums`` reads them off the build's own
+tables) and the count of those rows, in a few small device reductions with
+no host read. Read it once, after the work: candidates over rows is the
+walk's mean candidates a row, which the pairs inside 2 h a row turn into
+the walk's waste.
 """
 from __future__ import annotations
 

@@ -195,6 +195,62 @@ def _pack_offset(mask, orig_idx, cap: int, n: int):
 
 # window structures built by this process (``build`` calls)
 BUILDS = {"n": 0}
+# kernel A's candidates over this process's builds: ``sums`` is a device
+# tensor [candidate rows summed over the rows that define windows, those
+# rows], added to by each build (``count_candidates``) without a host read;
+# a build on another device starts it afresh
+CANDIDATES = {"sums": None}
+
+
+def candidate_sums(w_lo, w_nact, c_n, real_rows, spec: WindowSpec):
+    """[candidates, rows] of one build, int64 on the tables' device: the
+    rows kernel A's walk offers each row of a group (in place: the union of
+    the segments' 128 w_nact rows from w_lo, as the kernels clip each start
+    at the largest end before it; compact: c_n cut at cwidth), summed over
+    the ``real_rows`` ([n_groups, group] bool) that define windows, and the
+    count of those rows."""
+    if spec.cwidth > 0:
+        per = torch.clamp_max(c_n, spec.cwidth)
+    else:
+        # segment-major [n_seg, n_groups]: a running max down the short
+        # outer axis is one pass, where one along a row of 3 or 9 is a slow
+        # scan kernel
+        lo, nact = w_lo.T, w_nact.T
+        hi = torch.add(lo, nact, alpha=128)
+        ends = torch.where(nact > 0, hi, 0).contiguous().cummax(0).values
+        clip = torch.nn.functional.pad(ends[:-1], (0, 0, 1, 0))
+        per = torch.clamp_min(hi - torch.maximum(lo, clip), 0).sum(0)
+    rows = real_rows.sum(1)
+    return torch.stack([(per * rows).sum(), rows.sum()])
+
+
+def count_candidates(sums):
+    """Add one build's ``candidate_sums`` to ``CANDIDATES``, on the device
+    (no host read)."""
+    prev = CANDIDATES["sums"]
+    CANDIDATES["sums"] = (sums.clone() if prev is None
+                          or prev.device != sums.device else prev + sums)
+
+
+_CONSTS = {}
+
+
+def _consts(spec: WindowSpec, dtype, dev):
+    """(res, cutoff, fast-axis layers, res as int32, key strides) of a
+    spec on a device, made once: a tensor made from host memory waits for
+    the stream, and a CUDA graph cannot hold that wait."""
+    key = (spec, dtype, dev)
+    if key not in _CONSTS:
+        i32 = dict(dtype=torch.int32, device=dev)
+        layers = np.array([1] * (spec.dim - 1) + [spec.fast_sub], np.int64)
+        res_ext = [r + 2 * int(l) for r, l in zip(spec.res, layers)]
+        strides = np.concatenate([np.cumprod(res_ext[::-1])[-2::-1], [1]])
+        _CONSTS[key] = (torch.tensor(spec.res, dtype=dtype, device=dev),
+                        torch.tensor(spec.cutoff, dtype=dtype, device=dev),
+                        torch.tensor(layers, **i32),
+                        torch.tensor(spec.res, **i32),
+                        torch.tensor(strides, **i32))
+    return _CONSTS[key]
 
 
 def build(pos, domain: Domain, spec: WindowSpec, active=None,
@@ -213,186 +269,241 @@ def build(pos, domain: Domain, spec: WindowSpec, active=None,
 
     With both None every real row defines windows and spawns images, and
     the tables are those of a build without masks."""
-    BUILDS["n"] += 1
     with span("sphax_torch.build"):
-        if image is None:
-            image = active
-        n, dim = pos.shape
-        dtype, dev = pos.dtype, pos.device
-        i32 = dict(dtype=torch.int32, device=dev)
-        lo = domain.lo.to(dtype)
-        ext = domain.extent.to(dtype)
-        res = torch.tensor(spec.res, dtype=dtype, device=dev)
-        cell = ext / res
-        cut = torch.tensor(spec.cutoff, dtype=dtype, device=dev)
-        idx = torch.arange(n, **i32)
+        wd, sums = _build(pos, domain, spec, active, image)
+    _tally(sums)
+    return wd
 
-        # ---- periodic images within `cutoff` of each face, one pass per axis;
-        # each pass images both faces of the ACCUMULATED array, so edge/corner
-        # images appear as ghosts-of-ghosts
-        cur_pos, cur_orig = pos, idx
-        cur_shift = torch.zeros((n, dim), dtype=dtype, device=dev)
-        ghost_drop = torch.zeros((), dtype=torch.int64, device=dev)
-        for d in range(dim):
-            cap = spec.ghost_caps[d]
-            if cap == 0:
-                continue
-            nc = cur_pos.shape[0]
-            rows_c = torch.arange(nc, **i32)
-            off = torch.zeros((dim,), dtype=dtype, device=dev)
-            off[d] = ext[d]
-            new_pos, new_orig, new_shift = [cur_pos], [cur_orig], [cur_shift]
-            for sgn, m in ((1.0, cur_pos[:, d] < lo[d] + cut),
-                           (-1.0, cur_pos[:, d] > lo[d] + ext[d] - cut)):
-                m = m & (cur_orig < n)
-                if image is not None:
-                    m = m & torch.cat([image, image.new_zeros(1)])[
-                        torch.clamp_max(cur_orig, n).long()]
-                take, dropped = _pack_offset(m, rows_c, cap, nc)
-                ghost_drop = ghost_drop + dropped
-                tk = torch.clamp_max(take, nc - 1)
-                invalid = take >= nc
-                new_pos.append(cur_pos[tk] + sgn * off)
-                new_orig.append(torch.where(invalid, n, cur_orig[tk]))
-                new_shift.append(torch.where(invalid[:, None], 0.0,
-                                             cur_shift[tk] + sgn * off))
-            cur_pos = torch.cat(new_pos)
-            cur_orig = torch.cat(new_orig)
-            cur_shift = torch.cat(new_shift)
 
-        n_raw = cur_orig.shape[0]
-        n_pad = spec.n_sorted - n_raw
-        if n_pad < 0:
-            raise ValueError("spec.n_sorted too small for ghosts; re-plan")
-        orig = torch.cat([cur_orig, torch.full((n_pad,), n, **i32)])
-        shift = torch.cat([cur_shift, cur_shift.new_zeros((n_pad, dim))])
-        pos_e = torch.cat([cur_pos, cur_pos.new_zeros((n_pad, dim))])
-        valid = orig < n
+def _tally(sums):
+    """Count one build in ``BUILDS`` and its candidates in ``CANDIDATES``."""
+    BUILDS["n"] += 1
+    count_candidates(sums)
 
-        # ---- extended-grid row-major keys (last axis fastest). Binning
-        # coordinates are clamped to the box on NON-periodic axes (exact: pair
-        # distances use the true positions).
-        per_ax = domain.periodic_axes(dim)
-        if not all(per_ax):
-            clampmask = torch.tensor([not p for p in per_ax], device=dev)
-            eps = 1e-6 * ext
-            bin_pos = torch.minimum(torch.maximum(pos_e, lo + 0 * ext),
-                                    lo + ext - eps)
-            bin_pos = torch.where(clampmask, bin_pos, pos_e)
-        else:
-            bin_pos = pos_e
-        # the fast axis gets fast_sub ghost-cell layers each side (the cutoff
-        # band spans fast_sub fine cells there), the transverse axes one
-        layers = np.array([1] * (dim - 1) + [spec.fast_sub], np.int64)
-        layers_t = torch.tensor(layers, **i32)
-        res_i = torch.tensor(spec.res, **i32)
-        c = torch.floor((bin_pos - lo) / cell).to(torch.int32) + layers_t
-        c = torch.minimum(torch.clamp_min(c, 0), res_i + 2 * layers_t - 1)
-        res_ext = tuple(r + 2 * int(l) for r, l in zip(spec.res, layers))
-        strides = np.concatenate([np.cumprod(res_ext[::-1])[-2::-1], [1]])
-        strides_t = torch.tensor(strides, **i32)
 
-        key = torch.where(valid, (c * strides_t).sum(-1, dtype=torch.int32),
-                          _BIG)
-        key_s, order = torch.sort(key, stable=True)
-        order = order.to(torch.int32)
-        is_real = order < n
-        pos_s = pos_e[order]
-        shift_s = shift[order]
-        g = orig[order]
+def _build(pos, domain: Domain, spec: WindowSpec, active, image):
+    """``build``'s body: (WindowData, ``candidate_sums``). On a periodic
+    box it reads nothing back to the host and never waits for the stream
+    (after the first build of a spec on a device), so a CUDA graph can hold
+    it (``GraphedBuild``)."""
+    if image is None:
+        image = active
+    n, dim = pos.shape
+    dtype, dev = pos.dtype, pos.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    lo = domain.lo.to(dtype)
+    ext = domain.extent.to(dtype)
+    res, cut, layers_t, res_i, strides_t = _consts(spec, dtype, dev)
+    cell = ext / res
+    idx = torch.arange(n, **i32)
 
-        Ns = spec.n_sorted
-        rows = torch.arange(Ns, **i32)
-        # duplicate writes land only in the pad slot n (non-real rows), whose
-        # value is unspecified — as in the reference
-        inv_real = torch.full((n + 1,), Ns - 1, **i32)
-        inv_real[torch.where(is_real, g, n).long()] = rows
-        src = inv_real[torch.clamp_max(g, n)]
+    # ---- periodic images within `cutoff` of each face, one pass per axis;
+    # each pass images both faces of the ACCUMULATED array, so edge/corner
+    # images appear as ghosts-of-ghosts
+    cur_pos, cur_orig = pos, idx
+    cur_shift = torch.zeros((n, dim), dtype=dtype, device=dev)
+    ghost_drop = torch.zeros((), dtype=torch.int64, device=dev)
+    for d in range(dim):
+        cap = spec.ghost_caps[d]
+        if cap == 0:
+            continue
+        nc = cur_pos.shape[0]
+        rows_c = torch.arange(nc, **i32)
+        off = torch.zeros((dim,), dtype=dtype, device=dev)
+        off[d] = ext[d]
+        new_pos, new_orig, new_shift = [cur_pos], [cur_orig], [cur_shift]
+        for sgn, m in ((1.0, cur_pos[:, d] < lo[d] + cut),
+                       (-1.0, cur_pos[:, d] > lo[d] + ext[d] - cut)):
+            m = m & (cur_orig < n)
+            if image is not None:
+                m = m & torch.cat([image, image.new_zeros(1)])[
+                    torch.clamp_max(cur_orig, n).long()]
+            take, dropped = _pack_offset(m, rows_c, cap, nc)
+            ghost_drop = ghost_drop + dropped
+            tk = torch.clamp_max(take, nc - 1)
+            invalid = take >= nc
+            new_pos.append(cur_pos[tk] + sgn * off)
+            new_orig.append(torch.where(invalid, n, cur_orig[tk]))
+            new_shift.append(torch.where(invalid[:, None], 0.0,
+                                         cur_shift[tk] + sgn * off))
+        cur_pos = torch.cat(new_pos)
+        cur_orig = torch.cat(new_orig)
+        cur_shift = torch.cat(new_shift)
 
-        # ---- per-group pencil runs: dense cell-start table (scatter-min
-        # plus a reverse cumulative min; empty cells inherit the next
-        # cell's start). `first` is monotone, so a group's window bounds
-        # need only the min/max REAL key in the group.
-        T, S = spec.group, spec.wseg
-        nt = spec.n_groups
-        ncells_ext = int(np.prod(res_ext))
-        n_valid = valid.sum().to(torch.int32)
-        first = torch.full((ncells_ext + 1,), Ns, **i32)
-        first[ncells_ext] = torch.minimum(first[ncells_ext], n_valid)
-        first.scatter_reduce_(
-            0, torch.clamp_max(key_s, ncells_ext).long(),
-            torch.where(key_s < ncells_ext, rows, Ns), reduce="amin")
-        first = torch.flip(torch.cummin(torch.flip(first, (0,)), 0).values,
-                           (0,))
+    n_raw = cur_orig.shape[0]
+    n_pad = spec.n_sorted - n_raw
+    if n_pad < 0:
+        raise ValueError("spec.n_sorted too small for ghosts; re-plan")
+    orig = torch.cat([cur_orig, torch.full((n_pad,), n, **i32)])
+    shift = torch.cat([cur_shift, cur_shift.new_zeros((n_pad, dim))])
+    pos_e = torch.cat([cur_pos, cur_pos.new_zeros((n_pad, dim))])
+    valid = orig < n
 
-        # only REAL (and, with ``active``, active) rows define windows
-        kt = key_s.reshape(nt, T)
-        if active is None:
-            rt = is_real.reshape(nt, T)
-        else:
-            act = torch.cat([active, active.new_zeros(1)])
-            rt = (is_real & act[torch.clamp_max(g, n).long()]).reshape(nt, T)
-        kmin_t = torch.where(rt, kt, _BIG).amin(1)
-        kmax_t = torch.where(rt, kt, -1).amax(1)
-        has_real = kmax_t >= 0
-        # clamp BIG before offsetting (masked below; avoids int32 wraparound)
-        kmin_t = torch.clamp_max(kmin_t, ncells_ext)
-        reach = spec.fast_sub
-        starts, ends = [], []
-        for poff in _pencil_offsets(dim):
-            delta = int(np.dot(poff, strides[:-1])) if dim > 1 else 0
-            ws = first[torch.clamp(kmin_t + (delta - reach), 0, ncells_ext)]
-            we = first[torch.clamp(kmax_t + (delta + reach + 1), 0,
-                                   ncells_ext)]
-            starts.append(torch.where(has_real, ws, Ns))
-            ends.append(torch.where(has_real, we, 0))
-        ws_t = torch.stack(starts, -1)  # [nt, n_seg]
-        we_t = torch.stack(ends, -1)
+    # ---- extended-grid row-major keys (last axis fastest). Binning
+    # coordinates are clamped to the box on NON-periodic axes (exact: pair
+    # distances use the true positions).
+    per_ax = domain.periodic_axes(dim)
+    if not all(per_ax):
+        clampmask = torch.tensor([not p for p in per_ax], device=dev)
+        eps = 1e-6 * ext
+        bin_pos = torch.minimum(torch.maximum(pos_e, lo + 0 * ext),
+                                lo + ext - eps)
+        bin_pos = torch.where(clampmask, bin_pos, pos_e)
+    else:
+        bin_pos = pos_e
+    # the fast axis gets fast_sub ghost-cell layers each side (the cutoff
+    # band spans fast_sub fine cells there), the transverse axes one
+    layers = np.array([1] * (dim - 1) + [spec.fast_sub], np.int64)
+    c = torch.floor((bin_pos - lo) / cell).to(torch.int32) + layers_t
+    c = torch.minimum(torch.clamp_min(c, 0), res_i + 2 * layers_t - 1)
+    res_ext = tuple(r + 2 * int(l) for r, l in zip(spec.res, layers))
+    strides = np.concatenate([np.cumprod(res_ext[::-1])[-2::-1], [1]])
 
-        # window starts aligned down to 128 rows (the TPU's lane tiling, kept
-        # so the tables equal the reference's)
-        w_lo = torch.clamp((ws_t // 128) * 128, 0, Ns - S)
-        w_len = torch.clamp_min(we_t - w_lo, 0)
-        w_nact = torch.clamp(-(-w_len // 128), 0, S // 128).to(torch.int32)
+    key = torch.where(valid, (c * strides_t).sum(-1, dtype=torch.int32),
+                      _BIG)
+    key_s, order = torch.sort(key, stable=True)
+    order = order.to(torch.int32)
+    is_real = order < n
+    pos_s = pos_e[order]
+    shift_s = shift[order]
+    g = orig[order]
 
-        # per-TILE union of the R group windows; overflow and max_run are
-        # judged against the union run
-        R = spec.rgroups
-        if R > 1:
-            n_seg = spec.n_seg
-            ws_u = ws_t.reshape(spec.n_tiles, R, n_seg).amin(1)
-            we_u = we_t.reshape(spec.n_tiles, R, n_seg).amax(1)
-        else:
-            ws_u, we_u = ws_t, we_t
-        t_lo = torch.clamp((ws_u // 128) * 128, 0, Ns - S)
-        t_len = torch.clamp_min(we_u - t_lo, 0)
-        t_nact = torch.clamp(-(-t_len // 128), 0, S // 128).to(torch.int32)
-        overflow = ((t_len > S).sum() + ghost_drop).to(torch.int32)
-        max_run = (we_u - torch.clamp_min((ws_u // 128) * 128, 0)).amax()
-        if R == 1:
-            t_lo, t_nact = w_lo, w_nact
+    Ns = spec.n_sorted
+    rows = torch.arange(Ns, **i32)
+    # duplicate writes land only in the pad slot n (non-real rows), whose
+    # value is unspecified — as in the reference
+    inv_real = torch.full((n + 1,), Ns - 1, **i32)
+    inv_real[torch.where(is_real, g, n).long()] = rows
+    src = inv_real[torch.clamp_max(g, n)]
 
-        # ---- per-group candidate compaction (spec.cwidth > 0). The segment
-        # ranges [ws, we) rise with the segment offset, so segment s overlaps
-        # the earlier ones' union only below their running maximum end:
-        # clipping its start there gives disjoint runs whose concatenation is
-        # the group's exact candidate set, with no duplicates and no 128-row
-        # alignment
-        c_lo = c_len = c_n = c_max = None
-        if spec.cwidth > 0:
-            we_prev = torch.cat([torch.zeros((nt, 1), **i32),
-                                 torch.cummax(we_t, 1).values[:, :-1]], 1)
-            c_lo = torch.maximum(ws_t, we_prev).contiguous()
-            c_len = torch.clamp_min(we_t - c_lo, 0).contiguous()
-            c_n = c_len.sum(1, dtype=torch.int32)
-            overflow = (overflow + (c_n > spec.cwidth).sum()).to(torch.int32)
-            c_max = c_n.amax()
+    # ---- per-group pencil runs: dense cell-start table (scatter-min
+    # plus a reverse cumulative min; empty cells inherit the next
+    # cell's start). `first` is monotone, so a group's window bounds
+    # need only the min/max REAL key in the group.
+    T, S = spec.group, spec.wseg
+    nt = spec.n_groups
+    ncells_ext = int(np.prod(res_ext))
+    n_valid = valid.sum().to(torch.int32)
+    first = torch.full((ncells_ext + 1,), Ns, **i32)
+    first[ncells_ext] = torch.minimum(first[ncells_ext], n_valid)
+    first.scatter_reduce_(
+        0, torch.clamp_max(key_s, ncells_ext).long(),
+        torch.where(key_s < ncells_ext, rows, Ns), reduce="amin")
+    first = torch.flip(torch.cummin(torch.flip(first, (0,)), 0).values,
+                       (0,))
 
-        return WindowData(g=g, src=src, inv=inv_real[:n], is_real=is_real,
-                          pos_s=pos_s, shift_s=shift_s, w_lo=w_lo,
-                          w_nact=w_nact, t_lo=t_lo, t_nact=t_nact,
-                          overflow=overflow, max_run=max_run, c_lo=c_lo,
-                          c_len=c_len, c_n=c_n, c_max=c_max)
+    # only REAL (and, with ``active``, active) rows define windows
+    kt = key_s.reshape(nt, T)
+    if active is None:
+        rt = is_real.reshape(nt, T)
+    else:
+        act = torch.cat([active, active.new_zeros(1)])
+        rt = (is_real & act[torch.clamp_max(g, n).long()]).reshape(nt, T)
+    kmin_t = torch.where(rt, kt, _BIG).amin(1)
+    kmax_t = torch.where(rt, kt, -1).amax(1)
+    has_real = kmax_t >= 0
+    # clamp BIG before offsetting (masked below; avoids int32 wraparound)
+    kmin_t = torch.clamp_max(kmin_t, ncells_ext)
+    reach = spec.fast_sub
+    starts, ends = [], []
+    for poff in _pencil_offsets(dim):
+        delta = int(np.dot(poff, strides[:-1])) if dim > 1 else 0
+        ws = first[torch.clamp(kmin_t + (delta - reach), 0, ncells_ext)]
+        we = first[torch.clamp(kmax_t + (delta + reach + 1), 0,
+                               ncells_ext)]
+        starts.append(torch.where(has_real, ws, Ns))
+        ends.append(torch.where(has_real, we, 0))
+    ws_t = torch.stack(starts, -1)  # [nt, n_seg]
+    we_t = torch.stack(ends, -1)
+
+    # window starts aligned down to 128 rows (the TPU's lane tiling, kept
+    # so the tables equal the reference's)
+    w_lo = torch.clamp((ws_t // 128) * 128, 0, Ns - S)
+    w_len = torch.clamp_min(we_t - w_lo, 0)
+    w_nact = torch.clamp(-(-w_len // 128), 0, S // 128).to(torch.int32)
+
+    # per-TILE union of the R group windows; overflow and max_run are
+    # judged against the union run
+    R = spec.rgroups
+    if R > 1:
+        n_seg = spec.n_seg
+        ws_u = ws_t.reshape(spec.n_tiles, R, n_seg).amin(1)
+        we_u = we_t.reshape(spec.n_tiles, R, n_seg).amax(1)
+    else:
+        ws_u, we_u = ws_t, we_t
+    t_lo = torch.clamp((ws_u // 128) * 128, 0, Ns - S)
+    t_len = torch.clamp_min(we_u - t_lo, 0)
+    t_nact = torch.clamp(-(-t_len // 128), 0, S // 128).to(torch.int32)
+    overflow = ((t_len > S).sum() + ghost_drop).to(torch.int32)
+    max_run = (we_u - torch.clamp_min((ws_u // 128) * 128, 0)).amax()
+    if R == 1:
+        t_lo, t_nact = w_lo, w_nact
+
+    # ---- per-group candidate compaction (spec.cwidth > 0). The segment
+    # ranges [ws, we) rise with the segment offset, so segment s overlaps
+    # the earlier ones' union only below their running maximum end:
+    # clipping its start there gives disjoint runs whose concatenation is
+    # the group's exact candidate set, with no duplicates and no 128-row
+    # alignment
+    c_lo = c_len = c_n = c_max = None
+    if spec.cwidth > 0:
+        we_prev = torch.cat([torch.zeros((nt, 1), **i32),
+                             torch.cummax(we_t, 1).values[:, :-1]], 1)
+        c_lo = torch.maximum(ws_t, we_prev).contiguous()
+        c_len = torch.clamp_min(we_t - c_lo, 0).contiguous()
+        c_n = c_len.sum(1, dtype=torch.int32)
+        overflow = (overflow + (c_n > spec.cwidth).sum()).to(torch.int32)
+        c_max = c_n.amax()
+
+    wd = WindowData(g=g, src=src, inv=inv_real[:n], is_real=is_real,
+                    pos_s=pos_s, shift_s=shift_s, w_lo=w_lo,
+                    w_nact=w_nact, t_lo=t_lo, t_nact=t_nact,
+                    overflow=overflow, max_run=max_run, c_lo=c_lo,
+                    c_len=c_len, c_n=c_n, c_max=c_max)
+    return wd, candidate_sums(w_lo, w_nact, c_n, rt, spec)
+
+
+class GraphedBuild:
+    """``build`` of a periodic box on a card as one CUDA graph, with the
+    wrap into the box before it, for one spec and one shape of positions.
+    The graph owns its inputs: the [n, D] positions ``pos`` and the box's
+    corners, which a call copies in. Replaying it makes one launch where
+    ``build`` makes some 300 small ones from the host, which bind a box
+    whose pair walks are short (a 2D box of 1.5e6 particles). The structure
+    it returns, and the wrapped positions in ``pos``, are the graph's own
+    and hold until the next call; the buffers of its intermediate values
+    stay reserved by the graph, and none counts as allocated between
+    replays."""
+
+    def __init__(self, pos, domain: Domain, spec: WindowSpec):
+        self.spec = spec
+        self.pos = pos.clone()
+        self.box = Domain(lo=domain.lo.clone(), hi=domain.hi.clone())
+        # warm up off the capture: the constants, the sort's workspace
+        side = torch.cuda.Stream(device=pos.device)
+        side.wait_stream(torch.cuda.current_stream(pos.device))
+        with torch.cuda.stream(side):
+            self._body()
+        torch.cuda.current_stream(pos.device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.wd, self.sums = self._body()
+
+    def _body(self):
+        self.pos.copy_(self.box.wrap(self.pos))
+        return _build(self.pos, self.box, self.spec, None, None)
+
+    def __call__(self, pos, domain: Domain) -> WindowData:
+        """Wrap ``pos`` into ``domain`` (a periodic box) in the graph's
+        ``pos`` and build the structure over it."""
+        if pos is not self.pos:
+            self.pos.copy_(pos)
+        self.box.lo.copy_(domain.lo)
+        self.box.hi.copy_(domain.hi)
+        with span("sphax_torch.build"):
+            self.graph.replay()
+        _tally(self.sums)
+        return self.wd
 
 
 def compact_index(wd: WindowData, spec: WindowSpec, groups=None):

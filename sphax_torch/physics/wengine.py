@@ -296,6 +296,12 @@ def simulate(state: ParticleState, cfg: SPHConfig, domain: Domain,
     with the step's dt; ``noise(shape, dtype, device) -> (xi_re, xi_im)``
     supplies the standard-normal draws (``driving.gaussian_noise``).
 
+    On a card and a periodic box the fixed-cadence loop replays its
+    builds as one CUDA graph (``graphed_build``): the positions between
+    builds live in the graph's buffer, so a state the loop hands to a step
+    before its last sees them overwritten later; the states it returns do
+    not.
+
     Returns (state, drive, dts, overflow); ``overflow`` is the MAX
     per-rebuild structure overflow and must be 0 (a saturated structure
     silently drops pairs). No host synchronisation happens in the
@@ -331,12 +337,19 @@ def simulate(state: ParticleState, cfg: SPHConfig, domain: Domain,
         return st, dr, dt
 
     def rebuild(st):
+        if graph is not None:
+            # the graph wraps into its own buffer, which then holds the
+            # state's positions
+            wd = graph(st.pos, domain)
+            ovfs.append(wd.overflow.clone())
+            return st._replace(pos=graph.pos), wd
         st = st._replace(pos=domain.wrap(st.pos))
         wd = win.build(st.pos, domain, spec)
         ovfs.append(wd.overflow)
         return st, wd
 
     dts, ovfs = [], []
+    graph = None
     if adaptive_rebuild:
         state, wd = rebuild(state)
         ref, since = state.pos, 0
@@ -353,6 +366,7 @@ def simulate(state: ParticleState, cfg: SPHConfig, domain: Domain,
                 dts.append(dt)
         return (state._replace(pos=domain.wrap(state.pos)), drive,
                 torch.stack(dts), torch.stack(ovfs).amax(), len(ovfs))
+    graph = graphed_build(state, domain, spec)
     for i in range(nsteps):
         with span("sphax_torch.step"):
             if i % rebuild_every == 0:
@@ -360,8 +374,34 @@ def simulate(state: ParticleState, cfg: SPHConfig, domain: Domain,
             state, drive, dt = step_with(state, wd, drive,
                                          local_dt(state, cfg))
             dts.append(dt)
+            if graph is not None and i + 1 < nsteps:
+                # keep the positions in the graph's buffer, so that no
+                # more of them are alive than without the graph
+                graph.pos.copy_(state.pos)
+                state = state._replace(pos=graph.pos)
     return (state._replace(pos=domain.wrap(state.pos)), drive,
             torch.stack(dts), torch.stack(ovfs).amax())
+
+
+# the graphed builds of the fixed-cadence loop: one per structure, shape,
+# dtype and card, kept with its memory pool for the process
+_GRAPHS = {}
+
+
+def graphed_build(state: ParticleState, domain: Domain, spec: WindowSpec):
+    """The ``window.GraphedBuild`` of this spec and these positions' shape,
+    dtype and card (made at the first call and kept), or None on the CPU
+    or a box that is not periodic on every axis. Its buffer takes the place
+    of the state's positions between builds: a state that ``simulate``
+    hands to a step before its last holds positions the loop overwrites
+    later."""
+    pos = state.pos
+    if not (pos.is_cuda and all(domain.periodic_axes(state.dim))):
+        return None
+    key = (spec, tuple(pos.shape), pos.dtype, pos.device)
+    if key not in _GRAPHS:
+        _GRAPHS[key] = win.GraphedBuild(pos, domain, spec)
+    return _GRAPHS[key]
 
 
 def drift_gate(state: ParticleState, ref, dt, spec: WindowSpec,

@@ -185,15 +185,27 @@ def sedov(n: int = 20, visc: str = "balsara", dtype=torch.float32,
                    **_engine_kw(spec, name))
 
 
-def kh(n: int = 64, dtype=torch.float32, device=None, **kw) -> Problem:
-    """2D Kelvin-Helmholtz: N = 1.5 n^2 (n = 1024 gives 1,572,864)."""
+def kh(n: int = 64, smooth=0, dtype=torch.float32, device=None,
+       **kw) -> Problem:
+    """2D Kelvin-Helmholtz: N = 1.5 n^2 (n = 1024 gives 1,572,864).
+    ``smooth=1``: McNally et al. 2012's well-posed test (smoothed
+    interfaces, ``ics.kh.build_mcnally``) in place of the sharp ones."""
     from sphax_torch.ics import kh as ics
     dev = _device(device)
-    ic = ics.build(nx=int(n))
+    smooth = _as_bool("smooth", smooth)
+    eta = configs.KH.eta
+    ic = (ics.build_mcnally(int(n), eta=eta) if smooth
+          else ics.build(nx=int(n), eta=eta))
     cfg = _cfg_kw(configs.KH, kw)
     dom = _box(ic, 2, dtype, dev)
     st = _state(ic, dtype, dev)
-    eng, spec, name = _auto_engine(st, cfg, dom)
+    plan = st
+    if smooth:
+        # the profile's rho never falls below rho1 = 1, so no h exceeds
+        # eta (m / rho1)^(1/2) = eta / n: the window is planned for that h,
+        # which the rows far from the band approach
+        plan = st._replace(h=torch.full_like(st.h, eta / int(n)))
+    eng, spec, name = _auto_engine(plan, cfg, dom)
     return Problem("kh", eng(st), cfg, dom, eng, t_end=1.0,
                    **_engine_kw(spec, name))
 

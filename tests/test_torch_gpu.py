@@ -36,7 +36,7 @@ from sphax_torch import configs, convert, make_state
 from sphax_torch.core.state import box
 from sphax_torch.dist import comm, pencil, wslab
 from sphax_torch.ics import kh, lattice, turbulence
-from sphax_torch.integrate import rungs
+from sphax_torch.integrate import leapfrog, rungs
 from sphax_torch.neighbors import window as win
 from sphax_torch.physics import direct_gravity as dg
 from sphax_torch.physics import pm, rowpack, wengine
@@ -927,3 +927,138 @@ def test_sorted_mesh_on_the_card(cuda, dtype):
                                      dom, 32, True, plan)
     n_fb, n_drop = wengine.mesh_fallback_count(st, P3M, dom, spec)
     assert (int(n_fb), int(n_drop)) == (int(stats[0]), 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compact", [False, True])
+def test_candidate_counter_on_the_card(cuda, compact):
+    """window.candidate_sums and count_candidates add a build's candidates
+    to the record with no host synchronisation (the CUDA sync debug mode
+    raises on one), and the record equals the count from the same tables
+    on the CPU."""
+    st, dom, spec, wd, _ = _inputs(cuda, torch.float32, dim=2,
+                                   compact=compact)
+    real = wd.is_real.reshape(spec.n_groups, spec.group)
+    c_n = wd.c_n if compact else None
+    torch.cuda.synchronize()
+    saved = win.CANDIDATES["sums"]
+    win.CANDIDATES["sums"] = None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            win.count_candidates(win.candidate_sums(wd.w_lo, wd.w_nact, c_n,
+                                                    real, spec))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        got, win.CANDIDATES["sums"] = win.CANDIDATES["sums"], saved
+    want = win.candidate_sums(wd.w_lo.cpu(), wd.w_nact.cpu(),
+                              None if c_n is None else c_n.cpu(),
+                              real.cpu(), spec)
+    assert got.is_cuda and got.cpu().tolist() == (2 * want).tolist()
+    assert int(want[1]) == st.n
+
+
+def _kh_box(device, n=128):
+    from sphax_torch import problems
+
+    p = problems.kh(n=n, smooth=1, device="cpu")
+    st = p.state._replace(**{f: getattr(p.state, f).to(device)
+                             for f in p.state._fields})
+    dom = box(torch.zeros(2, device=device), torch.ones(2, device=device))
+    _, spec = problems._window_engine(st, p.cfg, dom)
+    return st, dom, spec, p.cfg
+
+
+@pytest.mark.gpu
+def test_graphed_build_equals_the_build(cuda):
+    """window.GraphedBuild replays the wrap and the build bit for bit (the
+    owner rows of pad rows aside, which are unspecified), on positions it
+    did not capture and in a box it did not capture (its own copy of the
+    corners), and counts its builds and candidates as build does."""
+    st, dom, spec, _ = _kh_box(cuda)
+    g = win.GraphedBuild(st.pos, dom, spec)
+    assert g.pos is not st.pos
+    shift = torch.tensor([0.3, -0.7], device=cuda)
+    moved = box(dom.lo + 0.25, dom.hi + 0.25)
+    for pos, d in ((st.pos, dom), (st.pos + shift, dom),
+                   (st.pos - 2.0 * shift, dom), (st.pos + shift, moved)):
+        win.CANDIDATES["sums"] = None
+        want = win.build(d.wrap(pos), d, spec)
+        n0 = win.BUILDS["n"]
+        sums0 = win.CANDIDATES["sums"].clone()
+        got = g(pos, d)
+        assert win.BUILDS["n"] == n0 + 1
+        assert torch.equal(g.pos, d.wrap(pos))
+        assert torch.equal(win.CANDIDATES["sums"], 2 * sums0)
+        for k, a in want._asdict().items():
+            if k == "src":      # unspecified on the pad rows, by contract
+                a, b = a[want.is_real], got.src[want.is_real]
+            else:
+                b = getattr(got, k)
+            if a is not None:
+                assert torch.equal(b, a), k
+
+
+@pytest.mark.gpu
+def test_simulate_with_the_graphed_build_equals_eager(cuda, monkeypatch):
+    """wengine.simulate's fixed-cadence loop through the graphed build
+    gives the eager loop's states and dts bit for bit, and its peak of
+    allocated memory (the graph's capture included) is the eager loop's
+    within 0.5 %."""
+    st, dom, spec, cfg = _kh_box(cuda)
+    st = wengine.update_derived(st, cfg, dom, spec)
+    runs = {}
+    for mode in ("eager", "graph", "graph again"):
+        with monkeypatch.context() as m:
+            if mode == "eager":
+                m.setattr(wengine, "graphed_build", lambda *a: None)
+            if mode != "graph again":
+                wengine._GRAPHS.clear()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            sn, _, dts, ovf = wengine.simulate(st, cfg, dom, spec, 8)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            # the outputs leave the card, so that the next run's peak
+            # holds only what that run keeps
+            runs[mode] = (sn._replace(**{f: getattr(sn, f).cpu()
+                                         for f in sn._fields}),
+                          dts.cpu(), int(ovf), peak)
+            del sn, dts, ovf
+    se, de, oe, peak_e = runs["eager"]
+    for mode in ("graph", "graph again"):
+        sg, dg, og, peak_g = runs[mode]
+        assert og == oe == 0
+        assert torch.equal(dg, de)
+        for f in st._fields:
+            assert torch.equal(getattr(sg, f), getattr(se, f)), (mode, f)
+        assert peak_g <= 1.005 * peak_e, (mode, peak_g, peak_e)
+
+
+@pytest.mark.gpu
+def test_graphed_loop_hands_steps_its_buffer(cuda, monkeypatch):
+    """The graphed fixed-cadence loop keeps the positions between builds in
+    the graph's buffer, one graph per spec and shape whatever the box
+    object: a state it hands to a step before its last holds that buffer,
+    which later steps overwrite; the last step's input state (what a
+    recorder of a chunk's last step keeps) and the returned state keep
+    their positions."""
+    st, dom, spec, cfg = _kh_box(cuda)
+    st = wengine.update_derived(st, cfg, dom, spec)
+    seen, real_step = [], leapfrog.step
+
+    def step(state, *a, **k):
+        seen.append((state, state.pos.clone()))
+        return real_step(state, *a, **k)
+    monkeypatch.setattr(leapfrog, "step", step)
+    wengine._GRAPHS.clear()
+    for d in (dom, box(dom.lo.clone(), dom.hi.clone())):
+        seen.clear()
+        sn, _, _, ovf = wengine.simulate(st, cfg, d, spec, 4)
+        assert int(ovf) == 0 and len(wengine._GRAPHS) == 1
+        buf = next(iter(wengine._GRAPHS.values())).pos
+        assert all(s.pos is buf for s, _ in seen[:-1])
+        assert not torch.equal(seen[0][0].pos, seen[0][1])
+        assert torch.equal(seen[-1][0].pos, seen[-1][1])
+        assert sn.pos is not buf and st.pos is not buf
