@@ -142,7 +142,11 @@ Phases, in order; any failed check raises and exits non-zero:
  27. cull      per real row at the bench, P3M, kh, Sedov and 1D shapes, in
                place and compact: the candidate rows, the survivors of the
                warp's cull (``window_kernels.cull_stats``, the kernels' rule
-               as plain torch) and the pairs inside the support. Then
+               as plain torch) and the pairs inside the support; at the
+               turb256, sedov128 and kh1024 shapes kernel A's two walks
+               (``window_kernels.walk_stats``): the steps a warp and the
+               lane fill of the walk in which every lane visits every
+               survivor and of the pair walk. Then
                kernels A (cold, 2 Newton updates) and C against plain, fp32
                3e-5 and fp64 1e-10, in place and compact, on a clustered
                state (half of 65,536 particles drawn toward 4 centres, h
@@ -1824,6 +1828,7 @@ def main():
             + (", inside the cutoff)" if "grav" in k else ")"))
         assert v["A"] <= v["candidates"] and v["C"] <= v["candidates"]
         assert v["C"] >= v["inside_C"] * 0.999, v
+    walks = walk_fill(dev)
 
     def parity(tag, wd, spec, f, cfg, rows, dtype, grav=None):
         """Kernels A and C against plain on ``rows``; the largest absolute
@@ -1897,7 +1902,8 @@ def main():
             f"to {float(ratio[warp_m.any(1)].max()):.1f}x inside one warp; "
             f"{st_k['candidates']:.0f} candidates and {st_k['A']:.0f} (A), "
             f"{st_k['C']:.0f} (C) survivors per real row (a warp stages "
-            f"128 at a time in A and 96 in C in fp32, half that in fp64)")
+            f"{wk.pair_cap(torch.float32)} at a time in A's 3D pair walk "
+            f"and 96 in C in fp32, half that in fp64)")
         assert st_k["A"] > 256, st_k     # several flushes a walk
         assert float(ratio[warp_m.any(1)].max()) > 3.0
         for dtype in (torch.float32, torch.float64):
@@ -3140,7 +3146,7 @@ def main():
                  "candidate_rows_walked": walked1,
                  "candidate_rows_computed": computed1,
                  "c_n_mean_p99_max_per_row": cst1},
-        "cull": surv,
+        "cull": surv, "walks": walks,
         "off_lattice_max_abs_err": {f"{k} {d}": v
                                     for (k, d), v in off_lattice.items()},
         "reference_cpu_max_rel_err": ref_err,
@@ -4178,6 +4184,51 @@ def rowpack_bytes(dim, n, Ns, size, alpha=False, bf=True):
         + Ns * rowpack.c_rows(dim, bf) * size,
         "rowpack_scatter_out": n * (4 + 2 * (7 + dim) * size),
     }
+
+
+def walk_fill(dev, every=8):
+    """Phase 27's kernel A walks at the benchmark cells' shapes (turb256,
+    sedov128 and kh1024, each problem's set-up state): per real row the
+    candidates, survivors and pairs inside the support, and the steps a
+    warp and the lane fill of the walk in which every lane visits every
+    survivor and of the pair walk (``window_kernels.walk_stats``: the
+    plain rule on every ``every``-th row-group with candidates, at the
+    fp32 batch of a Newton walk and of the final walk with the Balsara
+    sums). Returns its record."""
+    from sphax_torch import problems
+    from sphax_torch.neighbors import window as win
+    from sphax_torch.physics import window_kernels as wk
+
+    makers = {"turb256": lambda: problems.turb(n=256, accel_rms=0.2,
+                                               device=dev),
+              "sedov128": lambda: problems.sedov(n=128, device=dev),
+              "kh1024": lambda: problems.kh(n=1024, smooth=1, device=dev)}
+    rec = {}
+    for cell, make in makers.items():
+        t0 = time.perf_counter()
+        prob = make()
+        st = prob.state
+        wd = win.build(st.pos, prob.domain, prob.wspec)
+        mass_s = win.gather_sorted(st.mass, wd)
+        h_s = win.gather_sorted(st.h, wd, 1.0)
+        r = {walk: wk.walk_stats(wd, prob.wspec, wd.pos_s, mass_s, h_s,
+                                 wk.pair_cap(torch.float32, rest), every)
+             for walk, rest in (("newton", False), ("final", True))}
+        n, f = r["newton"], r["final"]
+        log(f"[27 walks] {cell} (every {every}th row-group, "
+            f"{time.perf_counter() - t0:.1f} s): per real row "
+            f"{n['candidates']:.1f} candidates, {n['survivors']:.1f} "
+            f"survivors, {n['pairs']:.2f} pairs inside 2 h; every lane "
+            f"over every survivor: {n['steps_warp']:.1f} steps a warp, "
+            f"fill {n['fill_warp']:.3f}; the pair walk: "
+            f"{n['steps_pairs']:.1f} steps, fill {n['fill_pairs']:.3f} "
+            f"(batch {wk.pair_cap(torch.float32)}), {f['steps_pairs']:.1f}"
+            f" steps, fill {f['fill_pairs']:.3f} (batch "
+            f"{wk.pair_cap(torch.float32, True)}, the final walk)")
+        assert 0 < n["fill_warp"] <= n["fill_pairs"] <= 1.0, n
+        rec[cell] = r
+        del prob, st, wd, mass_s, h_s
+    return rec
 
 
 def rowpack_phase(dev, h, n_side=256):

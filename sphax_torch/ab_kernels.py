@@ -14,7 +14,10 @@ and C (exact) at the ``kh n=1024`` shapes (phase 18); A (cold, 6 Newton
 updates) and C (exact) on the ``sedov n=100`` structure, unmasked, masked
 with a tenth of the particles closing and masked down to 4 active groups
 (phases 22 and 24); in 1D, A (cold) and C (exact) on a line of 2^20
-particles (phase 26). Kernel G runs on seeded uniform clouds, fp32 at
+particles (phase 26); A and C at the benchmark's ``turb256`` and
+``sedov128`` shapes (``problems.turb(n=256, accel_rms=0.2)`` and
+``problems.sedov(n=128)``, the set-up states). Kernel G runs on seeded
+uniform clouds, fp32 at
 N = 4,096, 20,000, 65,536, 64^3 and 1e6 and fp64 at 64^3, through its
 planned C signature (a tree older than G's redesign, whose G took a [4, N]
 pack and no plan, does not load).
@@ -345,6 +348,15 @@ def _cases(dev):
                                  for k, v in masks.items())):
         cases[f"A sedov{tag}"] = a(fs, w, prob_s.wspec, prob_s.cfg)
         cases[f"C sedov{tag}"] = c(fs, w, prob_s.wspec, prob_s.cfg)
+
+    # the benchmark cells' shapes: each problem's set-up state
+    for tag, prob in (("turb256", problems.turb(n=256, accel_rms=0.2,
+                                                device=dev)),
+                      ("sedov128", problems.sedov(n=128, device=dev))):
+        w = win.build(prob.state.pos, prob.domain, prob.wspec)
+        fc = sorted_fields(prob.state, w)
+        cases[f"A {tag}"] = a(fc, w, prob.wspec, prob.cfg)
+        cases[f"C {tag}"] = c(fc, w, prob.wspec, prob.cfg)
 
     st1, cfg1, dom1, spec1 = line_inputs(dev)
     st1 = wengine.update_derived(st1, cfg1, dom1, spec1)

@@ -38,11 +38,19 @@
 // thread visits every candidate spends its time on rejections: four
 // warp-uniform loads, up to eight dedup compares, r^2 and a reciprocal
 // square root, 32 lanes wide, for a row that 97 % of the time then fails
-// the support test. With the cull below about 490 rows survive per row at
-// the bench shapes (100 in 2D, 37 in 1D), and what takes the slots is,
-// largest first: the pair arithmetic, which runs for the whole warp
-// whenever a survivor is a neighbour of one of its 32 rows; the first test
-// of every survivor; the cull itself.
+// the support test. The cull below keeps 437 rows per row at the
+// turb256 shapes (102 in 2D at kh1024, 37 in 1D). In kernel C every lane
+// then walks every survivor, and the pair arithmetic runs for the whole
+// warp whenever one of its 32 rows takes the survivor: 356 times a warp a
+// walk at turb256 for 81 pairs a row, 0.23 of the lanes busy
+// (`window_kernels.walk_stats`); kernel A walked so too. Kernel A's pair
+// walk runs it 124 times in a Newton walk and 158 in the final one
+// (fill 0.65 and 0.51), and what binds A now is the test of every (row,
+// survivor) pair and the cull, whose global loads wait unless 32 warps a
+// SM hide them (kernel A 51.0 -> 43.0 ms at turb256, 16.4 -> 13.5 at
+// sedov128, 2.49 -> 1.67 at kh1024, 0.253 -> 0.180 on the 1D line of 2^20,
+// in turns on one H100 at 700 W; culled alone, without a walk, A took
+// 15.6 ms at turb256).
 //
 // What the design does about it: each warp culls its candidates
 // cooperatively, then walks only the survivors.
@@ -66,19 +74,27 @@
 //      A's Balsara sums (staged for the last walk only), velocity, m, h,
 //      rho, cs, ci, gc1, gc2 and bf for C (three vectors). A lane reads
 //      them for its own kept candidate, so these loads are coalesced too.
-//      The buffer holds CAP entries (in fp32 128 in A and 96 in C, half
-//      that in fp64: 4 KB a warp in A, 6 KB in C); when another step might
-//      not fit, the warp walks
-//      what it has and goes on culling, so no input can overflow it and
-//      nothing is dropped.
-//   3. Walk. Every lane reads each entry as one broadcast 16-byte shared
-//      load and tests r^2 against its support before any reciprocal
-//      square root; a passing pair reads its further vectors the same way
-//      (with the j-fields read from global memory by row index instead,
-//      kernel C spent a third of its pair arithmetic on addresses and
-//      loads: 2.60 against 1.90 ms at the bench shapes). The pair
-//      arithmetic is what it was. Candidate order is kept, so each row's
-//      sums are taken in the order they were.
+//      C's buffer holds CAP entries (96 in fp32, 48 in fp64: 6 KB a
+//      warp), A's PairCap (320, 192 in the final walk); when another step
+//      might not fit, the warp walks what it has and goes on culling, so
+//      no input can overflow it and nothing is dropped.
+//   3. Walk, kernel C. Every lane reads each entry as one broadcast 16-byte
+//      shared load and tests r^2 against its support before any
+//      reciprocal square root; a passing pair reads its further vectors
+//      the same way (with the j-fields read from global memory by row
+//      index instead, kernel C spent a third of its pair arithmetic on
+//      addresses and loads: 2.60 against 1.90 ms at the bench shapes).
+//   3. Walk, kernel A (the pair walk, `test_and_walk`). Each lane first
+//      tests its own row against every staged survivor, one broadcast load
+//      each, and keeps a bit a survivor; then each lane walks only the
+//      survivors its row took, PAIR_STEP a step, so the pair arithmetic
+//      runs where a row has a pair and not where any of 32 has one. Its
+//      pair is straight-line code: a pair outside the support adds exact
+//      zeros. No sum crosses lanes, and the candidate order is kept, so
+//      each row's sums are taken in the order they were, bit for bit the
+//      walk of every lane over every survivor (drdh's 3 w + q dw/dq is the
+//      fused multiply-add that walk compiled to). The pair walk measured
+//      faster in every dimension, so every kernel A takes it.
 //   4. Kernel A culls afresh before each of its Newton walks with the
 //      warp's current h_max: h moves by up to half an update, and a list
 //      made for one h is no superset for the next.
@@ -117,13 +133,13 @@ __host__ __device__ constexpr int nseg(int dim) {
   return dim <= 1 ? 1 : 3 * nseg(dim - 1);
 }
 
-// Survivors a warp stages before a walk: 128 in fp32 and 64 in fp64 (2 KB a
-// staged vector), three quarters of that in kernel C, whose 1 + 3 vectors a
-// survivor would otherwise leave a SM room for 24 warps where its
-// registers allow 32 (6 KB a warp instead of 8; measured 5 % faster at the
-// bench shapes).
-template <typename T, int NV>
-constexpr int CAP = (NV == 3 ? 384 : 512) / int(sizeof(T));
+// Survivors a warp of kernel C stages before a walk: 96 in fp32 and 48 in
+// fp64 (1.5 KB a staged vector); 128 and its 1 + 3 vectors a survivor would
+// leave a SM room for 24 warps where C's registers allow 32 (6 KB a warp
+// instead of 8; measured 5 % faster at the bench shapes). Kernel A's pair
+// walk stages its own batches (`PairCap`).
+template <typename T>
+constexpr int CAP = 384 / int(sizeof(T));
 
 template <typename T> struct Num;
 
@@ -134,6 +150,9 @@ template <> struct Num<float> {
   static __device__ __forceinline__ float sqrt(float x) { return sqrtf(x); }
   static __device__ __forceinline__ float exp(float x) { return expf(x); }
   static __device__ __forceinline__ float erfc(float x) { return erfcf(x); }
+  static __device__ __forceinline__ float fma(float a, float b, float c) {
+    return fmaf(a, b, c);
+  }
   template <bool FAST>
   static __device__ __forceinline__ float div(float a, float b) {
     return FAST ? __fdividef(a, b) : a / b;
@@ -147,6 +166,9 @@ template <> struct Num<double> {
   static __device__ __forceinline__ double sqrt(double x) { return ::sqrt(x); }
   static __device__ __forceinline__ double exp(double x) { return ::exp(x); }
   static __device__ __forceinline__ double erfc(double x) { return ::erfc(x); }
+  static __device__ __forceinline__ double fma(double a, double b, double c) {
+    return ::fma(a, b, c);
+  }
   template <bool FAST>
   static __device__ __forceinline__ double div(double a, double b) {
     return a / b;
@@ -330,36 +352,73 @@ __device__ __forceinline__ Stage<T, NV> warp_stage() {
   extern __shared__ __align__(16) unsigned char stage_raw[];
   const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   Vec4<T>* base = reinterpret_cast<Vec4<T>*>(stage_raw);
-  return {base + warp * CAP<T, NV>,
-          base + nwarps * CAP<T, NV> + warp * (CAP<T, NV> * NV)};
+  return {base + warp * CAP<T>,
+          base + nwarps * CAP<T> + warp * (CAP<T> * NV)};
 }
 
 template <typename T, int NV>
 size_t stage_bytes(int tile) {
-  return size_t(tile / 32) * CAP<T, NV> * (1 + NV) * sizeof(Vec4<T>);
+  return size_t(tile / 32) * CAP<T> * (1 + NV) * sizeof(Vec4<T>);
+}
+
+// Survivors a warp of kernel A's pair walk stages before a walk. A lane
+// walks only its own row's pairs and a batch takes as many steps as the
+// most pairs any of its 32 rows takes, so the larger the batch, the closer
+// each row comes to that most (`window_kernels.walk_stats`: at the
+// turb256 shapes, 437 survivors a row, batches of 320 fill 0.65 of the
+// lanes and 192 0.51; on a 24^3 lattice at the same knobs 128 fill 0.43
+// and 512 0.96). A survivor takes its entry and one bit a
+// row (4 bytes a slot of `mask`), in the final walk with the Balsara sums
+// its velocity too: 320 in fp32, 192 with the velocities (6,912 bytes a
+// warp), 160 and 96 in fp64. That leaves a SM room for 32 warps, as do the
+// 64 registers a thread that A's fp32 kernels are held to (`__maxnreg__`
+// on them; 128 in fp64, which no bench path runs): the cull before each
+// walk waits on global loads, and at 20 warps a SM, with 512 and 256,
+// kernel A took 49.5 ms at turb256 against 43.4 at 32.
+template <typename T>
+struct PairCap {
+  static constexpr int plain = 1280 / int(sizeof(T));
+  static constexpr int with_rest = 768 / int(sizeof(T));
+  static constexpr size_t bytes = (plain * (sizeof(Vec4<T>) + 4) >
+                                   with_rest * (2 * sizeof(Vec4<T>) + 4))
+                                      ? plain * (sizeof(Vec4<T>) + 4)
+                                      : with_rest * (2 * sizeof(Vec4<T>) + 4);
+};
+
+// The warp's slice of the block's dynamic shared memory in the pair walk.
+template <typename T>
+__device__ __forceinline__ Vec4<T>* warp_pair_stage() {
+  extern __shared__ __align__(16) unsigned char stage_raw[];
+  return reinterpret_cast<Vec4<T>*>(stage_raw +
+                                    (threadIdx.x >> 5) * PairCap<T>::bytes);
+}
+
+template <typename T>
+size_t pair_stage_bytes(int tile) {
+  return size_t(tile / 32) * PairCap<T>::bytes;
 }
 
 // One walk of a warp over its candidates. `entry(k, e)` reads candidate
 // row k's entry, `near(e, k)` says whether the warp keeps it, `fill(k, r)`
-// reads a kept candidate's NV further vectors (staged only `with_rest`),
-// and `pair(e, slot)` is one lane's work on one survivor. The lanes cull 32
-// candidates a step and append the survivors in candidate order; whenever
-// another step might not fit, every lane walks the staged entries and the
-// warp goes on. All control flow here is warp-uniform; `pair` may diverge
-// inside.
+// reads a kept candidate's NV further vectors (staged only `with_rest`, at
+// rest[slot * NV + v]), and `walk(n)` walks the n entries staged at `ent`.
+// The lanes cull 32 candidates a step and append the survivors in
+// candidate order; whenever another step might not fit in `cap` entries,
+// the warp walks what it staged and goes on. All control flow here is
+// warp-uniform; `walk` may diverge inside.
 template <typename T, int NSEG, int NV, typename Read, typename Near,
-          typename Fill, typename Pair>
-__device__ __forceinline__ void cull_and_walk(const Ranges& rg, int lane,
-                                              const Stage<T, NV>& stage,
-                                              bool with_rest, Read&& entry,
-                                              Near&& near, Fill&& fill,
-                                              Pair&& pair) {
+          typename Fill, typename Walk>
+__device__ __forceinline__ void cull_and_stage(const Ranges& rg, int lane,
+                                               Vec4<T>* ent, Vec4<T>* rest,
+                                               int cap, bool with_rest,
+                                               Read&& entry, Near&& near,
+                                               Fill&& fill, Walk&& walk) {
   int s = 0;
   int k0 = __shfl_sync(FULL, rg.lo, 0);
   int kend = __shfl_sync(FULL, rg.hi, 0);
   for (;;) {
     int n = 0;
-    while (s < NSEG && n <= CAP<T, NV> - 32) {
+    while (s < NSEG && n <= cap - 32) {
       if (k0 >= kend) {  // next segment (lane NSEG's range is empty)
         ++s;
         k0 = __shfl_sync(FULL, rg.lo, s);
@@ -376,14 +435,14 @@ __device__ __forceinline__ void cull_and_walk(const Ranges& rg, int lane,
       const unsigned kept = __ballot_sync(FULL, keep);
       if (keep) {
         const int slot = n + __popc(kept & ((1u << lane) - 1u));
-        store_vec(stage.ent + slot, Vec4<T>{e.p[0], e.p[1], e.p[2], e.w});
+        store_vec(ent + slot, Vec4<T>{e.p[0], e.p[1], e.p[2], e.w});
         if constexpr (NV > 0) {
           if (with_rest) {
             Vec4<T> r[NV];
             fill(k, r);
 #pragma unroll
             for (int v = 0; v < NV; ++v)
-              store_vec(stage.rest + slot * NV + v, r[v]);
+              store_vec(rest + slot * NV + v, r[v]);
           }
         }
       }
@@ -392,11 +451,91 @@ __device__ __forceinline__ void cull_and_walk(const Ranges& rg, int lane,
     }
     if (n == 0) break;
     __syncwarp();
-    for (int slot = 0; slot < n; ++slot) {
-      const Vec4<T> v = load_vec(stage.ent + slot);
-      pair(Entry<T>{{v.a, v.b, v.c}, v.d}, slot);
-    }
+    walk(n);
     __syncwarp();
+  }
+}
+
+// The walk in which every lane visits every staged survivor, in slot
+// order: `pair(e, slot)` is one lane's work on one survivor.
+template <typename T, int NSEG, int NV, typename Read, typename Near,
+          typename Fill, typename Pair>
+__device__ __forceinline__ void cull_and_walk(const Ranges& rg, int lane,
+                                              const Stage<T, NV>& stage,
+                                              bool with_rest, Read&& entry,
+                                              Near&& near, Fill&& fill,
+                                              Pair&& pair) {
+  cull_and_stage<T, NSEG, NV>(
+      rg, lane, stage.ent, stage.rest, CAP<T>, with_rest, entry, near,
+      fill, [&](int n) {
+        for (int slot = 0; slot < n; ++slot) {
+          const Vec4<T> v = load_vec(stage.ent + slot);
+          pair(Entry<T>{{v.a, v.b, v.c}, v.d}, slot);
+        }
+      });
+}
+
+// The pairs a lane of kernel A's pair walk takes a step.
+constexpr int PAIR_STEP = 2;
+
+// Kernel A's pair walk over a staged batch of n survivors at `ent`.
+// 1. Test: each lane applies its own row's first test, `takes(c)`, to
+//    every staged survivor, one broadcast 16-byte load each, and keeps one
+//    bit a survivor in its own words of `mask` (mask[32 w + lane], bit b
+//    for slot 32 w + b). Entries that no row takes pad the last word, so
+//    the test runs 32 slots at a time with no bounds. A lane whose row
+//    carries no mass takes nothing.
+// 2. Walk: each lane walks the set bits of its own words in slot order,
+//    PAIR_STEP a step, so every step gives every lane that still has pairs
+//    that many that passed the test: `pair(e, slot, live)` on each, with
+//    `live` false (and slot 0's entry) where the lane has no pair left.
+//    The steps of a batch are the most pairs any of its rows takes, over
+//    PAIR_STEP, rounded up.
+// A lane sums its own row's pairs in candidate order, as the walk in which
+// every lane visits every survivor does: no reduction across lanes.
+template <typename T, typename Takes, typename Pair>
+__device__ __forceinline__ void test_and_walk(int n, int lane, Vec4<T>* ent,
+                                              unsigned* mask, bool mine,
+                                              Takes&& takes, Pair&& pair) {
+  const int words = (n + 31) >> 5;
+  if (n + lane < 32 * words)
+    store_vec(ent + n + lane,
+              Vec4<T>{Num<T>::big, Num<T>::big, Num<T>::big, T(0)});
+  __syncwarp();
+  for (int w = 0; w < words; ++w) {
+    unsigned bits = 0;
+#pragma unroll
+    for (int b = 0; b < 32; ++b) {
+      const Vec4<T> v = load_vec(ent + 32 * w + b);
+      if (takes(Entry<T>{{v.a, v.b, v.c}, v.d})) bits |= 1u << b;
+    }
+    mask[32 * w + lane] = mine ? bits : 0u;
+  }
+  int w = 0;
+  unsigned bits = mask[lane];
+  // the lane's next slot, -1 past its last
+  auto next = [&]() {
+    while (bits == 0 && ++w < words) bits = mask[32 * w + lane];
+    int slot = -1;
+    if (bits != 0) {
+      slot = 32 * w + __ffs(bits) - 1;
+      bits &= bits - 1;
+    }
+    return slot;
+  };
+  for (;;) {
+    int slot[PAIR_STEP];
+    slot[0] = next();
+    if (!__any_sync(FULL, slot[0] >= 0)) break;
+    each_axis(Axes<PAIR_STEP - 1>{}, [&](int j) { slot[j + 1] = next(); });
+    Vec4<T> v[PAIR_STEP];
+    each_axis(Axes<PAIR_STEP>{}, [&](int j) {
+      v[j] = load_vec(ent + (slot[j] < 0 ? 0 : slot[j]));
+    });
+    each_axis(Axes<PAIR_STEP>{}, [&](int j) {
+      pair(Entry<T>{{v[j].a, v[j].b, v[j].c}, v[j].d},
+           slot[j] < 0 ? 0 : slot[j], slot[j] >= 0);
+    });
   }
 }
 
@@ -476,15 +615,20 @@ __device__ __forceinline__ void solve_h_density_row(
   const T m_safe = mi > T(1e-30) ? mi : T(1e-30);
   const bool has_mass = mi > T(0);
   const Box<T, DIM> box = Box<T, DIM>::of(xi, has_mass);
-  constexpr int NV = BALS ? 1 : 0;  // the velocities, for the last walk
-  const Stage<T, NV> stage = warp_stage<T, NV>();
+  Vec4<T>* const ent = warp_pair_stage<T>();
   auto velocity = [&](int k) {
     T v[3] = {T(0), T(0), T(0)};
     each_axis(Axes<DIM>{}, [&](int d) { v[d] = V[d][k]; });
     return Vec4<T>{v[0], v[1], v[2], T(0)};
   };
   for (int it = 0; it <= iters; ++it) {
-    const bool last = it == iters;
+    // the final walk stages the velocities beside the entries, so its
+    // batches hold fewer survivors
+    const bool with_rest = BALS && it == iters;
+    const int cap = with_rest ? PairCap<T>::with_rest : PairCap<T>::plain;
+    Vec4<T>* const rest = ent + cap;
+    unsigned* const mask =
+        reinterpret_cast<unsigned*>(rest + (with_rest ? cap : 0));
     const T invh = T(1) / h;
     const T invh2 = invh * invh;
     T sigd = sig;  // sig / h^DIM
@@ -494,31 +638,41 @@ __device__ __forceinline__ void solve_h_density_row(
       each_axis(Axes<DIM>{}, [&](int d) { e.p[d] = X[d][k]; });
       e.w = M[k];
     };
-    auto pair = [&](const Entry<T>& c, int slot) {
+    const T reach = Margin<T>::reach * warp_max(has_mass ? h : T(0));
+    const T reach2 = reach * reach;
+    auto near = [&](const Entry<T>& e, int) {
+      return e.w > T(0) && box.gap2(e.p) < reach2;
+    };
+    auto fill = [&](int k, Vec4<T> (&r)[1]) { r[0] = velocity(k); };
+    // the walk's first test: r^2 / h^2 against the support's margin
+    auto takes = [&](const Entry<T>& c) {
+      T dx[DIM];
+      each_axis(Axes<DIM>{}, [&](int d) { dx[d] = xi[d] - c.p[d]; });
+      return dot(dx, dx) * invh2 < Margin<T>::support2;
+    };
+    // One pair, in straight-line code, so that a lane's pairs of a step
+    // interleave. A pair that is not live (the lane has none left, or
+    // q >= 2: outside the support) takes m = 0 and adds exact zeros, which
+    // leaves the sums as they were. `rest_c`: the final walk's Balsara
+    // sums.
+    auto pair = [&](const Entry<T>& c, int slot, bool live, auto rest_c) {
       T dx[DIM];
       each_axis(Axes<DIM>{}, [&](int d) { dx[d] = xi[d] - c.p[d]; });
       const T r2 = dot(dx, dx);
-      if (r2 * invh2 >= Margin<T>::support2) return;
       const T invr = Num<T>::rsqrt(r2 + Num<T>::tiny);
       const T q = r2 * invr * invh;
-      if (q >= T(2)) return;  // outside the support: every term is 0
-      const T m = c.w;
+      const T m = live && q < T(2) ? c.w : T(0);
       const T t = T(2) - q;
-      T f, df;
-      if (q < T(1)) {
-        f = T(1) + q * q * (T(0.75) * q - T(1.5));
-        df = q * (T(2.25) * q - T(3));
-      } else {
-        f = T(0.25) * t * t * t;
-        df = T(-0.75) * t * t;
-      }
+      const bool inner = q < T(1);
+      const T f = inner ? T(1) + q * q * (T(0.75) * q - T(1.5))
+                        : T(0.25) * t * t * t;
+      const T df = inner ? q * (T(2.25) * q - T(3)) : T(-0.75) * t * t;
       const T w = sigd * f;
       const T dwdq = sigd * df;
       acc.rho += m * w;
-      acc.drdh += m * (-(T(DIM) * w + q * dwdq) * invh);
-      if constexpr (BALS) {
-        if (!last) return;
-        const Vec4<T> vj = load_vec(stage.rest + slot);
+      acc.drdh += m * (-Num<T>::fma(T(DIM), w, q * dwdq) * invh);
+      if constexpr (decltype(rest_c)::value) {
+        const Vec4<T> vj = load_vec(rest + slot);
         const T vjd[3] = {vj.a, vj.b, vj.c};
         const T mw = m * (dwdq * invh * invr);
         T dv[DIM];
@@ -533,15 +687,21 @@ __device__ __forceinline__ void solve_h_density_row(
         }
       }
     };
-    const T reach = Margin<T>::reach * warp_max(has_mass ? h : T(0));
-    const T reach2 = reach * reach;
-    cull_and_walk<T, NSEG, NV>(
-        rg, lane, stage, /*with_rest=*/last, entry,
-        [&](const Entry<T>& e, int) {
-          return e.w > T(0) && box.gap2(e.p) < reach2;
-        },
-        [&](int k, Vec4<T> (&r)[1]) { r[0] = velocity(k); }, pair);
-    if (!last) {
+    auto walk = [&](auto rest_c) {
+      cull_and_stage<T, NSEG, 1>(
+          rg, lane, ent, rest, cap, decltype(rest_c)::value, entry, near,
+          fill, [&](int n) {
+            test_and_walk<T>(n, lane, ent, mask, has_mass, takes,
+                             [&](const Entry<T>& c, int slot, bool live) {
+                               pair(c, slot, live, rest_c);
+                             });
+          });
+    };
+    if (with_rest)
+      walk(std::bool_constant<BALS>{});
+    else
+      walk(std::false_type{});
+    if (it < iters) {
       h = newton_update<T, DIM>(h, acc.rho, acc.drdh, m_safe, eta_d, hcap);
       continue;
     }
@@ -560,8 +720,11 @@ __device__ __forceinline__ void solve_h_density_row(
   }
 }
 
+// Kernel A's kernels, named for the pair walk so that a trace tells it
+// from the walk in which every lane visits every survivor.
 template <typename T, int DIM, bool BALS>
-__global__ void solve_h_density_kernel(
+__global__ void __maxnreg__(sizeof(T) == 4 ? 64 : 128)
+solve_h_density_pairs_kernel(
     const T* __restrict__ win, const T* __restrict__ h0,
     const int* __restrict__ w_lo, const int* __restrict__ w_nact, int Ns,
     int group, T sig, T eta_d, T hcap, int iters, T* __restrict__ h_out,
@@ -574,7 +737,8 @@ __global__ void solve_h_density_kernel(
 }
 
 template <typename T, int DIM, bool BALS>
-__global__ void solve_h_density_compact_kernel(
+__global__ void __maxnreg__(sizeof(T) == 4 ? 64 : 128)
+solve_h_density_pairs_compact_kernel(
     const T* __restrict__ win, const T* __restrict__ h0,
     const int* __restrict__ c_lo, const int* __restrict__ c_len, int Ns,
     int group, int cwidth, T sig, T eta_d, T hcap, int iters,
@@ -814,13 +978,12 @@ struct LastLaunch {
 };
 LastLaunch last_launch;
 
-// Launches `kernel` on one block a tile with the warps' staging buffers as
-// dynamic shared memory (above 48 KB a block only after the attribute is
-// raised: tiles of more than about 600 rows in fp64).
-template <typename T, int NV, typename K, typename... Args>
-cudaError_t launch_tiles(K kernel, int Ns, int tile, void* stream,
-                         Args... args) {
-  const size_t smem = stage_bytes<T, NV>(tile);
+// Launches `kernel` on one block a tile with `smem` bytes of the warps'
+// staging buffers as dynamic shared memory (above 48 KB a block only after
+// the attribute is raised).
+template <typename K, typename... Args>
+cudaError_t launch_tiles(K kernel, int Ns, int tile, size_t smem,
+                         void* stream, Args... args) {
   last_launch = {reinterpret_cast<const void*>(kernel), tile, smem};
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -844,19 +1007,20 @@ cudaError_t launch_solve_h_density(const void* win, const void* h0,
                                    void* stream) {
   cudaError_t err = cudaSuccess;
   auto run = [&](auto kernel, auto... cw) {
-    err = launch_tiles<T, 1>(
-        kernel, Ns, tile, stream, static_cast<const T*>(win),
-        static_cast<const T*>(h0), static_cast<const int*>(tab_lo),
-        static_cast<const int*>(tab_n), Ns, group, cw..., T(sig), T(eta_d),
-        T(hcap), iters, static_cast<T*>(h), static_cast<T*>(rho),
-        static_cast<T*>(drdh), static_cast<T*>(div), static_cast<T*>(curl));
+    err = launch_tiles(
+        kernel, Ns, tile, pair_stage_bytes<T>(tile), stream,
+        static_cast<const T*>(win), static_cast<const T*>(h0),
+        static_cast<const int*>(tab_lo), static_cast<const int*>(tab_n), Ns,
+        group, cw..., T(sig), T(eta_d), T(hcap), iters, static_cast<T*>(h),
+        static_cast<T*>(rho), static_cast<T*>(drdh), static_cast<T*>(div),
+        static_cast<T*>(curl));
   };
   auto args = [&](auto bals_c) {
     constexpr bool B = decltype(bals_c)::value;
     if constexpr (COMPACT)
-      run(solve_h_density_compact_kernel<T, DIM, B>, cwidth);
+      run(solve_h_density_pairs_compact_kernel<T, DIM, B>, cwidth);
     else
-      run(solve_h_density_kernel<T, DIM, B>);
+      run(solve_h_density_pairs_kernel<T, DIM, B>);
   };
   if (bals)
     args(std::true_type{});
@@ -874,8 +1038,9 @@ cudaError_t launch_forces(const void* win, const void* tab_lo,
                           double rcut2, void* acc, void* du, void* stream) {
   cudaError_t err = cudaSuccess;
   auto run = [&](auto kernel, auto... cw) {
-    err = launch_tiles<T, 3>(
-        kernel, Ns, tile, stream, static_cast<const T*>(win),
+    err = launch_tiles(
+        kernel, Ns, tile, stage_bytes<T, 3>(tile), stream,
+        static_cast<const T*>(win),
         static_cast<const int*>(tab_lo), static_cast<const int*>(tab_n), Ns,
         group, cw..., T(alpha), T(beta), T(epsv),
         static_cast<const T*>(gsc), T(G), T(rcut2), static_cast<T*>(acc),

@@ -38,10 +38,15 @@ The CUDA kernels do not give every row every candidate: a warp of 32 sorted
 rows first culls its group's candidates against the box of its own rows,
 then walks the survivors. ``cull_plain`` states that rule in plain torch
 (the same box, mass rule, reach and margins), ``cull_stats`` counts what it
-keeps; the tests hold that it drops no pair inside the support.
+keeps; the tests hold that it drops no pair inside the support. Kernel A
+then tests every (row, survivor) pair of a staged batch and each lane
+walks only its own row's pairs (the pair walk); kernel C's lanes walk
+every survivor. ``walk_stats`` counts the steps and the lane fill of both
+walks from the same rule.
 """
 from __future__ import annotations
 
+import collections
 import math
 
 import torch
@@ -170,6 +175,19 @@ class _LivePairs:
 # and 1.001^2 on the squared gravity cutoff.
 CULL_REACH, CULL_REACH2_J, CULL_RCUT2 = 2.002, 4.008004, 1.002001
 
+# Kernel A's pair walk (csrc/window_kernels.cu's ``PairCap`` and
+# ``PAIR_STEP``): its warp stages at most PAIR_CAP_BYTES[0] / (the dtype's
+# size) survivors at once, PAIR_CAP_BYTES[1] / (the size) in the final walk
+# with the Balsara sums, and a lane walks PAIR_STEP of its pairs a step.
+PAIR_CAP_BYTES = (1280, 768)
+PAIR_STEP = 2
+
+
+def pair_cap(dtype, with_rest: bool = False) -> int:
+    """The survivors kernel A's pair walk stages at once in ``dtype``."""
+    size = torch.empty((), dtype=dtype).element_size()
+    return PAIR_CAP_BYTES[int(with_rest)] // size
+
 
 def candidate_table(wd: WindowData, spec: WindowSpec, groups):
     """The candidate rows of the row-groups ``groups`` in ``_tile_pass``'s
@@ -200,37 +218,44 @@ def candidate_table(wd: WindowData, spec: WindowSpec, groups):
     return k.reshape(-1, n_seg * S), valid.reshape(-1, n_seg * S)
 
 
+def _cull_keep(spec: WindowSpec, pos_s, mass_s, h_s, groups, idx, valid,
+               pair_h: bool = False, rcut=None):
+    """keep [n, group // 32, W]: the rule of ``cull_plain`` for the
+    row-groups ``groups`` and their ``candidate_table``."""
+    T = spec.group
+    ar_t = torch.arange(T, dtype=torch.int64, device=groups.device)
+    inf = float("inf")
+    rows = (groups[:, None] * T + ar_t).reshape(-1, T // 32, 32)
+    has = (mass_s[rows] > 0)[..., None]
+    x = pos_s[rows]                                        # [n, nw, 32, D]
+    lo = torch.where(has, x, inf).amin(2)[:, :, None]      # [n, nw, 1, D]
+    hi = torch.where(has, x, -inf).amax(2)[:, :, None]
+    h_max = torch.where(has[..., 0], h_s[rows], 0.0).amax(2)
+    pj = pos_s[idx][:, None]                               # [n, 1, W, D]
+    gap = torch.clamp_min(torch.maximum(lo - pj, pj - hi), 0.0)
+    g2 = torch.sum(gap * gap, dim=-1)                      # [n, nw, W]
+    keep = g2 < ((CULL_REACH * h_max) ** 2)[..., None]
+    if pair_h:
+        inv_hj = (1.0 / h_s[idx])[:, None]
+        keep |= g2 * inv_hj * inv_hj < CULL_REACH2_J
+    if rcut is not None:
+        keep |= g2 <= float(rcut) ** 2 * CULL_RCUT2
+    return keep & (valid & (mass_s[idx] > 0))[:, None]
+
+
 def _cull_blocks(wd: WindowData, spec: WindowSpec, pos_s, mass_s, h_s,
                  pair_h: bool, rcut):
     """Yield (groups, idx, valid, keep [n, warps, W]) over blocks of the
     row-groups with candidates; see ``cull_plain``."""
-    T = spec.group
-    nw = T // 32
+    nw = spec.group // 32
     width = spec.cwidth if spec.cwidth > 0 else spec.n_seg * spec.wseg
     TB = max(1, 4_000_000 // (width * nw * spec.dim))
     gids = torch.nonzero(_group_active(wd, spec)).reshape(-1)
-    ar_t = torch.arange(T, dtype=torch.int64, device=gids.device)
-    inf = float("inf")
     for b0 in range(0, gids.numel(), TB):
         g = gids[b0:b0 + TB]
         idx, valid = candidate_table(wd, spec, g)
-        rows = (g[:, None] * T + ar_t).reshape(-1, nw, 32)
-        has = (mass_s[rows] > 0)[..., None]
-        x = pos_s[rows]                                    # [n, nw, 32, D]
-        lo = torch.where(has, x, inf).amin(2)[:, :, None]  # [n, nw, 1, D]
-        hi = torch.where(has, x, -inf).amax(2)[:, :, None]
-        h_max = torch.where(has[..., 0], h_s[rows], 0.0).amax(2)
-        pj = pos_s[idx][:, None]                           # [n, 1, W, D]
-        gap = torch.clamp_min(torch.maximum(lo - pj, pj - hi), 0.0)
-        g2 = torch.sum(gap * gap, dim=-1)                  # [n, nw, W]
-        keep = g2 < ((CULL_REACH * h_max) ** 2)[..., None]
-        if pair_h:
-            inv_hj = (1.0 / h_s[idx])[:, None]
-            keep |= g2 * inv_hj * inv_hj < CULL_REACH2_J
-        if rcut is not None:
-            keep |= g2 <= float(rcut) ** 2 * CULL_RCUT2
-        keep &= (valid & (mass_s[idx] > 0))[:, None]
-        yield g, idx, valid, keep
+        yield g, idx, valid, _cull_keep(spec, pos_s, mass_s, h_s, g, idx,
+                                        valid, pair_h, rcut)
 
 
 def cull_plain(wd: WindowData, spec: WindowSpec, pos_s, mass_s, h_s,
@@ -270,6 +295,153 @@ def cull_stats(wd: WindowData, spec: WindowSpec, pos_s, mass_s, h_s,
         cand += int((valid.sum(1)[:, None] * n_real).sum())
         surv += int((keep.sum(2) * n_real).sum())
     return cand / max(real, 1), surv / max(real, 1)
+
+
+def _steps(wd: WindowData, spec: WindowSpec, groups, valid):
+    """[n, W] int64: the cull step of each valid entry of ``groups``'
+    candidate tables, counted over the group's segments in order: the
+    kernels read 32 candidates a step from each segment's first valid row.
+    Invalid entries get the step after the last."""
+    n_seg = spec.n_seg
+    if spec.cwidth > 0:
+        lens = torch.clamp_min(wd.c_len[groups].long(), 0)
+        # the runs cut at cwidth rows in all
+        ends = torch.clamp_max(torch.cumsum(lens, 1), spec.cwidth)
+        starts = torch.cat([torch.zeros_like(ends[:, :1]), ends[:, :-1]], 1)
+        lens = ends - starts
+        col = torch.arange(valid.shape[1], device=valid.device)
+        seg = torch.searchsorted(ends.contiguous(), col.expand(
+            groups.numel(), -1).contiguous(), right=True).clamp_max(
+                n_seg - 1)
+        off = col - starts.gather(1, seg)
+    else:
+        v = valid.reshape(-1, n_seg, spec.wseg)
+        lens = v.sum(2)
+        first = torch.argmax(v.to(torch.uint8), dim=2)     # [n, n_seg]
+        off = (torch.arange(spec.wseg, device=valid.device)
+               - first[..., None]).reshape(valid.shape)
+        seg = torch.arange(n_seg, device=valid.device).repeat_interleave(
+            spec.wseg).expand(groups.numel(), -1)
+    per_seg = (lens + 31) // 32
+    before = torch.cumsum(per_seg, 1) - per_seg
+    step = before.gather(1, seg) + torch.div(off, 32, rounding_mode="floor")
+    return torch.where(valid, step, per_seg.sum(1, keepdim=True))
+
+
+def _batches(kept_per_step, cap: int):
+    """[n, steps] batch id of each cull step: a warp walks what it staged
+    whenever it holds more than ``cap`` - 32 survivors before a step."""
+    n_w, n_steps = kept_per_step.shape
+    held = torch.zeros(n_w, dtype=torch.int64, device=kept_per_step.device)
+    batch = torch.zeros_like(held)
+    out = torch.empty_like(kept_per_step)
+    for t in range(n_steps):
+        full = held > cap - 32
+        batch += full
+        held = torch.where(full, 0, held) + kept_per_step[:, t]
+        out[:, t] = batch
+    return out
+
+
+def walk_counts(wd: WindowData, spec: WindowSpec, pos_s, mass_s, h_s,
+                cap: int, every: int = 1):
+    """Yield, over blocks of every ``every``-th row-group with candidates,
+    per warp [n, group // 32] int64 tensors: ``real`` rows, the
+    ``candidates`` and ``survivors`` of each summed over its real rows,
+    ``pairs`` inside the support of its real rows, ``useful`` pairs (inside
+    the support of its rows that carry mass), ``live`` (1 where a row
+    carries mass), and the steps in which kernel A's two walks run the
+    pair arithmetic at the h ``h_s``: ``steps_warp``, the walk in which
+    every lane visits every survivor, and ``steps_pairs``, the pair walk
+    (see ``walk_stats``)."""
+    T = spec.group
+    nw = T // 32
+    width = spec.cwidth if spec.cwidth > 0 else spec.n_seg * spec.wseg
+    # [n, nw, 32, W] pair blocks of about 2M entries on the host, 32M on a
+    # card
+    budget = 2_000_000 if pos_s.device.type == "cpu" else 32_000_000
+    TB = max(1, budget // (width * T))
+    gids = torch.nonzero(_group_active(wd, spec)).reshape(-1)[::every]
+    ar_t = torch.arange(T, dtype=torch.int64, device=gids.device)
+    for b0 in range(0, gids.numel(), TB):
+        g = gids[b0:b0 + TB]
+        n = g.numel()
+        idx, valid = candidate_table(wd, spec, g)
+        keep = _cull_keep(spec, pos_s, mass_s, h_s, g, idx, valid)
+        rows = (g[:, None] * T + ar_t).reshape(n, nw, 32)
+        real = wd.is_real[rows]                            # [n, nw, 32]
+        has = mass_s[rows] > 0
+        d = pos_s[rows][..., None, :] - pos_s[idx][:, None, None]
+        r2 = torch.sum(d * d, dim=-1)                      # [n, nw, 32, W]
+        hi = h_s[rows][..., None]
+        # the kernels' first test r^2 (1/h)^2 < 4.0001, and r < 2 h
+        first = (r2 * (1.0 / hi) ** 2 < 4.0001) & keep[:, :, None]
+        inside = (r2 < 4.0 * hi * hi) & keep[:, :, None]
+        n_real = real.sum(2)
+        out = dict(real=n_real,
+                   candidates=valid.sum(1)[:, None] * n_real,
+                   survivors=keep.sum(2) * n_real,
+                   pairs=(inside & real[..., None]).sum((2, 3)),
+                   useful=(inside & has[..., None]).sum((2, 3)),
+                   live=has.any(2).long(),
+                   steps_warp=first.any(2).sum(2))
+        # the pair walk: batches of staged survivors, per lane with mass
+        step = _steps(wd, spec, g, valid)                  # [n, W]
+        n_steps = int(step.max()) + 1
+        per_step = torch.zeros((n, nw, n_steps + 1), dtype=torch.int64,
+                               device=keep.device)
+        per_step.scatter_add_(2, step[:, None].expand(n, nw, -1),
+                              keep.long())
+        batch = _batches(per_step[..., :n_steps].reshape(n * nw, n_steps),
+                         cap).reshape(n, nw, n_steps)
+        batch = torch.cat([batch, batch[..., -1:]], 2)     # invalid entries
+        col_b = batch.gather(2, step[:, None].expand(n, nw, -1))
+        takes = (first & has[..., None]).long()            # [n, nw, 32, W]
+        per_b = torch.zeros((n, nw, 32, int(batch.max()) + 1),
+                            dtype=torch.int64, device=keep.device)
+        per_b.scatter_add_(3, col_b[:, :, None].expand_as(takes), takes)
+        # PAIR_STEP pairs a lane a step
+        most = per_b.amax(2)
+        out["steps_pairs"] = (PAIR_STEP * -(-most // PAIR_STEP)).sum(2)
+        yield out
+
+
+def walk_stats(wd: WindowData, spec: WindowSpec, pos_s, mass_s, h_s,
+               cap: int, every: int = 1) -> dict:
+    """Kernel A's walks at the h ``h_s``, counted from its plain rule over
+    every ``every``-th row-group with candidates.
+
+    Per real row (means over the rows that are real particles):
+    ``candidates`` and ``survivors`` as ``cull_stats`` counts them, and
+    ``pairs``, the survivors inside the row's support (r < 2 h_i). And the
+    lane fill of two walks over the warps with a row that carries mass,
+    useful pairs (inside the support of such a row) over 32 lanes times
+    the steps in which a walk runs the pair arithmetic:
+
+    - ``fill_warp``, the walk in which every lane visits every survivor:
+      one step for each survivor that any of the warp's 32 rows takes
+      (passes the first test r^2 / h_i^2 < 4.0001);
+    - ``fill_pairs``, the pair walk: the warp stages at most ``cap``
+      survivors (it walks when more than ``cap`` - 32 are staged before a
+      cull step), tests every (row, survivor) pair of the batch, and each
+      lane walks the survivors its own row takes, ``PAIR_STEP`` a step;
+      the pair steps of a batch are the most any row of the warp with mass
+      takes, rounded up to a multiple of ``PAIR_STEP``.
+
+    ``steps_warp`` and ``steps_pairs`` are those steps a warp, and
+    ``pairs_warp`` the useful pairs a warp."""
+    tot = collections.Counter()
+    for c in walk_counts(wd, spec, pos_s, mass_s, h_s, cap, every):
+        tot.update({k: int(v.sum()) for k, v in c.items()})
+    warps = max(tot["live"], 1)
+    real = max(tot["real"], 1)
+    return dict(candidates=tot["candidates"] / real,
+                survivors=tot["survivors"] / real, pairs=tot["pairs"] / real,
+                fill_warp=tot["useful"] / max(32 * tot["steps_warp"], 1),
+                fill_pairs=tot["useful"] / max(32 * tot["steps_pairs"], 1),
+                steps_warp=tot["steps_warp"] / warps,
+                steps_pairs=tot["steps_pairs"] / warps,
+                pairs_warp=tot["useful"] / warps)
 
 
 # ---------------------------------------------------------------------------

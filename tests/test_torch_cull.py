@@ -378,3 +378,137 @@ def test_in_place_ranges_rise_with_the_segment(name):
         by_clip = ((k >= torch.maximum(lo, clip)[groups][..., None])
                    & (k < hi[groups][..., None]))
         assert torch.equal(by_clip.reshape(valid.shape), valid)
+
+
+# ---------------------------------------------------------------------------
+# kernel A's two walks: their steps and lane fill (``walk_counts``)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("name,compact", [
+    ("turb", False), ("turb", True), ("kh", False), ("kh", True),
+    ("sedov", False), ("sedov_open", False), ("line", True),
+])
+def test_walk_fill_never_exceeds_one(name, compact, masked):
+    """On built and ``mask_structure``d tables: every warp's useful pairs
+    fit in 32 lanes times the steps of either walk, the pair walk never
+    runs the pair arithmetic more often than the walk in which every
+    lane visits every survivor, and at the fp32 batch it fills more of the
+    lanes."""
+    spec, wd, f, _ = _inputs(name, compact)
+    if masked:
+        wd = rungs.mask_structure(wd, spec,
+                                  (f["pos_s"] - 0.5).norm(dim=-1) < 0.3)
+    args = (wd, spec, f["pos_s"], f["mass_s"], f["h_s"],
+            wk.pair_cap(torch.float32))
+    warps = 0
+    for c in wk.walk_counts(*args):
+        assert bool((c["useful"] <= 32 * c["steps_pairs"]).all())
+        assert bool((c["steps_pairs"] <= c["steps_warp"]).all())
+        assert bool((c["pairs"] <= c["survivors"]).all())
+        assert bool((c["survivors"] <= c["candidates"]).all())
+        warps += int(c["live"].sum())
+    s = wk.walk_stats(*args)
+    assert warps > 0 and s["pairs"] > 0
+    assert 0.0 < s["fill_warp"] < s["fill_pairs"] <= 1.0, s
+    assert s["pairs_warp"] == pytest.approx(
+        s["fill_pairs"] * 32 * s["steps_pairs"])
+
+
+def _pair_steps_by_loop(wd, spec, f, group, cap):
+    """The steps of kernel A's pair walk for each warp of ``group``, by a
+    loop that follows ``cull_and_stage`` and ``test_and_walk`` in
+    csrc/window_kernels.cu: 32 candidates a step from each segment's
+    range, a batch walked whenever more than ``cap`` - 32 survivors are
+    staged before a step, and for each batch the most survivors that one
+    of the warp's rows with mass takes, walked ``PAIR_STEP`` a step."""
+    T = spec.group
+    pos, m, h = f["pos_s"], f["mass_s"], f["h_s"]
+    lo_t, n_t = (wd.c_lo, wd.c_len) if spec.cwidth else (wd.w_lo, wd.w_nact)
+    ranges, count, max_hi = [], 0, 0
+    for s in range(spec.n_seg):
+        lo, n = int(lo_t[group, s]), int(n_t[group, s])
+        if spec.cwidth:
+            ln = min(n, spec.cwidth - count)
+            ranges.append((lo, lo + ln))
+        else:
+            ln = 128 * n
+            ranges.append((max(lo, max_hi), lo + ln))
+            if ln > 0:
+                max_hi = max(max_hi, lo + ln)
+        count += ln
+    steps = []
+    for w in range(T // 32):
+        rows = torch.arange(group * T + 32 * w, group * T + 32 * w + 32)
+        has = m[rows] > 0
+        if not bool(has.any()):
+            steps.append(0)
+            continue
+        x = pos[rows][has]
+        reach = wk.CULL_REACH * float(h[rows][has].max())
+        batches, held = [[]], 0
+        for lo, hi in ranges:
+            for k0 in range(lo, hi, 32):
+                if held > cap - 32:
+                    batches.append([])
+                    held = 0
+                for k in range(k0, min(k0 + 32, hi)):
+                    gap = torch.clamp_min(torch.maximum(
+                        x.amin(0) - pos[k], pos[k] - x.amax(0)), 0.0)
+                    if m[k] > 0 and float((gap * gap).sum()) < reach ** 2:
+                        batches[-1].append(k)
+                        held += 1
+        total = 0
+        for b in batches:
+            if not b:
+                continue
+            r2 = ((pos[rows][:, None] - pos[b][None]) ** 2).sum(-1)
+            takes = (r2 * (1.0 / h[rows][:, None]) ** 2 < 4.0001) & has[:, None]
+            most = int(takes.sum(1).max())
+            total += wk.PAIR_STEP * -(-most // wk.PAIR_STEP)
+        steps.append(total)
+    return steps
+
+
+@pytest.mark.parametrize("name,compact,cap", [
+    ("turb", False, 128), ("turb", True, 64), ("kh", False, 64),
+    ("sedov_open", False, 512), ("line", False, 64),
+])
+def test_pair_walk_steps_follow_the_kernels_loop(name, compact, cap):
+    """``walk_counts``' steps of the pair walk, per warp, equal those of a
+    loop over the kernels' cull, batches and per-row tests, on groups at
+    the start, the middle and the end of the active ones (small ``cap``s
+    give several batches a walk)."""
+    spec, wd, f, _ = _inputs(name, compact)
+    gids = torch.nonzero(wk._group_active(wd, spec)).reshape(-1)
+    want, got = [], []
+    blocks = list(wk.walk_counts(wd, spec, f["pos_s"], f["mass_s"],
+                                 f["h_s"], cap))
+    per_warp = torch.cat([b["steps_pairs"] for b in blocks])
+    for j in (0, gids.numel() // 2, gids.numel() - 1):
+        want.append(_pair_steps_by_loop(wd, spec, f, int(gids[j]), cap))
+        got.append(per_warp[j].tolist())
+    assert got == want
+    assert max(max(w) for w in want) > 0
+
+
+def test_pair_walk_constants_equal_the_kernel_source():
+    """``PAIR_CAP_BYTES`` and ``PAIR_STEP`` are ``PairCap`` and
+    ``PAIR_STEP`` in csrc/window_kernels.cu, so what ``walk_stats`` counts
+    at ``pair_cap`` is the kernel's batch and step; and every kernel A it
+    launches is a pair walk."""
+    src = (Path(wk.__file__).resolve().parent.parent / "csrc"
+           / "window_kernels.cu").read_text()
+    caps = tuple(int(re.search(
+        rf"static constexpr int {k} = (\d+) / int\(sizeof\(T\)\);",
+        src).group(1)) for k in ("plain", "with_rest"))
+    assert caps == wk.PAIR_CAP_BYTES
+    step = re.search(r"constexpr int PAIR_STEP = (\d+);", src)
+    assert step and int(step.group(1)) == wk.PAIR_STEP
+    for dtype in (torch.float32, torch.float64):
+        assert wk.pair_cap(dtype) % 32 == 0
+        assert wk.pair_cap(dtype, with_rest=True) % 32 == 0
+    launched = set(re.findall(r"run\((solve_h_density\w*)<", src))
+    assert launched == {"solve_h_density_pairs_kernel",
+                        "solve_h_density_pairs_compact_kernel"}

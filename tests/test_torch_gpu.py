@@ -32,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from sphax_torch import configs, convert, make_state
+from sphax_torch import configs, convert, make_state, problems
 from sphax_torch.core.state import box
 from sphax_torch.dist import comm, pencil, wslab
 from sphax_torch.ics import kh, lattice, turbulence
@@ -363,6 +363,171 @@ def test_masked_kernels_match_plain(cuda, dtype, compact):
     _compare(got[0], want[0], rows, TOL[dtype], "masked acc")
     _compare(got[1], want[1], rows, TOL[dtype], "masked du")
     assert not bool(got[0][~act].any()) and not bool(got[1][~act].any())
+
+
+def _fields_a(st, wd, seed):
+    """Kernel A's sorted inputs for ``st`` with a seeded 0.4 N(0,1)
+    velocity (the Balsara sums vanish on a resting state)."""
+    g = torch.Generator(device=st.pos.device).manual_seed(seed)
+    vel = 0.4 * torch.randn(st.pos.shape, generator=g, dtype=st.pos.dtype,
+                            device=st.pos.device)
+    return dict(pos_s=wd.pos_s, mass_s=win.gather_sorted(st.mass, wd),
+                h0_s=win.gather_sorted(st.h, wd, 1.0),
+                vel_s=win.gather_sorted(vel, wd))
+
+
+def _warp_h_ratio(f):
+    """The largest ratio of h between two rows with mass of one warp."""
+    wh = f["h0_s"].reshape(-1, 32)
+    wm = f["mass_s"].reshape(-1, 32) > 0
+    ratio = (torch.where(wm, wh, 0.0).amax(1)
+             / torch.where(wm, wh, float("inf")).amin(1))
+    return float(ratio[wm.any(1)].max())
+
+
+def _clustered(dev, dtype, compact=False):
+    """Half of the particles on a jittered 16^3 lattice, half drawn toward
+    4 centres (sigma 0.02), h from the local density (a 32^3 histogram), as
+    in ``chip_smoke.py`` phase 27 at an eighth of its size: h varies about
+    5.5x inside one warp at a cluster's edge, and a cluster's warps keep
+    more survivors than kernel A's pair walk stages at once, so a walk
+    tests and walks several batches."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n_lat = 16
+    lat = torch.as_tensor(lattice.cubic_lattice((n_lat,) * 3, [0.0] * 3,
+                                                [1.0] * 3),
+                          dtype=torch.float32, device=dev)
+    lat = (lat + (0.3 / n_lat) * (2.0 * torch.rand(
+        lat.shape, generator=gen, device=dev) - 1.0)) % 1.0
+    centres = torch.tensor([[0.3, 0.3, 0.35], [0.7, 0.35, 0.6],
+                            [0.4, 0.7, 0.65], [0.65, 0.68, 0.3]], device=dev)
+    blob = (centres[torch.randint(4, (lat.shape[0],), generator=gen,
+                                  device=dev)]
+            + 0.02 * torch.randn(lat.shape, generator=gen, device=dev))
+    pos = torch.cat([lat, blob.clamp(0.05, 0.95)])
+    n = pos.shape[0]
+    bins = (pos * 32).long().clamp(0, 31)
+    flat = (bins[:, 0] * 32 + bins[:, 1]) * 32 + bins[:, 2]
+    count = torch.bincount(flat, minlength=32 ** 3)[flat].float()
+    h_lat = 1.3 / n_lat
+    h = (1.3 * (count * 32 ** 3) ** (-1.0 / 3.0)).clamp(h_lat / 12, h_lat)
+    st = make_state(*(t.to(dtype) for t in (
+        pos, torch.zeros_like(pos), torch.full((n,), 1.0 / n, device=dev),
+        torch.ones(n, device=dev), h)))
+    dom = box(torch.zeros(3, dtype=dtype, device=dev),
+              torch.ones(3, dtype=dtype, device=dev))
+    plan = win.plan_compact if compact else win.plan_measured
+    spec = plan(st.pos, dom, h_max=h_lat * 1.05, dim=3, **KNOBS)
+    wd = win.build(st.pos, dom, spec)
+    assert int(wd.overflow) == 0
+    return spec, wd, _fields_a(st, wd, seed=12)
+
+
+def _sedov_core(dev, dtype):
+    """The Sedov lattice (24^3, jittered by a seeded 0.2 of a spacing) with
+    the particles within 0.25 of the centre pulled toward it by a factor
+    0.17: their density rises about 200x and their h, set from it, falls
+    about 5.9x, so the warps at the ball's edge hold rows whose h differ
+    about 6x. Returns the structure, the sorted fields and the rows within
+    0.1 of the centre, whose groups a rung mask keeps."""
+    prob = problems.sedov(n=24, dtype=dtype, device=dev)
+    st, dom = prob.state, prob.domain
+    gen = torch.Generator(device=dev).manual_seed(21)
+    pos = dom.wrap(st.pos + (0.2 / 24) * (2.0 * torch.rand(
+        st.pos.shape, generator=gen, dtype=dtype, device=dev) - 1.0))
+    r = pos - 0.5
+    ball = r.norm(dim=-1) < 0.25
+    pos = torch.where(ball[:, None], 0.5 + 0.17 * r, pos)
+    st = st._replace(pos=pos, h=torch.where(ball, 0.17 * st.h, st.h))
+    spec = win.plan_measured(pos, dom, h_max=float(st.h.max()) * 1.5, dim=3,
+                             cutoff_scale=1.25, fast_sub=3, rgroups=2)
+    wd = win.build(pos, dom, spec)
+    assert int(wd.overflow) == 0
+    f = _fields_a(st, wd, seed=22)
+    return spec, wd, f, (f["pos_s"] - 0.5).norm(dim=-1) < 0.1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("compact", [False, True])
+def test_solve_h_density_clustered_matches_plain(cuda, dtype, compact):
+    """Kernel A (2 Newton updates, Balsara) against plain where h varies
+    about 5.5x inside one warp and a warp stages more survivors than its
+    pair walk holds at once."""
+    cfg = A_CASES["cold_newton2"]
+    spec, wd, f = _clustered(cuda, dtype, compact)
+    assert _warp_h_ratio(f) > 4.0
+    _, surv = wk.cull_stats(wd, spec, f["pos_s"], f["mass_s"], f["h0_s"])
+    assert surv > wk.pair_cap(dtype), surv
+    args = (f["pos_s"], f["mass_s"], f["h0_s"])
+    got = wk.solve_h_density(wd, spec, *args, cfg, vel_s=f["vel_s"])
+    want = wk.solve_h_density_plain(wd, spec, *args, cfg, vel_s=f["vel_s"])
+    for k, (a, b) in enumerate(zip(got, want)):
+        _compare(a, b, wd.is_real, TOL[dtype], f"clustered A output {k}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_solve_h_density_rung_masked_sedov_matches_plain(cuda, dtype):
+    """Kernel A (Sedov: 6 Newton updates, grad-h, Balsara) on a rung mask
+    of the Sedov lattice whose core was compressed, so that h varies about
+    6x inside the warps at the core's edge: against plain on the real rows
+    of the groups the mask keeps, h0 and zeros on the others."""
+    spec, wd, f, close = _sedov_core(cuda, dtype)
+    assert _warp_h_ratio(f) > 5.0
+    wm = rungs.mask_structure(wd, spec, close)
+    act = wk._group_active(wm, spec).repeat_interleave(spec.group)
+    assert 0 < int(act.sum()) < act.numel()
+    args = (f["pos_s"], f["mass_s"], f["h0_s"])
+    got = wk.solve_h_density(wm, spec, *args, configs.SEDOV,
+                             vel_s=f["vel_s"])
+    want = wk.solve_h_density_plain(wm, spec, *args, configs.SEDOV,
+                                    vel_s=f["vel_s"])
+    for k, (a, b) in enumerate(zip(got, want)):
+        _compare(a, b, act & wd.is_real, TOL[dtype], f"sedov A output {k}")
+    assert torch.equal(got[0][~act], f["h0_s"][~act])
+    assert not any(bool(o[~act].any()) for o in got[1:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim", [3, 2, 1])
+@pytest.mark.parametrize("compact", [False, True])
+def test_solve_h_density_is_one_launch_a_call(cuda, dim, compact):
+    """The profiler sees one device kernel of A a call, named for the pair
+    walk (``solve_h_density_pairs``), and never with ``forces_``."""
+    cfg = {3: A_CASES["cold_newton2"], 2: configs.KH, 1: CFG_1D}[dim]
+    _, _, spec, wd, f = _inputs(cuda, torch.float32, dim=dim,
+                                compact=compact)
+    args = (f["pos_s"], f["mass_s"], f["h0_s"])
+    wk.solve_h_density(wd, spec, *args, cfg, vel_s=f["vel_s"])
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        wk.solve_h_density(wd, spec, *args, cfg, vel_s=f["vel_s"])
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "solve_h_density" in e.name]
+    assert len(names) == 1, names
+    assert "solve_h_density_pairs" in names[0], names
+    assert "forces_" not in names[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("compact", [False, True])
+def test_solve_h_density_is_bitwise_repeatable(cuda, dtype, compact):
+    """Two launches of kernel A on one input give bitwise-equal outputs on
+    every sorted row: each lane sums its own row's pairs in candidate
+    order, with no atomics."""
+    cfg = A_CASES["cold_newton2"]
+    spec, wd, f = _clustered(cuda, dtype, compact)
+    args = (f["pos_s"], f["mass_s"], f["h0_s"])
+    a = wk.solve_h_density(wd, spec, *args, cfg, vel_s=f["vel_s"])
+    b = wk.solve_h_density(wd, spec, *args, cfg, vel_s=f["vel_s"])
+    torch.cuda.synchronize()
+    for k, (x, y) in enumerate(zip(a, b)):
+        assert torch.equal(x, y), f"output {k}"
 
 
 @pytest.mark.gpu
