@@ -336,14 +336,17 @@ Phases, in order; any failed check raises and exits non-zero:
 Each path runs with every launch count set to 0 just before it, and its
 counts are read just after: those of kernels A, C and G
 (``window_kernels.LAUNCHES``) and of the three row-packing kernels
-(``rowpack.LAUNCHES``), which launch once each in every derived pass of
-the window engine (``wengine.derived_with``) and never on the block
-timesteps' ticks or in a shard's pass; the slab and pencil CLIs' ranks are processes
-of their own whose counts start at 0, and each chunk's record carries their
-sums (``SlabRun.chunk_record``), which phases 31, 34 and 36-38 add up. Each kernel's
-bound is the larger of its bytes over 3.35 TB/s and its operations on the
-pairs these inputs need (inside the support, or the cutoff for the gravity
-mode) over 67 TFLOP/s fp32 (34 fp64). The line before the last holds the
+(``rowpack.LAUNCHES``). Every derived pass packs through those:
+``rowpack_gather_a`` launches once a launch of A, a shard's pass and the
+block timesteps' seeding pass included, and on one device
+``rowpack_gather_c`` and ``rowpack_scatter_out`` once a launch of C (a
+shard's pass packs C's window itself); the slab and pencil CLIs' ranks
+are processes of their own whose counts start at 0, and each chunk's record
+carries their sums (``SlabRun.chunk_record``), which phases 31, 34 and
+36-38 add up. Each kernel's bound is the larger of its bytes over 3.35
+TB/s and its operations on the pairs these inputs need (inside the
+support, or the cutoff for the gravity mode) over 67 TFLOP/s fp32 (34
+fp64). The line before the last holds the
 kernels' record: every row of kernels A and C also carries the candidates,
 the survivors and the pairs inside the support per real row. The
 survivors are what the cull's rule keeps on this run's inputs, counted by
@@ -584,24 +587,31 @@ def main():
         """The launch key of a walk (window_kernels._walk's)."""
         return wk._kernel_name(f"{base}_compact" if compact else base, dim)
 
-    def drive(name, run, want, derived=None):
+    def shard_packing(want):
+        """A shard rank's launches: its passes pack A's window through
+        ``rowpack_gather_a``, once a launch of A; C's window they pack
+        themselves."""
+        return want | {"rowpack_gather_a": want["solve_h_density"]}
+
+    def drive(name, run, want):
         """Run one path with every launch count set to 0 just before it;
         read the counts just after and hold them to ``want`` (kernels
         absent from it must not launch), or to ``want(out)`` where the
-        count depends on the run. Each row-packing kernel must launch
-        ``derived`` times, once a derived pass of the window engine; by
-        default as often as kernel C, as on every path without block
-        timesteps (whose ticks launch C outside that pass)."""
+        count depends on the run. On one device every derived pass packs
+        through the row-packing kernels: ``rowpack_gather_a`` must launch
+        once a launch of A (the rung path's seeding pass of A included),
+        ``rowpack_gather_c`` and ``rowpack_scatter_out`` once a launch of
+        C."""
         zero_counts()
         out = run()
         torch.cuda.synchronize()
         paths[name] = counts()
         if callable(want):
             want = want(out)
-        if derived is None:
-            derived = sum(v for k, v in want.items()
-                          if k.startswith("forces"))
-        want = want | {k: derived for k in rowpack.LAUNCHES}
+        n_a, n_c = (sum(v for k, v in want.items() if k.startswith(base))
+                    for base in ("solve_h_density", "forces"))
+        want = want | {"rowpack_gather_a": n_a, "rowpack_gather_c": n_c,
+                       "rowpack_scatter_out": n_c}
         assert paths[name] == {k: want.get(k, 0) for k in paths[name]}, (
             name, paths[name])
         return out
@@ -1497,7 +1507,7 @@ def main():
         "rungs B=1", lambda: rungs.simulate_rungs(
             st_s, cfg_s, dom_s, spec_s, nspans=2, n_rungs=1,
             rebuild_every=1),
-        {"solve_h_density": 3, "forces": 2}, derived=0)
+        {"solve_h_density": 3, "forces": 2})
     assert int(ovf_g1) == 0 and int(ovf_r1) == 0 and int(viol1) == 0
     assert builds1 == 2 and bool((nact1 == st_s.n).all())
     torch.testing.assert_close(dts_r1, dts_g1, rtol=1e-6, atol=0.0)
@@ -1533,7 +1543,7 @@ def main():
             st_c, t_c, step_c = drive(label, lambda: cli(
                 ["sedov", "n=100", "rungs=4", "max_steps=16", "chunk=16",
                  f"out={out}"] + extra_args),
-                {"solve_h_density": 18, "forces": 17}, derived=1)
+                {"solve_h_density": 18, "forces": 17})
         finally:
             rungs.mask_structure = real_mask
         wall_c = time.perf_counter() - t0
@@ -1696,8 +1706,7 @@ def main():
             lambda out: ({"solve_h_density": 1 + out[1],
                           "forces": 1 + out[1]} if n_rungs == 1 else
                          {"solve_h_density": 1 + out[1] + out[1] // 32,
-                          "forces": 1 + out[1]}),
-            derived=None if n_rungs == 1 else 1)
+                          "forces": 1 + out[1]}))
         wall25 = time.perf_counter() - t0
         assert abs(r_meas - r_th) / r_th < 0.25, (r_meas, r_th, t25)
         assert de < e_tol, de
@@ -2126,8 +2135,8 @@ def main():
         for k, v in c_["launches"].items():
             slab_launches[k] = slab_launches.get(k, 0) + v
     # one launch of A and one of C a step on each rank
-    assert slab_launches == {"solve_h_density": 32, "forces": 32}, \
-        slab_launches
+    assert slab_launches == shard_packing(
+        {"solve_h_density": 32, "forces": 32}), slab_launches
     paths["slab shards=2"] = {k: slab_launches.get(k, 0) + setup2[k]
                               for k in setup2}
     st2, _, _, _, x2 = checkpoint.load(os.path.join(d2, "checkpoint.npz"),
@@ -2331,8 +2340,7 @@ def main():
         ref, dts_ref, nact_ref, ovf, viol_ref, _ = drive(
             f"rungs lockstep {tag}", lambda: rungs.simulate_rungs(
                 st0, cfg_r, dom, spec1, nspans=1, n_rungs=3,
-                rebuild_every=2), {"solve_h_density": 5, "forces": 4},
-            derived=0)
+                rebuild_every=2), {"solve_h_density": 5, "forces": 4})
         assert int(ovf) == 0 and int(nact_ref.min()) < st0.n
         # shards and send buffers that hold a cut moved by whole cells
         spec = wslab.plan(dom, st0.n, float(st0.h.max()) * 1.1, 2,
@@ -2409,7 +2417,8 @@ def main():
         for k, v in c_["launches"].items():
             rung_launches[k] = rung_launches.get(k, 0) + v
     # each chunk a rank: A's seeding pass, then A and C once a tick
-    want_r2 = {"solve_h_density": 2 * 2 * (1 + 8), "forces": 2 * 2 * 8}
+    want_r2 = shard_packing({"solve_h_density": 2 * 2 * (1 + 8),
+                             "forces": 2 * 2 * 8})
     assert rung_launches == want_r2, rung_launches
     paths["rung shards=2"] = {k: rung_launches.get(k, 0)
                               + setup_r2.get(k, 0) for k in counts()}
@@ -2582,7 +2591,8 @@ def main():
         """One pencil CLI run with the counts at 0 just before it: the
         set-up's launches in this process (one single-device derived pass)
         held to ``setup_want`` and one pass of the row packing, the
-        ranks' (the records' sums) to ``rank_want``; (t, step, records,
+        ranks' (the records' sums) to ``rank_want`` and A's row packing
+        (``shard_packing``); (t, step, records,
         chunk records, rank launches, wall, |sum m v| / sum m|v|)."""
         zero_counts()
         t0 = time.perf_counter()
@@ -2598,7 +2608,7 @@ def main():
         for c_ in chunks:
             for k, v in c_["launches"].items():
                 ranks[k] = ranks.get(k, 0) + v
-        assert ranks == rank_want, (tag, ranks)
+        assert ranks == shard_packing(rank_want), (tag, ranks)
         paths[tag] = {k: ranks.get(k, 0) + setup.get(k, 0)
                       for k in counts()}
         st_, _, _, _, x_ = checkpoint.load(os.path.join(out,
@@ -3330,7 +3340,7 @@ def slow_gates_phase(dev, h):
                             lambda: rungs.simulate_rungs(
                                 st, cfg, dom, spec, nspans=2, n_rungs=3,
                                 rebuild_every=2),
-                            {"solve_h_density": 9, "forces": 8}, derived=0)
+                            {"solve_h_density": 9, "forces": 8})
     (st_n, _, nact_n, ovf_n, _, _), (st_p, _, _, ovf_p, _, _) = \
         runs["newton"], runs["h_predict"]
     assert int(ovf_n) == 0 and int(ovf_p) == 0
@@ -4271,7 +4281,9 @@ def rowpack_phase(dev, h, n_side=256):
         return a.elapsed_time(b) / reps, out
 
     # the inputs gather_c and scatter_out see in a derived pass
-    win_a, h0_s, u_s, _ = rowpack.gather_a(st, wd, cfg)
+    a_args = (wd, st.pos, st.vel, st.mass, st.u, st.h,
+              st.alpha if cfg.mm_visc else None)
+    win_a, h0_s, u_s, _ = rowpack.gather_a(*a_args)
     h_s, rho_s, om_s, bf_s, divv_s = wengine.stage_density(
         wd, spec, cfg, win_a[:dim].T, win_a[dim + 1:].T, win_a[dim], u_s,
         h0_s, win=win_a)
@@ -4282,8 +4294,8 @@ def rowpack_phase(dev, h, n_side=256):
                                        win_a[dim + 1:].T, win_a[dim],
                                        *mirrored, win=win_c)
     s_args = (wd, h_s, rho_s, P_s, cs_s, om_s, du_s, divv_s, acc_s)
-    runs = {"rowpack_gather_a": (lambda: rowpack.gather_a(st, wd, cfg),
-                                 lambda: rowpack.gather_a_plain(st, wd, cfg)),
+    runs = {"rowpack_gather_a": (lambda: rowpack.gather_a(*a_args),
+                                 lambda: rowpack.gather_a_plain(*a_args)),
             "rowpack_gather_c": (lambda: rowpack.gather_c(*c_args),
                                  lambda: rowpack.gather_c_plain(*c_args)),
             "rowpack_scatter_out": (
@@ -4308,6 +4320,7 @@ def rowpack_phase(dev, h, n_side=256):
             f"({by}, {nbytes[name] / 1e9:.2f} GB)  plain {p_ms:.3f} ms  "
             f"bitwise equal")
     del win_a, h0_s, u_s, h_s, rho_s, om_s, bf_s, divv_s, P_s, cs_s, c_args
+    del a_args
     del win_c, mirrored, acc_s, du_s, s_args
 
     # the whole derived pass: the kernels, the plain versions, the frozen

@@ -53,8 +53,9 @@ import torch
 from sphax_torch.configs import SPHConfig
 from sphax_torch.core.state import Domain, ParticleState
 from sphax_torch.dist.wslab import (_exchange, _pack, _pack_select, _sel,
-                                    _unpack, diagnostics, equal_cuts,
-                                    gather_real, quantile_cuts, refine_wseg)
+                                    _sorted_inputs, _unpack, diagnostics,
+                                    equal_cuts, gather_real, quantile_cuts,
+                                    refine_wseg)
 from sphax_torch.integrate.timestep import local_dt
 from sphax_torch.neighbors import window as win
 from sphax_torch.neighbors.window import WindowSpec
@@ -398,59 +399,28 @@ def _ship_hydro(comm, cols, fills, routes):
 _HYDRO_FILLS = (1.0, 1.0, 0.0, 0.0, 1.0, 0.0)
 
 
-def _gather_inputs(st: ParticleState, comb, wd, nG: int, cfg: SPHConfig,
-                   flag=None):
-    """ONE packed input gather into sorted order, pos refreshed by adding
-    the image shifts back (the ``wengine.derived_with`` pattern). ``comb``
-    = the combined (pos, vel, mass); ``flag`` [n_local] (optional) rides
-    in front. Returns (flag_s or None, pos_s, vel_s, mass_s, u_s, h_s,
-    alpha_s)."""
-    comb_pos, comb_vel, comb_mass = comb
-    dim = st.dim
-    cols = [comb_pos, comb_vel, comb_mass[:, None],
-            torch.cat([st.u, st.u.new_zeros(nG)])[:, None],
-            torch.cat([st.h, st.h.new_ones(nG)])[:, None]]
-    fills = [0.0] * (2 * dim) + [0.0, 0.0, 1.0]
-    if cfg.mm_visc:
-        cols.append(torch.cat([st.alpha, st.alpha.new_ones(nG)])[:, None])
-        fills.append(1.0)
-    if flag is not None:
-        cols.insert(0, torch.cat([flag, flag.new_zeros(nG)])[:, None])
-        fills.insert(0, 0.0)
-    g_s = win.gather_sorted_cols(torch.cat(cols, dim=-1), wd, fills)
-    flag_s = None
-    if flag is not None:
-        flag_s, g_s = g_s[:, 0], g_s[:, 1:]
-    mass_s = g_s[:, 2 * dim]
-    return (flag_s, g_s[:, :dim] + wd.shift_s, g_s[:, dim:2 * dim], mass_s,
-            g_s[:, 2 * dim + 1],
-            torch.where(mass_s > 0, g_s[:, 2 * dim + 2], 1.0),
-            g_s[:, 2 * dim + 3] if cfg.mm_visc else None)
-
-
 def _local_derived(comm, st: ParticleState, wd, routes, lo0, lo1,
                    cfg: SPHConfig, domain: Domain, spec: PencilSpec):
     """The window engine's derived pass for one pencil with two-phase,
     two-hop ghosts against a pre-built (possibly stale) structure and
     fixed routes (the pencil twin of ``wslab._local_derived``)."""
-    nG = 2 * (spec.ghost_cap0 + spec.ghost_cap1)
     nl, dim, dtype = st.n, st.dim, st.pos.dtype
     wspec = spec.wspec
     comb = _ship_kinematics(comm, st, routes, lo0, lo1, domain, spec)
-    comb_u = torch.cat([st.u, st.u.new_zeros(nG)])
-    _, pos_s, vel_s, mass_s, u_s, h_s, alpha_s = _gather_inputs(
-        st, comb, wd, nG, cfg)
+    win_a, pos_s, vel_s, mass_s, u_s, h_s, alpha_s = _sorted_inputs(
+        st, comb, wd, 2 * (spec.ghost_cap0 + spec.ghost_cap1), cfg)
 
     # ---- kernel A (+ Omega, viscosity factor); owner-valid on LOCAL rows
     h_s, rho_s, om_s, bf_s, divv_s = wengine.stage_density(
-        wd, wspec, cfg, pos_s, vel_s, mass_s, u_s, h_s, alpha_s=alpha_s)
-    dsc = torch.stack([h_s, rho_s, om_s, bf_s, divv_s], dim=-1)[wd.inv]
+        wd, wspec, cfg, pos_s, vel_s, mass_s, u_s, h_s, alpha_s=alpha_s,
+        win=win_a)
+    dsc = torch.stack([h_s, rho_s, om_s, bf_s, divv_s], dim=-1)[wd.inv][:nl]
     h_c, rho_c, om_c, bf_c, divv_c = dsc.unbind(-1)
-    P_c, cs_c = eos(rho_c, comb_u, cfg)
+    P_c, cs_c = eos(rho_c, st.u, cfg)
 
     # ---- phase 2: owner-computed hydro over the same two-hop routes
-    loc_hyd = torch.stack([h_c[:nl], rho_c[:nl], P_c[:nl], cs_c[:nl],
-                           om_c[:nl], bf_c[:nl]], dim=-1)         # [nl, 6]
+    loc_hyd = torch.stack([h_c, rho_c, P_c, cs_c, om_c, bf_c],
+                          dim=-1)                                 # [nl, 6]
     hyd_s = win.gather_sorted(_ship_hydro(comm, loc_hyd, _HYDRO_FILLS,
                                           routes), wd)
     h_s2 = torch.where(mass_s > 0, hyd_s[:, 0], 1.0)
@@ -478,9 +448,8 @@ def _local_derived(comm, st: ParticleState, wd, routes, lo0, lo1,
         # mesh; one SUM all-reduce over both axes replicates it
         acc = acc + pm.mesh_accel(st.pos, st.mass, cfg, domain, rs=rs,
                                   group=comm)
-    return st._replace(h=h_c[:nl], rho=rho_c[:nl], P=P_c[:nl],
-                       cs=cs_c[:nl], omega=om_c[:nl], du_dt=out[:nl, 0],
-                       acc=acc, divv=divv_c[:nl])
+    return st._replace(h=h_c, rho=rho_c, P=P_c, cs=cs_c, omega=om_c,
+                       du_dt=out[:nl, 0], acc=acc, divv=divv_c)
 
 
 # ---------------------------------------------------------------------------

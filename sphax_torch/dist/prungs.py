@@ -29,9 +29,10 @@ import torch
 from sphax_torch.configs import SPHConfig
 from sphax_torch.core.state import Domain, ParticleState
 from sphax_torch.dist.pencil import (_HYDRO_FILLS, PencilSpec,
-                                     _exchange_and_build, _gather_inputs,
-                                     _health, _ship_hydro, _ship_kinematics,
+                                     _exchange_and_build, _health,
+                                     _ship_hydro, _ship_kinematics,
                                      _wrap_other)
+from sphax_torch.dist.wslab import _sorted_inputs
 from sphax_torch.integrate.rungs import (_rung_of, close_rungs,
                                         mask_structure, open_drift)
 from sphax_torch.integrate.timestep import particle_dt
@@ -51,16 +52,18 @@ def _local_derived_rungs(comm, st: ParticleState, bf_prev, wd, routes, lo0,
     nl, dim = st.n, st.dim
     wspec = spec.wspec
     comb = _ship_kinematics(comm, st, routes, lo0, lo1, domain, spec)
-    # the close flag rides the packed gather; ghost rows are never closers
-    # (their owners close them on the same global tick)
-    flag_s, pos_s, vel_s, mass_s, u_s, h_s, alpha_s = _gather_inputs(
-        st, comb, wd, nG, cfg, flag=close_m.to(st.pos.dtype))
-    wd_act = mask_structure(wd, wspec, flag_s > 0.5)
+    win_a, pos_s, vel_s, mass_s, u_s, h_s, alpha_s = _sorted_inputs(
+        st, comb, wd, nG, cfg)
+    # ghost rows are never closers (their owners close them on the same
+    # global tick)
+    act_s = win.gather_sorted(torch.cat([close_m, close_m.new_zeros(nG)]),
+                              wd)
+    wd_act = mask_structure(wd, wspec, act_s)
 
     # ---- kernel A on the closers' groups
     fresh = torch.stack(wengine.stage_density(
-        wd_act, wspec, cfg, pos_s, vel_s, mass_s, u_s, h_s,
-        alpha_s=alpha_s), dim=-1)[wd.inv][:nl]                    # [nl, 5]
+        wd_act, wspec, cfg, pos_s, vel_s, mass_s, u_s, h_s, alpha_s=alpha_s,
+        win=win_a), dim=-1)[wd.inv][:nl]                          # [nl, 5]
     # current-best LOCAL hydro: fresh where the row closed, stale otherwise
     cm = close_m
     h_cb = torch.where(cm, fresh[:, 0], st.h)
@@ -94,20 +97,19 @@ def _local_derived_rungs(comm, st: ParticleState, bf_prev, wd, routes, lo0,
 def _visc_factor_seed(comm, st: ParticleState, cuts0, cuts1,
                       domain: Domain, spec: PencilSpec, cfg: SPHConfig):
     """One unmasked kernel-A pass to seed the stale viscosity-factor carry
-    (the twin of ``prungs._visc_factor_seed``); ones when no viscosity
+    (the twin of ``wrungs._visc_factor_seed``); ones when no viscosity
     switch is configured. Every rank runs it (it exchanges ghosts). Its
     dropped-ghost count is discarded: the chunk's first build runs on the
     same state and cuts and reports it."""
     if not cfg.visc_factor_on:
         return torch.ones_like(st.h)
-    nG = 2 * (spec.ghost_cap0 + spec.ghost_cap1)
     wd, routes, lo0, lo1, _ = _exchange_and_build(comm, st, cuts0, cuts1,
                                                   domain, spec)
     comb = _ship_kinematics(comm, st, routes, lo0, lo1, domain, spec)
-    _, pos_s, vel_s, mass_s, u_s, h_s, alpha_s = _gather_inputs(
-        st, comb, wd, nG, cfg)
+    win_a, pos_s, vel_s, mass_s, u_s, h_s, alpha_s = _sorted_inputs(
+        st, comb, wd, 2 * (spec.ghost_cap0 + spec.ghost_cap1), cfg)
     bf_s = wengine.stage_density(wd, spec.wspec, cfg, pos_s, vel_s, mass_s,
-                                 u_s, h_s, alpha_s=alpha_s)[3]
+                                 u_s, h_s, alpha_s=alpha_s, win=win_a)[3]
     return bf_s[wd.inv][:st.n]
 
 

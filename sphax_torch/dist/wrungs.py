@@ -39,7 +39,7 @@ from sphax_torch.configs import SPHConfig
 from sphax_torch.core.state import Domain, ParticleState
 from sphax_torch.dist.wslab import (WSlabSpec, _exchange,
                                     _exchange_and_build, _ship_kinematics,
-                                    _wrap_transverse)
+                                    _sorted_inputs, _wrap_transverse)
 from sphax_torch.integrate.rungs import (_rung_of, close_rungs,
                                         mask_structure, open_drift)
 from sphax_torch.integrate.timestep import particle_dt
@@ -57,34 +57,21 @@ def _local_derived_rungs(comm, st: ParticleState, bf_prev, wd, routes,
 
     Returns (state', bf_now): outputs fresh on the closers and stale
     elsewhere; ``bf_now`` [nl] the current-best viscosity factor."""
-    G, nl, dim, dtype = spec.ghost_cap, st.n, st.dim, st.pos.dtype
+    nG, nl, dim = 2 * spec.ghost_cap, st.n, st.dim
     wspec = spec.wspec
-    comb_pos, comb_vel, comb_mass = _ship_kinematics(comm, st, routes,
-                                                     slab_lo, domain, spec)
-    # the close flag rides the packed gather; ghost rows are never closers
-    # (their owners close them on the same global tick)
-    cols = [torch.cat([close_m.to(dtype), st.u.new_zeros(2 * G)])[:, None],
-            comb_pos, comb_vel, comb_mass[:, None],
-            torch.cat([st.u, st.u.new_zeros(2 * G)])[:, None],
-            torch.cat([st.h, st.h.new_ones(2 * G)])[:, None]]
-    fills = [0.0] + [0.0] * (2 * dim) + [0.0, 0.0, 1.0]
-    if cfg.mm_visc:
-        cols.append(torch.cat([st.alpha, st.alpha.new_ones(2 * G)])[:, None])
-        fills.append(1.0)
-    g_s = win.gather_sorted_cols(torch.cat(cols, dim=-1), wd, fills)
-    act_s = g_s[:, 0] > 0.5
+    comb = _ship_kinematics(comm, st, routes, slab_lo, domain, spec)
+    win_a, pos_s, vel_s, mass_s, u_s, h_s, alpha_s = _sorted_inputs(
+        st, comb, wd, nG, cfg)
+    # ghost rows are never closers (their owners close them on the same
+    # global tick)
+    act_s = win.gather_sorted(torch.cat([close_m, close_m.new_zeros(nG)]),
+                              wd)
     wd_act = mask_structure(wd, wspec, act_s)
-    pos_s = g_s[:, 1:1 + dim] + wd.shift_s
-    vel_s = g_s[:, 1 + dim:1 + 2 * dim]
-    c0 = 1 + 2 * dim
-    mass_s, u_s = g_s[:, c0], g_s[:, c0 + 1]
-    h_s = torch.where(mass_s > 0, g_s[:, c0 + 2], 1.0)
-    alpha_s = g_s[:, c0 + 3] if cfg.mm_visc else None
 
     # ---- kernel A on the closers' groups
     fresh = torch.stack(wengine.stage_density(
-        wd_act, wspec, cfg, pos_s, vel_s, mass_s, u_s, h_s,
-        alpha_s=alpha_s), dim=-1)[wd.inv][:nl]                    # [nl, 5]
+        wd_act, wspec, cfg, pos_s, vel_s, mass_s, u_s, h_s, alpha_s=alpha_s,
+        win=win_a), dim=-1)[wd.inv][:nl]                          # [nl, 5]
     # current-best LOCAL hydro: fresh where the row closed, stale otherwise
     cm = close_m
     h_cb = torch.where(cm, fresh[:, 0], st.h)
@@ -124,25 +111,13 @@ def _visc_factor_seed(comm, st: ParticleState, cuts, domain: Domain,
     switch is configured. Every rank runs it (it exchanges ghosts)."""
     if not cfg.visc_factor_on:
         return torch.ones_like(st.h)
-    G, dim = spec.ghost_cap, st.dim
     wd, routes, slab_lo, _ = _exchange_and_build(comm, st, cuts, domain,
                                                  spec)
-    comb_pos, comb_vel, comb_mass = _ship_kinematics(comm, st, routes,
-                                                     slab_lo, domain, spec)
-    cols = [comb_pos, comb_vel, comb_mass[:, None],
-            torch.cat([st.u, st.u.new_zeros(2 * G)])[:, None],
-            torch.cat([st.h, st.h.new_ones(2 * G)])[:, None]]
-    fills = [0.0] * (2 * dim) + [0.0, 0.0, 1.0]
-    if cfg.mm_visc:
-        cols.append(torch.cat([st.alpha, st.alpha.new_ones(2 * G)])[:, None])
-        fills.append(1.0)
-    g_s = win.gather_sorted_cols(torch.cat(cols, dim=-1), wd, fills)
-    mass_s = g_s[:, 2 * dim]
-    h_s = torch.where(mass_s > 0, g_s[:, 2 * dim + 2], 1.0)
-    bf_s = wengine.stage_density(
-        wd, spec.wspec, cfg, g_s[:, :dim] + wd.shift_s, g_s[:, dim:2 * dim],
-        mass_s, g_s[:, 2 * dim + 1], h_s,
-        alpha_s=g_s[:, 2 * dim + 3] if cfg.mm_visc else None)[3]
+    comb = _ship_kinematics(comm, st, routes, slab_lo, domain, spec)
+    win_a, pos_s, vel_s, mass_s, u_s, h_s, alpha_s = _sorted_inputs(
+        st, comb, wd, 2 * spec.ghost_cap, cfg)
+    bf_s = wengine.stage_density(wd, spec.wspec, cfg, pos_s, vel_s, mass_s,
+                                 u_s, h_s, alpha_s=alpha_s, win=win_a)[3]
     return bf_s[wd.inv][:st.n]
 
 

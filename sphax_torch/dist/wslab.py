@@ -52,7 +52,7 @@ from sphax_torch.integrate.timestep import local_dt, particle_dt
 from sphax_torch.neighbors import window as win
 from sphax_torch.neighbors.window import WindowSpec
 from sphax_torch.physics import driving as drv
-from sphax_torch.physics import pairs, pm, wengine
+from sphax_torch.physics import pairs, pm, rowpack, wengine
 from sphax_torch.physics.eos import eos
 
 
@@ -346,6 +346,24 @@ def _exchange_and_build(comm, st: ParticleState, cuts, domain: Domain,
     return wd, routes, slab_lo, dropped
 
 
+def _sorted_inputs(st: ParticleState, comb, wd, n_ghost: int,
+                   cfg: SPHConfig):
+    """``rowpack.gather_a`` on a shard's combined rows: ``comb`` = the
+    combined (pos, vel, mass), and the local rows' u, h and alpha with
+    ``n_ghost`` ghost slots behind them (u 0, h 1, alpha 1). Zero-mass rows
+    (local padding, unused ghost slots) keep h = 1. Returns (win_a, pos_s,
+    vel_s, mass_s, u_s, h_s, alpha_s) in sorted order."""
+    def combined(f, fill):
+        return torch.cat([f, f.new_full((n_ghost,), fill)])
+
+    win_a, h_s, u_s, alpha_s = rowpack.gather_a(
+        wd, *comb, combined(st.u, 0.0), combined(st.h, 1.0),
+        combined(st.alpha, 1.0) if cfg.mm_visc else None)
+    pos_s, vel_s, mass_s = rowpack.a_fields(win_a)
+    return (win_a, pos_s, vel_s, mass_s, u_s,
+            torch.where(mass_s > 0, h_s, 1.0), alpha_s)
+
+
 def _local_derived(comm, st: ParticleState, wd, routes, slab_lo,
                    cfg: SPHConfig, domain: Domain, spec: WSlabSpec, cuts):
     """The window engine's derived pass on one rank with two-phase ghosts,
@@ -353,37 +371,23 @@ def _local_derived(comm, st: ParticleState, wd, routes, slab_lo,
     routes: the kinematics are re-shipped over the routes and the sorted
     positions refreshed from the stale permutation (the distributed twin of
     ``wengine.derived_with``)."""
-    G, nl, dim, dtype = spec.ghost_cap, st.n, st.dim, st.pos.dtype
+    nl, dim, dtype = st.n, st.dim, st.pos.dtype
     wspec = spec.wspec
-    comb_pos, comb_vel, comb_mass = _ship_kinematics(comm, st, routes,
-                                                     slab_lo, domain, spec)
-    comb_u = torch.cat([st.u, st.u.new_zeros(2 * G)])
-    comb_h = torch.cat([st.h, st.h.new_ones(2 * G)])
-    # ONE packed input gather; pos gets the image shifts added back
-    cols = [comb_pos, comb_vel, comb_mass[:, None], comb_u[:, None],
-            comb_h[:, None]]
-    fills = [0.0] * (2 * dim) + [0.0, 0.0, 1.0]
-    if cfg.mm_visc:
-        cols.append(torch.cat([st.alpha, st.alpha.new_ones(2 * G)])[:, None])
-        fills.append(1.0)
-    gat_s = win.gather_sorted_cols(torch.cat(cols, dim=-1), wd, fills)
-    pos_s = gat_s[:, :dim] + wd.shift_s
-    vel_s = gat_s[:, dim:2 * dim]
-    mass_s = gat_s[:, 2 * dim]
-    u_s = gat_s[:, 2 * dim + 1]
-    h_s = torch.where(mass_s > 0, gat_s[:, 2 * dim + 2], 1.0)
-    alpha_s = gat_s[:, 2 * dim + 3] if cfg.mm_visc else None
+    comb = _ship_kinematics(comm, st, routes, slab_lo, domain, spec)
+    win_a, pos_s, vel_s, mass_s, u_s, h_s, alpha_s = _sorted_inputs(
+        st, comb, wd, 2 * spec.ghost_cap, cfg)
 
     # ---- kernel A (+ Omega, viscosity factor); owner-valid on LOCAL rows
     h_s, rho_s, om_s, bf_s, divv_s = wengine.stage_density(
-        wd, wspec, cfg, pos_s, vel_s, mass_s, u_s, h_s, alpha_s=alpha_s)
-    dsc = torch.stack([h_s, rho_s, om_s, bf_s, divv_s], dim=-1)[wd.inv]
+        wd, wspec, cfg, pos_s, vel_s, mass_s, u_s, h_s, alpha_s=alpha_s,
+        win=win_a)
+    dsc = torch.stack([h_s, rho_s, om_s, bf_s, divv_s], dim=-1)[wd.inv][:nl]
     h_c, rho_c, om_c, bf_c, divv_c = dsc.unbind(-1)
-    P_c, cs_c = eos(rho_c, comb_u, cfg)
+    P_c, cs_c = eos(rho_c, st.u, cfg)
 
     # ---- phase 2: owner-computed hydro for the SAME boundary sets
-    loc_hyd = torch.stack([h_c[:nl], rho_c[:nl], P_c[:nl], cs_c[:nl],
-                           om_c[:nl], bf_c[:nl]], dim=-1)         # [nl, 6]
+    loc_hyd = torch.stack([h_c, rho_c, P_c, cs_c, om_c, bf_c],
+                          dim=-1)                                 # [nl, 6]
     gR2, gL2 = _exchange(comm, loc_hyd, (1.0, 1.0, 0.0, 0.0, 1.0, 0.0),
                          routes)
     # re-sort: every sorted row (transverse images too) gets owner values
@@ -413,9 +417,8 @@ def _local_derived(comm, st: ParticleState, wd, routes, slab_lo,
                                   group=comm)
     elif cfg.gravity:
         acc = acc + _gravity_ring(comm, st.pos, st.mass, cfg, domain)
-    return st._replace(h=h_c[:nl], rho=rho_c[:nl], P=P_c[:nl],
-                       cs=cs_c[:nl], omega=om_c[:nl], du_dt=out[:nl, 0],
-                       acc=acc, divv=divv_c[:nl])
+    return st._replace(h=h_c, rho=rho_c, P=P_c, cs=cs_c, omega=om_c,
+                       du_dt=out[:nl, 0], acc=acc, divv=divv_c)
 
 
 def _gravity_ring(comm, pos, mass, cfg: SPHConfig, domain: Domain,

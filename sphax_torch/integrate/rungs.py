@@ -49,8 +49,7 @@ from sphax_torch.integrate.timestep import particle_dt
 from sphax_torch.io.metrics import span
 from sphax_torch.neighbors import window as win
 from sphax_torch.neighbors.window import WindowData, WindowSpec
-from sphax_torch.physics import pairs, wengine
-from sphax_torch.physics.eos import eos
+from sphax_torch.physics import pairs, rowpack, wengine
 
 
 def mask_structure(wd: WindowData, spec: WindowSpec, act_s) -> WindowData:
@@ -81,66 +80,12 @@ def mask_structure(wd: WindowData, spec: WindowSpec, act_s) -> WindowData:
 
 def _derived_rungs(state: ParticleState, bf_prev, wd: WindowData,
                    cfg: SPHConfig, domain: Domain, spec: WindowSpec, close_m):
-    """Window-engine derived pass that evaluates only the closing particles'
-    groups. ``wengine.derived_with`` with three changes: the kernels run on
-    a ``mask_structure``d copy of ``wd``; the four window-shipped scalars
-    (h, rho, Omega, viscosity factor) are selected per row, fresh on closing
-    rows and stale (from ``state`` and ``bf_prev``) elsewhere, BEFORE the
-    owner mirror, so kernel C's j-sides see every particle's current-best
-    values on ghost images too; and all outputs are selected against the
-    stale state after the unsort. Returns (state', bf_now), ``bf_now`` [n]
-    the viscosity factor to carry."""
-    with span("sphax_torch.derived"):
-        dim = state.dim
-        dtype = state.pos.dtype
-        # ONE packed input gather per tick: the close flag, kinematics,
-        # thermo and the stale h/rho/Omega/viscosity-factor carry
-        cols = [close_m.to(dtype)[:, None], state.pos, state.vel,
-                state.mass[:, None], state.u[:, None], state.h[:, None],
-                state.rho[:, None], state.omega[:, None], bf_prev[:, None]]
-        fills = [0.0] + [0.0] * (2 * dim) + [0.0, 0.0, 1.0, 1.0, 1.0, 1.0]
-        if cfg.mm_visc:
-            cols.append(state.alpha[:, None])
-            fills.append(1.0)
-        g_s = win.gather_sorted_cols(torch.cat(cols, dim=-1), wd, fills)
-        act_s = g_s[:, 0] > 0.5
-        wd_act = mask_structure(wd, spec, act_s)
-        pos_s = g_s[:, 1:1 + dim] + wd.shift_s
-        vel_s = g_s[:, 1 + dim:1 + 2 * dim]
-        c0 = 1 + 2 * dim
-        mass_s, u_s, h_s = g_s[:, c0], g_s[:, c0 + 1], g_s[:, c0 + 2]
-        alpha_s = g_s[:, c0 + 6] if cfg.mm_visc else None
-
-        h_f, rho_f, om_f, bf_f, divv_f = wengine.stage_density(
-            wd_act, spec, cfg, pos_s, vel_s, mass_s, u_s, h_s,
-            alpha_s=alpha_s)
-
-        # current-best sorted scalars: fresh where the owner closes, stale
-        # otherwise (pad rows take the stale branch, whose fill is 1.0),
-        # then ONE packed owner-mirror gather
-        fresh = torch.stack([h_f, rho_f, om_f, bf_f], dim=-1)
-        stale = g_s[:, c0 + 2:c0 + 6]
-        mirrored = torch.where(act_s[:, None], fresh, stale)[wd.src]
-        h_c, rho_c, om_c, bf_c = mirrored.unbind(-1)
-        # u_s is the PREDICTED energy (advanced at each particle's last
-        # half-kick), so eos gives predicted P and cs on stale rows
-        P_c, cs_c = eos(rho_c, u_s, cfg)
-
-        acc_s, du_s = wengine.stage_forces(
-            wd_act, spec, cfg, pos_s, vel_s, mass_s, h_c, rho_c, P_c, cs_c,
-            om_c, bf_c)
-
-        # unsort: the four mirrored scalars are already selected; the force
-        # outputs and divv select against the stale state per ORIGINAL row
-        out = torch.stack([h_c, rho_c, P_c, cs_c, om_c, du_s, divv_f, bf_c]
-                          + list(acc_s.unbind(-1)), dim=-1)[wd.inv]
-        acc = torch.where(close_m[:, None], out[:, 8:8 + dim], state.acc)
-        return state._replace(
-            h=out[:, 0], rho=out[:, 1], P=out[:, 2], cs=out[:, 3],
-            omega=out[:, 4],
-            du_dt=torch.where(close_m, out[:, 5], state.du_dt),
-            divv=torch.where(close_m, out[:, 6], state.divv),
-            acc=acc), out[:, 7]
+    """The window engine's derived pass over the closing particles' groups:
+    ``wengine.derived_with`` with ``closing=(close_m, bf_prev)``, packing
+    through ``rowpack`` as every derived pass does. Returns (state',
+    bf_now), ``bf_now`` [n] the viscosity factor to carry."""
+    return wengine.derived_with(state, wd, cfg, domain, spec,
+                                closing=(close_m, bf_prev))
 
 
 def _visc_factor_full(state: ParticleState, cfg: SPHConfig, domain: Domain,
@@ -153,15 +98,11 @@ def _visc_factor_full(state: ParticleState, cfg: SPHConfig, domain: Domain,
     with span("sphax_torch.derived"):
         pos_w = domain.wrap(state.pos)
         wd = win.build(pos_w, domain, spec)
-        pos_s = win.refresh_pos(pos_w, wd)
-        vel_s = win.gather_sorted(state.vel, wd)
-        mass_s = win.gather_sorted(state.mass, wd)
-        u_s = win.gather_sorted(state.u, wd)
-        h_s = win.gather_sorted(state.h, wd, fill=1.0)
-        alpha_s = (win.gather_sorted(state.alpha, wd, fill=1.0)
-                   if cfg.mm_visc else None)
-        _, _, _, bf_s, _ = wengine.stage_density(
-            wd, spec, cfg, pos_s, vel_s, mass_s, u_s, h_s, alpha_s=alpha_s)
+        win_a, h_s, u_s, alpha_s = rowpack.gather_a(
+            wd, pos_w, state.vel, state.mass, state.u, state.h,
+            state.alpha if cfg.mm_visc else None)
+        bf_s = wengine.stage_density(wd, spec, cfg, *rowpack.a_fields(win_a),
+                                     u_s, h_s, alpha_s=alpha_s, win=win_a)[3]
         return bf_s[wd.inv]
 
 

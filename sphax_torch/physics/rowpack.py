@@ -1,12 +1,17 @@
 """The derived pass's row gathers and packing: wrappers and plain versions.
 
-``wengine.derived_with`` moves the state between its original order and
-kernels A's and C's feature-major sorted windows in three steps:
+This module owns the sorted-row format. Every derived pass packs through
+it: ``wengine.derived_with`` (the global step and, over its closers, the
+rung tick), the rung path's viscosity-factor seed and the shard passes of
+``dist/``. The one-device pass moves the state between its original order
+and kernels A's and C's feature-major sorted windows in three steps:
 
-``gather_a``     the state's fields through ``wd.g`` into A's window
-                 [pos + shift_s, m, vel] ([2 dim + 1, Ns]; A reads the
-                 first dim + 1 rows without Balsara) and the sorted h0, u
-                 (and alpha); pad rows take 0, with 1 for h and alpha
+``gather_a``     original-order pos, vel, m, u, h (and alpha) through
+                 ``wd.g`` into A's window [pos + shift_s, m, vel]
+                 ([2 dim + 1, Ns]; A reads the first dim + 1 rows without
+                 Balsara) and the sorted h0, u (and alpha); pad rows take
+                 0, with 1 for h and alpha. A shard passes its combined
+                 arrays, local rows then ghost slots
 ``gather_c``     C's window [pos, vel, m, h, 1/h, rho, cs, ci, gc1, gc2
                  (, bf)] ([2 dim + 8 (+ 1), Ns]): positions, velocities and
                  mass from A's window, the rest from the owner row
@@ -21,8 +26,9 @@ version beside it (``*_plain``): the composition the derived pass ran
 before the kernels, which they are held against bit for bit on the card.
 
 The sorted h, rho, om, bf, P and cs that ``gather_c`` takes are those of
-the stage's own rows, unmirrored; P and cs come from the EOS of those
-rows. u is the owner's on every real and ghost row, so mirroring the EOS
+the stage's own rows, unmirrored (on a rung tick the current-best ones:
+fresh on closing rows, stale elsewhere); P and cs come from the EOS of
+those rows. u is the owner's on every real and ghost row, so mirroring the EOS
 equals the EOS of the mirrored rows there. Pad rows (zero mass) mirror a
 row the build leaves unspecified: their C inputs are don't-care, as their
 outputs are. ``scatter_out`` reads owner rows only, where the mirror is
@@ -33,7 +39,6 @@ from __future__ import annotations
 import torch
 
 from sphax_torch.configs import SPHConfig
-from sphax_torch.core.state import ParticleState
 from sphax_torch.neighbors import window as win
 from sphax_torch.neighbors.window import WindowData
 from sphax_torch.physics import kernels as K
@@ -55,24 +60,30 @@ def c_rows(dim: int, use_bf: bool) -> int:
 # ---------------------------------------------------------------------------
 
 
-def gather_a_plain(state: ParticleState, wd: WindowData, cfg: SPHConfig):
+def gather_a_plain(wd: WindowData, pos, vel, mass, u, h, alpha=None):
     """Returns (win [2 dim + 1, Ns], h0_s, u_s, alpha_s or None): one packed
     sorted gather, the image shifts added back to the positions, then A's
     feature-major rows."""
-    dim = state.dim
-    cols = [state.pos, state.vel, state.mass[:, None], state.u[:, None],
-            state.h[:, None]]
+    dim = pos.shape[1]
+    cols = [pos, vel, mass[:, None], u[:, None], h[:, None]]
     fills = [0.0] * (2 * dim) + [0.0, 0.0, 1.0]
-    if cfg.mm_visc:
-        cols.append(state.alpha[:, None])
+    if alpha is not None:
+        cols.append(alpha[:, None])
         fills.append(1.0)
     g_s = win.gather_sorted_cols(torch.cat(cols, dim=-1), wd, fills)
     pos_s = g_s[:, :dim] + wd.shift_s
     vel_s = g_s[:, dim:2 * dim]
     mass_s = g_s[:, 2 * dim]
     win_a = torch.cat([pos_s.T, mass_s[None], vel_s.T]).contiguous()
-    alpha_s = g_s[:, 2 * dim + 3] if cfg.mm_visc else None
+    alpha_s = g_s[:, 2 * dim + 3] if alpha is not None else None
     return win_a, g_s[:, 2 * dim + 2], g_s[:, 2 * dim + 1], alpha_s
+
+
+def a_fields(win_a):
+    """(pos_s [Ns, dim], vel_s [Ns, dim], mass_s [Ns]): views of A's
+    window, in the order the density and force stages take them."""
+    dim = win_a.shape[0] // 2
+    return win_a[:dim].T, win_a[dim + 1:].T, win_a[dim]
 
 
 def mirror_plain(wd: WindowData, h_s, rho_s, om_s, bf_s, P_s, cs_s):
@@ -138,21 +149,21 @@ def _plain_here(t) -> bool:
     return t.device.type == "cpu"
 
 
-def gather_a(state: ParticleState, wd: WindowData, cfg: SPHConfig):
-    """Kernel A's window from the state's fields: (win [2 dim + 1, Ns],
-    h0_s, u_s, alpha_s or None)."""
-    if _plain_here(state.pos):
-        return gather_a_plain(state, wd, cfg)
-    dim, n, Ns = state.dim, state.n, wd.g.shape[0]
+def gather_a(wd: WindowData, pos, vel, mass, u, h, alpha=None):
+    """Kernel A's window from original-order fields ([n, dim] pos and vel,
+    [n] the rest; ``alpha`` only with the Morris-Monaghan switch): (win
+    [2 dim + 1, Ns], h0_s, u_s, alpha_s or None)."""
+    if _plain_here(pos):
+        return gather_a_plain(wd, pos, vel, mass, u, h, alpha)
+    (n, dim), Ns = pos.shape, wd.g.shape[0]
     if dim not in (1, 2, 3):
         raise NotImplementedError(f"rowpack is built for dim 1, 2 and 3, "
                                   f"not {dim}")
-    pos, vel, mass, u, h = (t.contiguous() for t in (
-        state.pos, state.vel, state.mass, state.u, state.h))
-    alpha = state.alpha.contiguous() if cfg.mm_visc else None
-    fields = dict(pos=(pos, n), vel=(vel, n), mass=(mass, n), u=(u, n),
-                  h=(h, n), shift_s=(wd.shift_s, Ns))
+    pos, vel, mass, u, h = (t.contiguous() for t in (pos, vel, mass, u, h))
+    fields = dict(pos=(pos, n), vel=(vel, (n, dim)), mass=(mass, n),
+                  u=(u, n), h=(h, n), shift_s=(wd.shift_s, Ns))
     if alpha is not None:
+        alpha = alpha.contiguous()
         fields["alpha"] = (alpha, n)
     check_fields(pos, fields, contiguous=True)
     check_index(pos, "g", wd.g, (Ns,))

@@ -156,8 +156,11 @@ def stage_density(wd, spec: WindowSpec, cfg: SPHConfig, pos_s, vel_s, mass_s,
 
     Returns (h, rho, om, vf, divv) in SORTED order, valid on OWNER rows only
     (ghost rows ran on junk windows); the caller mirrors ghosts. ``win``:
-    kernel A's window prepacked (``window_kernels.solve_h_density``).
+    ``rowpack.gather_a``'s window, which kernel A then reads in place of
+    the fields (without the Balsara sums, its first dim + 1 rows).
     """
+    if win is not None and not cfg.need_divv:
+        win = win[:cfg.dim + 1]
     if cfg.h_predict and cfg.adaptive_h:
         # the continuity predictor can push h past the structural cap, and
         # windows only cover neighbours to spec.cutoff: clamp BEFORE the
@@ -213,21 +216,49 @@ def stage_forces(wd, spec: WindowSpec, cfg: SPHConfig, pos_s, vel_s, mass_s,
 
 
 def derived_with(state: ParticleState, wd, cfg: SPHConfig, domain: Domain,
-                 spec: WindowSpec) -> ParticleState:
+                 spec: WindowSpec, closing=None):
     """Derived pass against a PRE-BUILT (possibly stale) window structure,
     valid while spec.cutoff exceeds 2 h_max plus twice the drift since the
-    build."""
+    build.
+
+    ``closing=(close_m, bf_prev)`` makes it a rung tick's pass over the
+    closing particles ``close_m`` [n] bool (``rungs._derived_rungs``), and
+    it returns (state', bf_now) then. Kernels A and C run on the groups
+    holding a closing row (``rungs.mask_structure``). h, rho, Omega and
+    the viscosity factor are fresh on closing rows and stale elsewhere
+    (``state``'s, and the carried factor ``bf_prev``) BEFORE the owner
+    mirror, so kernel C's j-sides see every particle's current-best values
+    on ghost images too; P and cs come from their EOS at the predicted u.
+    du/dt, div v and acc are selected against ``state`` per original row;
+    ``bf_now`` [n] is the current-best factor to carry."""
     if state.dim != cfg.dim:
         raise ValueError(f"state dim {state.dim} != cfg.dim {cfg.dim}")
     with span("sphax_torch.derived"):
-        dim = state.dim
         # the state's fields into kernel A's window (pos with the image
         # shifts added back, m, vel) and the sorted h0, u, alpha
-        win_a, h_s, u_s, alpha_s = rowpack.gather_a(state, wd, cfg)
-        pos_s, mass_s, vel_s = win_a[:dim].T, win_a[dim], win_a[dim + 1:].T
+        win_a, h_s, u_s, alpha_s = rowpack.gather_a(
+            wd, state.pos, state.vel, state.mass, state.u, state.h,
+            state.alpha if cfg.mm_visc else None)
+        pos_s, vel_s, mass_s = rowpack.a_fields(win_a)
+        wd_walk = wd
+        if closing is not None:
+            from sphax_torch.integrate import rungs   # it imports this module
+            close_m, bf_prev = closing
+            # the close flag and the stale rho, Omega and viscosity factor
+            # (pad rows stale, at 1), one 1-D gather each: on an H100 one
+            # gather of their [Ns, 4] rows took 9x as long as the four
+            act_s = win.gather_sorted(close_m, wd)
+            stale = (h_s,) + tuple(win.gather_sorted(f, wd, fill=1.0)
+                                   for f in (state.rho, state.omega, bf_prev))
+            wd_walk = rungs.mask_structure(wd, spec, act_s)
+        # rebinding h_s frees h0 here unless the rung pass keeps it as stale
         h_s, rho_s, om_s, bf_s, divv_s = stage_density(
-            wd, spec, cfg, pos_s, vel_s, mass_s, u_s, h_s, alpha_s=alpha_s,
-            win=win_a if cfg.need_divv else win_a[:dim + 1])
+            wd_walk, spec, cfg, pos_s, vel_s, mass_s, u_s, h_s,
+            alpha_s=alpha_s, win=win_a)
+        if closing is not None:
+            h_s, rho_s, om_s, bf_s = (
+                torch.where(act_s, fresh, old)
+                for fresh, old in zip((h_s, rho_s, om_s, bf_s), stale))
         # on the stage's own rows: u_s is owner-correct, so gather_c's
         # owner mirror of P and cs is the EOS of the mirrored rows
         P_s, cs_s = eos(rho_s, u_s, cfg)
@@ -241,7 +272,7 @@ def derived_with(state: ParticleState, wd, cfg: SPHConfig, domain: Domain,
             # tensor (it depends on domain.extent)
             rs = pm.rs_traced(cfg, domain, pos_s.dtype, cutoff=spec.cutoff)
             grav = (rs, float(cfg.grav_eps))
-        acc_s, du_s = stage_forces(wd, spec, cfg, pos_s, vel_s, mass_s,
+        acc_s, du_s = stage_forces(wd_walk, spec, cfg, pos_s, vel_s, mass_s,
                                    *mirrored, grav=grav, win=win_c)
         # the outputs back to original order (owner rows)
         h, rho, P, cs, om, du, divv, acc = rowpack.scatter_out(
@@ -251,14 +282,19 @@ def derived_with(state: ParticleState, wd, cfg: SPHConfig, domain: Domain,
             # periodic box, Hockney free space on an open one)
             acc = acc + pm.mesh_accel(state.pos, state.mass, cfg, domain,
                                       rs=rs)
-        elif cfg.gravity and not any(domain.periodic_axes(dim)):
+        elif cfg.gravity and not any(domain.periodic_axes(state.dim)):
             # direct sum, kernel G (open-boundary convention)
             acc = acc + direct_gravity.gravity(state.pos, state.mass, cfg)
         elif cfg.gravity:
             # direct sum with the min-image convention on a periodic box
             acc = acc + clist.gravity_dense(state.pos, state.mass, cfg, domain)
-        return state._replace(h=h, rho=rho, P=P, cs=cs, omega=om, acc=acc,
-                              du_dt=du, divv=divv)
+        if closing is not None:
+            acc = torch.where(close_m[:, None], acc, state.acc)
+            du = torch.where(close_m, du, state.du_dt)
+            divv = torch.where(close_m, divv, state.divv)
+        out = state._replace(h=h, rho=rho, P=P, cs=cs, omega=om, acc=acc,
+                             du_dt=du, divv=divv)
+        return out if closing is None else (out, bf_s[wd.inv])
 
 
 def update_derived(state: ParticleState, cfg: SPHConfig, domain: Domain,

@@ -1,7 +1,9 @@
 """The CUDA kernels A, C (with and without its P3M gravity mode; A and C
 in 3D, 2D and 1D, in place and compact, on the masked tables of the
 block-timestep path and on a slab shard's masked structure) and G against
-their plain torch versions, on a card; block timesteps with one rung
+their plain torch versions, on a card; a block-timestep tick's pass
+through the row-packing kernels against the same pass through their plain
+versions; block timesteps with one rung
 against the global-dt loop; and the slab decomposition's ranks, sharing
 the card over gloo, against the single-device engine, with block
 timesteps too (kernels A and C on a shard masked to a rung tick's
@@ -658,6 +660,48 @@ def test_cuda_tensor_never_runs_the_plain_version(cuda, monkeypatch):
         assert {k: rowpack.LAUNCHES[k] - r0[k] for k in r0} == {
             k: 1 for k in r0}, (cfg, compact)
         assert bool(torch.isfinite(out.acc).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rung_pass_packs_through_rowpack(cuda, dtype, monkeypatch):
+    """One rung tick's pass (``rungs._derived_rungs``: the Sedov lattice,
+    24^3, with a seeded velocity and a seeded drift after its cold pass, a
+    seeded 30 % of it closing and a seeded stale viscosity factor) on the
+    card launches each row-packing kernel once, and equals bit for bit the
+    same pass with ``rowpack``'s plain versions patched in, on the card's
+    tensors."""
+    prob = problems.sedov(n=24, dtype=dtype, device=cuda)
+    st, dom, cfg = prob.state, prob.domain, prob.cfg
+    gen = torch.Generator(device=cuda).manual_seed(31)
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, dtype=dtype, device=cuda)
+    st = st._replace(vel=0.1 * randn(st.vel.shape))
+    spec = win.plan_measured(st.pos, dom, h_max=float(st.h.max()) * 1.5,
+                             dim=3, cutoff_scale=1.25, fast_sub=3, rgroups=2)
+    st = wengine.update_derived(st, cfg, dom, spec)
+    st = st._replace(pos=dom.wrap(st.pos + 0.05 * st.h[:, None]
+                                  * randn(st.pos.shape)))
+    wd = win.build(st.pos, dom, spec)
+    assert int(wd.overflow) == 0
+    close = torch.rand(st.n, generator=gen, device=cuda) < 0.3
+    bf_prev = torch.rand(st.n, generator=gen, dtype=dtype, device=cuda)
+    n0 = dict(rowpack.LAUNCHES)
+    got, bf_got = rungs._derived_rungs(st, bf_prev, wd, cfg, dom, spec,
+                                       close)
+    torch.cuda.synchronize()
+    assert {k: rowpack.LAUNCHES[k] - n0[k] for k in n0} == {
+        k: 1 for k in n0}
+    for name in ("gather_a", "gather_c", "scatter_out"):
+        monkeypatch.setattr(rowpack, name, getattr(rowpack, f"{name}_plain"))
+    want, bf_want = rungs._derived_rungs(st, bf_prev, wd, cfg, dom, spec,
+                                         close)
+    for f in ("h", "rho", "P", "cs", "omega", "acc", "du_dt", "divv"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert torch.equal(a, b), (f, int((a != b).sum()))
+    assert torch.equal(bf_got, bf_want)
+    assert torch.equal(got.acc[~close], st.acc[~close])
 
 
 def _slab_state(dev, dtype, n_side, cfg):

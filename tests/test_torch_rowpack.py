@@ -6,7 +6,9 @@ as the derived pass ran it before the three CUDA kernels
 from P, cs and ci, see ``rowpack``'s docstring), in 1D, 2D and 3D, fp32
 and fp64, with and without the Balsara sums and the Morris-Monaghan
 alpha, on in-place and compact structures (ghost rows and pad rows
-present); and the whole derived pass equals the frozen pass bit for bit.
+present); the whole derived pass equals the frozen pass bit for bit; and
+the shard passes' inputs through the field form of ``gather_a`` equal the
+packed gather the shards ran before, bit for bit.
 
 On a card (``-m gpu``, skipped without one): each CUDA kernel equals its
 plain version bit for bit, a derived pass equals the frozen pass bit for
@@ -22,6 +24,7 @@ import torch
 
 from sphax_torch import configs, make_state
 from sphax_torch.core.state import box
+from sphax_torch.dist import wslab
 from sphax_torch.neighbors import window as win
 from sphax_torch.physics import eos as eos_mod
 from sphax_torch.physics import rowpack, wengine
@@ -87,6 +90,13 @@ def _sorted_fields(wd, dtype, device, seed=11):
 FIELDS = ("h", "rho", "P", "cs", "omega", "acc", "du_dt", "divv")
 
 
+def _a_inputs(st, cfg):
+    """``rowpack.gather_a``'s fields from a state, as the derived pass
+    passes them."""
+    return (st.pos, st.vel, st.mass, st.u, st.h,
+            st.alpha if cfg.mm_visc else None)
+
+
 def _same(got, want, what):
     assert got.shape == want.shape, what
     assert torch.equal(got, want), (
@@ -108,7 +118,7 @@ CASES = pytest.mark.parametrize(
 def test_gather_a_plain_equals_thefrozen_gather(dim, dtype, visc, compact):
     st, _, _, wd = _structure(dim, dtype, compact)
     cfg = _cfg(dim, visc)
-    win_a, h0_s, u_s, alpha_s = rowpack.gather_a(st, wd, cfg)
+    win_a, h0_s, u_s, alpha_s = rowpack.gather_a(wd, *_a_inputs(st, cfg))
     pos_s, vel_s, mass_s, u_w, h_w, alpha_w = frozen_gather(st, wd, cfg)
     assert win_a.is_contiguous() and win_a.shape == (2 * dim + 1,
                                                       wd.g.shape[0])
@@ -132,7 +142,7 @@ def test_gather_c_plain_equals_thefrozen_mirror_and_packing(dim, dtype, visc,
                                                              compact):
     st, _, _, wd = _structure(dim, dtype, compact)
     cfg = _cfg(dim, visc)
-    win_a, _, u_s, _ = rowpack.gather_a(st, wd, cfg)
+    win_a, _, u_s, _ = rowpack.gather_a(wd, *_a_inputs(st, cfg))
     h_s, rho_s, om_s, bf_s = _sorted_fields(wd, DTYPES[dtype], "cpu")
     # the derived pass's order: the EOS on the stage's own rows
     P_s, cs_s = eos_mod.eos(rho_s, u_s, cfg)
@@ -184,6 +194,89 @@ def test_derived_with_equals_thefrozen_pass(dim, dtype, visc, compact):
         _same(getattr(got, f), getattr(want, f), f)
 
 
+def _shard_cols_gather(st, comb, wd, n_ghost, cfg):
+    """The packed input gather the shard passes ran before they took
+    ``rowpack.gather_a`` (``wslab._local_derived``'s), frozen: (pos_s,
+    vel_s, mass_s, u_s, h_s, alpha_s)."""
+    comb_pos, comb_vel, comb_mass = comb
+    dim = st.dim
+    cols = [comb_pos, comb_vel, comb_mass[:, None],
+            torch.cat([st.u, st.u.new_zeros(n_ghost)])[:, None],
+            torch.cat([st.h, st.h.new_ones(n_ghost)])[:, None]]
+    fills = [0.0] * (2 * dim) + [0.0, 0.0, 1.0]
+    if cfg.mm_visc:
+        cols.append(torch.cat([st.alpha, st.alpha.new_ones(n_ghost)])[:, None])
+        fills.append(1.0)
+    g_s = win.gather_sorted_cols(torch.cat(cols, dim=-1), wd, fills)
+    mass_s = g_s[:, 2 * dim]
+    return (g_s[:, :dim] + wd.shift_s, g_s[:, dim:2 * dim], mass_s,
+            g_s[:, 2 * dim + 1],
+            torch.where(mass_s > 0, g_s[:, 2 * dim + 2], 1.0),
+            g_s[:, 2 * dim + 3] if cfg.mm_visc else None)
+
+
+def _shard(dim, dtype_name):
+    """A shard-shaped combined array on the lattice: the local rows, of
+    which the last tenth are padding parked as ``wslab`` parks it (mass,
+    vel and u 0, h and alpha 1, at the box's low corner), then ghost slots
+    holding seeded copies of real rows' kinematics nudged by 0.1 h, the
+    last third unused (mass and vel 0, at the corner). Returns (local
+    state, (pos, vel, mass) combined, ghost slots, structure)."""
+    st, dom, _, _ = _structure(dim, dtype_name, False)
+    n, h_max = st.n, float(st.h.max())
+    pad = torch.arange(n) >= n - n // 10
+    z = torch.zeros((), dtype=st.pos.dtype)
+    st = st._replace(pos=torch.where(pad[:, None], z, st.pos),
+                     vel=torch.where(pad[:, None], z, st.vel),
+                     mass=torch.where(pad, z, st.mass),
+                     u=torch.where(pad, z, st.u),
+                     h=torch.where(pad, 1.0, st.h),
+                     alpha=torch.where(pad, 1.0, st.alpha))
+    g = torch.Generator().manual_seed(29)
+    nG = 2 * (n // 8)
+    src = torch.randint(0, n - n // 10, (nG,), generator=g)
+    used = torch.arange(nG) < 2 * nG // 3
+    nudge = 0.1 * st.h[src, None] * torch.randn((nG, dim), generator=g,
+                                                dtype=st.pos.dtype)
+    g_pos = torch.where(used[:, None], dom.wrap(st.pos[src] + nudge), z)
+    comb = (torch.cat([st.pos, g_pos]),
+            torch.cat([st.vel, torch.where(used[:, None], st.vel[src], z)]),
+            torch.cat([st.mass, torch.where(used, st.mass[src], z)]))
+    active = torch.cat([st.mass > 0, torch.zeros(nG, dtype=torch.bool)])
+    spec = win.plan_measured(comb[0], dom, h_max=h_max * 1.05,
+                             dim=dim, cutoff_scale=1.25, headroom=1.5)
+    wd = win.build(comb[0], dom, spec, active=active, image=comb[2] > 0)
+    return st, comb, nG, wd
+
+
+@pytest.mark.parametrize("dim,dtype,visc", [
+    (d, t, v) for d in (1, 2, 3) for t in DTYPES for v in VISC])
+def test_gather_a_on_a_shard_equals_the_shards_cols_gather(dim, dtype, visc):
+    """The shard passes' inputs through the field form of ``gather_a``
+    (``wslab._sorted_inputs``) equal the packed cols/fills gather they ran
+    before, bit for bit, on zero-mass local padding, used and unused ghost
+    slots and the build's pad rows; A's window is those inputs' rows."""
+    st, comb, nG, wd = _shard(dim, dtype)
+    cfg = _cfg(dim, visc)
+    n_comb = st.n + nG
+    kinds = [wd.g == n_comb, wd.g < st.n, wd.g >= st.n]
+    mass_sorted = torch.cat([comb[2], comb[2].new_zeros(1)])[
+        torch.clamp_max(wd.g, n_comb)]
+    assert all(bool(k.any()) for k in kinds), "no pad, local or ghost rows"
+    assert bool(((mass_sorted == 0) & (wd.g < st.n)).any()), "no padding"
+    assert bool(((mass_sorted == 0) & kinds[2] & ~kinds[0]).any()), (
+        "no unused ghost slot")
+    win_a, *got = wslab._sorted_inputs(st, comb, wd, nG, cfg)
+    want = _shard_cols_gather(st, comb, wd, nG, cfg)
+    for k, (a, b) in enumerate(zip(got, want)):
+        if b is None:
+            assert a is None
+        else:
+            _same(a, b, f"shard input {k}")
+    _same(win_a, frozen_a_window(want[0], want[2], want[1], True),
+          "A's window")
+
+
 # ---------------------------------------------------------------------------
 # on a card
 # ---------------------------------------------------------------------------
@@ -215,8 +308,8 @@ def test_kernels_equal_their_plain_versions(cuda, dim, dtype, visc):
     st, wd = _on(cuda, st, wd)
     cfg = _cfg(dim, visc)
     n0 = dict(rowpack.LAUNCHES)
-    got_a = rowpack.gather_a(st, wd, cfg)
-    want_a = rowpack.gather_a_plain(st, wd, cfg)
+    got_a = rowpack.gather_a(wd, *_a_inputs(st, cfg))
+    want_a = rowpack.gather_a_plain(wd, *_a_inputs(st, cfg))
     for k, (a, b) in enumerate(zip(got_a, want_a)):
         if b is None:
             assert a is None

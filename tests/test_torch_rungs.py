@@ -2,14 +2,17 @@
 against ``sphax.integrate.rungs`` on the same inputs, float64, on the CPU.
 
 The masked tables equal the reference's exactly; one masked derived pass
-agrees at 1e-10 (jnp path and interpret-mode Pallas); B = 1 equals the
-port's own global-dt loop at 1e-9; a multi-rung Sedov span equals the
-reference's at 1e-9 with equal counters; drift-gated rebuilds change when
-the structure is built, never the pairs (1e-6 against the fixed cadence,
-1e-9 against the reference's gated loop); a compact spec gives the in-place
-trajectory; and the CLI's rung chunk reports and refuses what the JAX CLI
-does. Tolerances are relative, with the same factor of the largest value as
-the absolute floor: sums are taken in another order.
+agrees at 1e-10 (jnp path and interpret-mode Pallas), equals bit for bit
+the composition it ran before it became ``wengine.derived_with`` over its
+closers, and with every particle closing equals ``derived_with``; B = 1
+equals the port's own global-dt loop at 1e-9; a multi-rung Sedov span
+equals the reference's at 1e-9 with equal counters; drift-gated rebuilds
+change when the structure is built, never the pairs (1e-6 against the
+fixed cadence, 1e-9 against the reference's gated loop); a compact spec
+gives the in-place trajectory; and the CLI's rung chunk reports and
+refuses what the JAX CLI does. Tolerances are relative, with the same
+factor of the largest value as the absolute floor: sums are taken in
+another order.
 """
 import dataclasses
 import json
@@ -33,6 +36,7 @@ from sphax_torch import convert, problems
 from sphax_torch.integrate import rungs
 from sphax_torch.neighbors import window as win
 from sphax_torch.physics import wengine
+from sphax_torch.physics.eos import eos
 from tests.test_torch_slice import _close, _jcfg
 
 torch.set_num_threads(1)
@@ -131,6 +135,118 @@ def test_derived_rungs_matches_reference(use_pallas):
     stale = torch.as_tensor(~close)
     assert torch.equal(got.acc[stale], tst.acc[stale])
     assert torch.equal(got.du_dt[stale], tst.du_dt[stale])
+
+
+def _rung_pass_before(state, bf_prev, wd, cfg, domain, spec, close_m):
+    """``rungs._derived_rungs`` as it was before the rung tick's pass became
+    ``wengine.derived_with`` over its closers, frozen: one packed gather of
+    the close flag, the kinematics, u and the stale h, rho, Omega and
+    viscosity factor; the field-taking entries of kernels A and C on the
+    masked structure; the fresh-or-stale select, the owner mirror, the EOS
+    and the unsort written out."""
+    dim = state.dim
+    dtype = state.pos.dtype
+    cols = [close_m.to(dtype)[:, None], state.pos, state.vel,
+            state.mass[:, None], state.u[:, None], state.h[:, None],
+            state.rho[:, None], state.omega[:, None], bf_prev[:, None]]
+    fills = [0.0] + [0.0] * (2 * dim) + [0.0, 0.0, 1.0, 1.0, 1.0, 1.0]
+    if cfg.mm_visc:
+        cols.append(state.alpha[:, None])
+        fills.append(1.0)
+    g_s = win.gather_sorted_cols(torch.cat(cols, dim=-1), wd, fills)
+    act_s = g_s[:, 0] > 0.5
+    wd_act = rungs.mask_structure(wd, spec, act_s)
+    pos_s = g_s[:, 1:1 + dim] + wd.shift_s
+    vel_s = g_s[:, 1 + dim:1 + 2 * dim]
+    c0 = 1 + 2 * dim
+    mass_s, u_s, h_s = g_s[:, c0], g_s[:, c0 + 1], g_s[:, c0 + 2]
+    alpha_s = g_s[:, c0 + 6] if cfg.mm_visc else None
+    h_f, rho_f, om_f, bf_f, divv_f = wengine.stage_density(
+        wd_act, spec, cfg, pos_s, vel_s, mass_s, u_s, h_s, alpha_s=alpha_s)
+    fresh = torch.stack([h_f, rho_f, om_f, bf_f], dim=-1)
+    stale = g_s[:, c0 + 2:c0 + 6]
+    mirrored = torch.where(act_s[:, None], fresh, stale)[wd.src]
+    h_c, rho_c, om_c, bf_c = mirrored.unbind(-1)
+    P_c, cs_c = eos(rho_c, u_s, cfg)
+    acc_s, du_s = wengine.stage_forces(
+        wd_act, spec, cfg, pos_s, vel_s, mass_s, h_c, rho_c, P_c, cs_c,
+        om_c, bf_c)
+    out = torch.stack([h_c, rho_c, P_c, cs_c, om_c, du_s, divv_f, bf_c]
+                      + list(acc_s.unbind(-1)), dim=-1)[wd.inv]
+    acc = torch.where(close_m[:, None], out[:, 8:8 + dim], state.acc)
+    return state._replace(
+        h=out[:, 0], rho=out[:, 1], P=out[:, 2], cs=out[:, 3],
+        omega=out[:, 4],
+        du_dt=torch.where(close_m, out[:, 5], state.du_dt),
+        divv=torch.where(close_m, out[:, 6], state.divv),
+        acc=acc), out[:, 7]
+
+
+def _rung_pass_inputs(problem, dtype, h_predict=False):
+    """The port's own set-up of one rung pass, on the CPU: the CLI's Sedov
+    (10^3, grad-h, Balsara) or 2D Kelvin-Helmholtz (n=16) ICs with a seeded
+    velocity, one cold derived pass, then a seeded drift of 0.05 h so
+    that the stale fields are not the fresh ones; the structure built on
+    the drifted positions, a seeded 30 % close mask and a seeded stale
+    viscosity factor. Returns (state, domain, spec, wd, cfg, close_m,
+    bf_prev)."""
+    prob = (problems.sedov(n=10, dtype=dtype, device="cpu")
+            if problem == "sedov"
+            else problems.kh(n=16, dtype=dtype, device="cpu"))
+    st, dom, cfg = prob.state, prob.domain, prob.cfg
+    gen = torch.Generator().manual_seed(5)
+    st = st._replace(vel=0.1 * torch.randn(st.vel.shape, generator=gen,
+                                           dtype=dtype))
+    _, spec = problems._window_engine(st, cfg, dom, h_margin=1.5)
+    st = wengine.update_derived(st, cfg, dom, spec)
+    st = st._replace(pos=dom.wrap(st.pos + 0.05 * st.h[:, None] * torch.randn(
+        st.pos.shape, generator=gen, dtype=dtype)))
+    if h_predict:
+        cfg = dataclasses.replace(cfg, newton_iters=1, h_predict=True)
+    close = torch.rand(st.n, generator=gen) < 0.3
+    bf_prev = torch.rand(st.n, generator=gen, dtype=dtype)
+    return (st, dom, spec, win.build(st.pos, dom, spec), cfg, close,
+            bf_prev)
+
+
+DERIVED = ("h", "rho", "P", "cs", "omega", "acc", "du_dt", "divv")
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("h_predict", [False, True])
+@pytest.mark.parametrize("problem", ["sedov", "kh"])
+def test_derived_rungs_equals_the_composition_it_replaced(problem, h_predict,
+                                                          dtype):
+    """The rung tick's pass, now ``wengine.derived_with`` over its closers
+    and packing through ``rowpack``, gives the frozen composition's every
+    output bit for bit: the EOS of the owner's row equals the EOS of the
+    mirrored row on every real and ghost row."""
+    st, dom, spec, wd, cfg, close, bf_prev = _rung_pass_inputs(
+        problem, dtype, h_predict)
+    assert 0 < int(close.sum()) < st.n
+    got, bf_got = rungs._derived_rungs(st, bf_prev, wd, cfg, dom, spec,
+                                       close)
+    want, bf_want = _rung_pass_before(st, bf_prev, wd, cfg, dom, spec, close)
+    for f in DERIVED:
+        a, b = getattr(got, f), getattr(want, f)
+        assert torch.equal(a, b), (f, int((a != b).sum()))
+    assert torch.equal(bf_got, bf_want)
+    assert not torch.equal(got.rho[close], st.rho[close])
+    assert torch.equal(got.acc[~close], st.acc[~close])
+
+
+@pytest.mark.parametrize("problem", ["sedov", "kh"])
+def test_derived_rungs_with_every_row_closing_is_derived_with(problem):
+    """With every particle closing the rung tick's pass is the global
+    step's, bit for bit."""
+    st, dom, spec, wd, cfg, _, bf_prev = _rung_pass_inputs(problem,
+                                                           torch.float64)
+    every = torch.ones(st.n, dtype=torch.bool)
+    got, _ = rungs._derived_rungs(st, bf_prev, wd, cfg, dom, spec, every)
+    want = wengine.derived_with(st, wd, cfg, dom, spec)
+    for f in DERIVED:
+        a, b = getattr(got, f), getattr(want, f)
+        assert torch.equal(a, b), (f, int((a != b).sum()))
 
 
 @pytest.mark.parametrize("h_predict", [False, True])
