@@ -143,10 +143,11 @@ Phases, in order; any failed check raises and exits non-zero:
                place and compact: the candidate rows, the survivors of the
                warp's cull (``window_kernels.cull_stats``, the kernels' rule
                as plain torch) and the pairs inside the support; at the
-               turb256, sedov128 and kh1024 shapes kernel A's two walks
-               (``window_kernels.walk_stats``): the steps a warp and the
-               lane fill of the walk in which every lane visits every
-               survivor and of the pair walk. Then
+               turb256, sedov128 and kh1024 shapes kernel A's and kernel
+               C's two walks (``window_kernels.walk_stats`` at each
+               kernel's rule and batch): the steps a warp and the lane
+               fill of the walk in which every lane visits every survivor
+               and of the pair walk. Then
                kernels A (cold, 2 Newton updates) and C against plain, fp32
                3e-5 and fp64 1e-10, in place and compact, on a clustered
                state (half of 65,536 particles drawn toward 4 centres, h
@@ -4197,14 +4198,14 @@ def rowpack_bytes(dim, n, Ns, size, alpha=False, bf=True):
 
 
 def walk_fill(dev, every=8):
-    """Phase 27's kernel A walks at the benchmark cells' shapes (turb256,
-    sedov128 and kh1024, each problem's set-up state): per real row the
-    candidates, survivors and pairs inside the support, and the steps a
-    warp and the lane fill of the walk in which every lane visits every
-    survivor and of the pair walk (``window_kernels.walk_stats``: the
-    plain rule on every ``every``-th row-group with candidates, at the
-    fp32 batch of a Newton walk and of the final walk with the Balsara
-    sums). Returns its record."""
+    """Phase 27's kernel A and C walks at the benchmark cells' shapes
+    (turb256, sedov128 and kh1024, each problem's set-up state): per real
+    row the candidates, survivors and pairs inside the support, and the
+    steps a warp and the lane fill of the walk in which every lane visits
+    every survivor and of the pair walk (``window_kernels.walk_stats``:
+    the plain rule on every ``every``-th row-group with candidates, at the
+    fp32 batch of A's Newton walk and of its final walk with the Balsara
+    sums, and at C's rule and batch). Returns its record."""
     from sphax_torch import problems
     from sphax_torch.neighbors import window as win
     from sphax_torch.physics import window_kernels as wk
@@ -4224,6 +4225,9 @@ def walk_fill(dev, every=8):
         r = {walk: wk.walk_stats(wd, prob.wspec, wd.pos_s, mass_s, h_s,
                                  wk.pair_cap(torch.float32, rest), every)
              for walk, rest in (("newton", False), ("final", True))}
+        r["forces"] = wk.walk_stats(wd, prob.wspec, wd.pos_s, mass_s, h_s,
+                                    wk.force_cap(torch.float32), every,
+                                    pair_h=True, step=wk.FORCE_STEP)
         n, f = r["newton"], r["final"]
         log(f"[27 walks] {cell} (every {every}th row-group, "
             f"{time.perf_counter() - t0:.1f} s): per real row "
@@ -4236,6 +4240,14 @@ def walk_fill(dev, every=8):
             f" steps, fill {f['fill_pairs']:.3f} (batch "
             f"{wk.pair_cap(torch.float32, True)}, the final walk)")
         assert 0 < n["fill_warp"] <= n["fill_pairs"] <= 1.0, n
+        c = r["forces"]
+        log(f"[27 walks] {cell} kernel C: per real row {c['survivors']:.1f} "
+            f"survivors, {c['pairs']:.2f} pairs inside 2 max(h_i, h_j); "
+            f"every lane over every survivor: {c['steps_warp']:.1f} steps a "
+            f"warp, fill {c['fill_warp']:.3f}; the pair walk: "
+            f"{c['steps_pairs']:.1f} steps, fill {c['fill_pairs']:.3f} "
+            f"(batch {wk.force_cap(torch.float32)})")
+        assert 0 < c["fill_warp"] <= c["fill_pairs"] <= 1.0, c
         rec[cell] = r
         del prob, st, wd, mass_s, h_s
     return rec

@@ -25,8 +25,9 @@ The versions take turns in the order this, other, other, this, for ROUNDS
 rounds (default 3); each time is CUDA events over 10 launches (2 for G at
 N = 1e6, 5 for G in fp64). Prints what ptxas reports for both builds, the
 kernels present in both whose registers differ, what ``torch.profiler``
-records for one launch of A, C and G (at N = 4,096, 20,000 and 64^3) from
-this tree (the kernel's name and device time) beside what the CUDA runtime
+records for one launch of A and C (at the bench shapes, A and C at
+turb256's, C at sedov128's and in 2D) and G (at N = 4,096, 20,000 and 64^3)
+from this tree (the kernel's name and device time) beside what the CUDA runtime
 reports of that very launch (``sphax_last_launch``,
 ``sphax_gravity_last_launch``: registers, shared and local memory, and the
 blocks a SM holds at once). For G it also times this tree's kernel under
@@ -402,8 +403,10 @@ def last_launch(lib, entry="sphax_last_launch") -> dict:
             "warps_per_sm": blocks * threads // 32}
 
 
-def profile(cases, lib, names=("A h_predict", "C fast_math", "G fp32 N=4096",
-                                "G fp32 N=20000", "G fp32 N=262144")) -> dict:
+def profile(cases, lib, names=("A h_predict", "C fast_math", "A turb256",
+                                "C turb256", "C sedov128", "C2 exact",
+                                "G fp32 N=4096", "G fp32 N=20000",
+                                "G fp32 N=262144")) -> dict:
     """One profiled launch of each of ``names``: the CUDA kernels' names
     and device microseconds from ``torch.profiler`` (G: its main kernel and,
     with slices, the reduction), and ``last_launch`` of it."""

@@ -39,18 +39,24 @@
 // warp-uniform loads, up to eight dedup compares, r^2 and a reciprocal
 // square root, 32 lanes wide, for a row that 97 % of the time then fails
 // the support test. The cull below keeps 437 rows per row at the
-// turb256 shapes (102 in 2D at kh1024, 37 in 1D). In kernel C every lane
-// then walks every survivor, and the pair arithmetic runs for the whole
+// turb256 shapes (102 in 2D at kh1024, 37 in 1D). A walk in which every
+// lane then visits every survivor runs the pair arithmetic for the whole
 // warp whenever one of its 32 rows takes the survivor: 356 times a warp a
 // walk at turb256 for 81 pairs a row, 0.23 of the lanes busy
-// (`window_kernels.walk_stats`); kernel A walked so too. Kernel A's pair
-// walk runs it 124 times in a Newton walk and 158 in the final one
-// (fill 0.65 and 0.51), and what binds A now is the test of every (row,
+// (`window_kernels.walk_stats`). Both kernels walk pairs instead (step 3):
+// kernel A runs the arithmetic 124 times in a Newton walk and 158 in the
+// final one (fill 0.65 and 0.51), kernel C 157 times (fill 0.51, at C's
+// rule r < 2 max(h_i, h_j)). What binds A now is the test of every (row,
 // survivor) pair and the cull, whose global loads wait unless 32 warps a
 // SM hide them (kernel A 51.0 -> 43.0 ms at turb256, 16.4 -> 13.5 at
 // sedov128, 2.49 -> 1.67 at kh1024, 0.253 -> 0.180 on the 1D line of 2^20,
 // in turns on one H100 at 700 W; culled alone, without a walk, A took
-// 15.6 ms at turb256).
+// 15.6 ms at turb256). What binds C now is the same test and cull, and its
+// pairs' reads of j's further fields, which go through L1: a batch that
+// leaves a SM less L1 is slower (below). Kernel C 48.0 -> 35.8 ms at
+// turb256, 6.84 -> 5.06 at sedov128, 1.11 -> 0.62 at kh1024, 0.35 -> 0.28
+// on the 1D line, the GRAV mode unchanged (6.79 at the P3M shapes; all in
+// turns on one H100 at 700 W, `ab_kernels`).
 //
 // What the design does about it: each warp culls its candidates
 // cooperatively, then walks only the survivors.
@@ -69,32 +75,47 @@
 //   2. Stage. Survivors go to the warp's own buffer in shared memory, in
 //      candidate order (__ballot_sync and a prefix __popc): one 16-byte
 //      entry (32 in fp64) with what the exact test needs, (x, y, z, m) for
-//      A and (x, y, z, 1/h_j) for C, and beside it the fields that only a
-//      passing pair reads, as further 16-byte vectors: the velocity for
-//      A's Balsara sums (staged for the last walk only), velocity, m, h,
-//      rho, cs, ci, gc1, gc2 and bf for C (three vectors). A lane reads
-//      them for its own kept candidate, so these loads are coalesced too.
-//      C's buffer holds CAP entries (96 in fp32, 48 in fp64: 6 KB a
-//      warp), A's PairCap (320, 192 in the final walk); when another step
-//      might not fit, the warp walks what it has and goes on culling, so
-//      no input can overflow it and nothing is dropped.
-//   3. Walk, kernel C. Every lane reads each entry as one broadcast 16-byte
-//      shared load and tests r^2 against its support before any
-//      reciprocal square root; a passing pair reads its further vectors
-//      the same way (with the j-fields read from global memory by row
-//      index instead, kernel C spent a third of its pair arithmetic on
-//      addresses and loads: 2.60 against 1.90 ms at the bench shapes).
-//   3. Walk, kernel A (the pair walk, `test_and_walk`). Each lane first
-//      tests its own row against every staged survivor, one broadcast load
-//      each, and keeps a bit a survivor; then each lane walks only the
-//      survivors its row took, PAIR_STEP a step, so the pair arithmetic
-//      runs where a row has a pair and not where any of 32 has one. Its
-//      pair is straight-line code: a pair outside the support adds exact
-//      zeros. No sum crosses lanes, and the candidate order is kept, so
-//      each row's sums are taken in the order they were, bit for bit the
-//      walk of every lane over every survivor (drdh's 3 w + q dw/dq is the
-//      fused multiply-add that walk compiled to). The pair walk measured
-//      faster in every dimension, so every kernel A takes it.
+//      A and (x, y, z, 1/h_j) for C, and beside it what else the walk
+//      reads of it: the velocity for A's Balsara sums (staged for the last
+//      walk only) as a further 16-byte vector; the row index for C's pair
+//      walk; velocity, m, h, rho, cs, ci, gc1, gc2 and bf for C's GRAV
+//      walk (three vectors). A lane stages its own kept candidate, so
+//      these loads are coalesced too. The buffers hold A's PairCap (320
+//      in fp32, 192 in the final walk), C's ForceCap (192: 4.5 KB a warp)
+//      and GravCap (96: 6 KB a warp) survivors; when another step might
+//      not fit, the warp walks what it has and goes on culling, so no
+//      input can overflow it and nothing is dropped.
+//   3. Walk (the pair walk, `test_and_walk`: kernel A, and kernel C
+//      outside GRAV). Each lane first tests its own row against every
+//      staged survivor, one broadcast load each, and keeps a bit a
+//      survivor (C's test: r^2 / h_i^2 or r^2 / h_j^2 against the margin);
+//      then each lane walks only the survivors its row took, PAIR_STEP
+//      (A) or FORCE_STEP (C) a step, so the pair arithmetic runs where a
+//      row has a pair and not where any of 32 has one. Its pair is
+//      straight-line code: a pair outside the support adds exact zeros.
+//      No sum crosses lanes, and the candidate order is kept, so each
+//      row's sums are taken in the order they were, bit for bit the walk
+//      of every lane over every survivor (drdh's 3 w + q dw/dq is the
+//      fused multiply-add that walk compiled to). C's pair reads j's
+//      further fields from the window by row index: staged beside the
+//      entry, a lane's own slot costs four 16-byte shared loads a pair
+//      that conflict in their banks. In turns at turb256, against the
+//      walk of every lane over every survivor (48.0 ms): three vectors
+//      staged, 96 survivors at 32 warps a SM 37.4 ms, 128 at 24 warps
+//      38.0, 192 at 16 warps 44.5; row index staged, 160 survivors 36.6,
+//      192 35.6, 224 34.4, 256 37.3 (and at the bench shapes with
+//      fast_math 1.65 at 192, 1.92 at 224, 2.28 at 256 against 1.69:
+//      each step of batch leaves less of the SM's memory to L1); two
+//      pairs a step spill at 64 registers (42.1 ms); without the cap of
+//      64 registers C takes 65 and 28 warps a SM fit (37.6 ms at 192).
+//   3. Walk, kernel C's GRAV mode (`every_lane_walk`). Every lane reads
+//      each entry as one broadcast 16-byte shared load and tests r^2
+//      against its support and the cutoff before any reciprocal square
+//      root; a passing pair reads its further vectors the same way. There
+//      nearly every survivor lies within the cutoff of every row, so the
+//      pair walk's test and its lanes' own loads buy nothing: with it C
+//      took 10.0 ms at the P3M shapes (9.5 with the vectors staged)
+//      against 6.77, and the GRAV instantiations keep this walk.
 //   4. Kernel A culls afresh before each of its Newton walks with the
 //      warp's current h_max: h moves by up to half an update, and a list
 //      made for one h is no superset for the next.
@@ -132,14 +153,6 @@ constexpr unsigned FULL = 0xffffffffu;
 __host__ __device__ constexpr int nseg(int dim) {
   return dim <= 1 ? 1 : 3 * nseg(dim - 1);
 }
-
-// Survivors a warp of kernel C stages before a walk: 96 in fp32 and 48 in
-// fp64 (1.5 KB a staged vector); 128 and its 1 + 3 vectors a survivor would
-// leave a SM room for 24 warps where C's registers allow 32 (6 KB a warp
-// instead of 8; measured 5 % faster at the bench shapes). Kernel A's pair
-// walk stages its own batches (`PairCap`).
-template <typename T>
-constexpr int CAP = 384 / int(sizeof(T));
 
 template <typename T> struct Num;
 
@@ -338,27 +351,17 @@ struct Entry {
   T w;
 };
 
-// The warp's slice of the block's dynamic shared memory: CAP entries, one
-// vector each, and NV more vectors an entry with the fields that only a
-// passing pair reads (rest[slot * NV + v]).
-template <typename T, int NV>
-struct Stage {
-  Vec4<T>* ent;
-  Vec4<T>* rest;
-};
-
-template <typename T, int NV>
-__device__ __forceinline__ Stage<T, NV> warp_stage() {
+// The warp's slice of the block's dynamic shared memory, `bytes` a warp:
+// its staged entries, then their further vectors, then the mask words of
+// its pair walk.
+template <typename T>
+__device__ __forceinline__ Vec4<T>* warp_stage(size_t bytes) {
   extern __shared__ __align__(16) unsigned char stage_raw[];
-  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  Vec4<T>* base = reinterpret_cast<Vec4<T>*>(stage_raw);
-  return {base + warp * CAP<T>,
-          base + nwarps * CAP<T> + warp * (CAP<T> * NV)};
+  return reinterpret_cast<Vec4<T>*>(stage_raw + (threadIdx.x >> 5) * bytes);
 }
 
-template <typename T, int NV>
-size_t stage_bytes(int tile) {
-  return size_t(tile / 32) * CAP<T> * (1 + NV) * sizeof(Vec4<T>);
+inline size_t stage_bytes(int tile, size_t bytes) {
+  return size_t(tile / 32) * bytes;
 }
 
 // Survivors a warp of kernel A's pair walk stages before a walk. A lane
@@ -385,34 +388,48 @@ struct PairCap {
                                       : with_rest * (2 * sizeof(Vec4<T>) + 4);
 };
 
-// The warp's slice of the block's dynamic shared memory in the pair walk.
+// Survivors a warp of kernel C's pair walk stages before a walk, and the
+// pairs a lane walks a step. A survivor takes its entry, its row index and
+// one bit a row (4 bytes a slot of `mask`): 24 bytes in fp32, 192
+// survivors (4,608 bytes a warp); 128 in fp64, which no bench path runs.
+// At 32 warps a SM (C's pair-walk kernels are held to 64 registers, as
+// A's) that leaves the SM's unified memory about 92 KB of L1 for the
+// pairs' reads of j's fields by row index, against about 28 KB at 256
+// survivors; the head note gives the batches measured.
 template <typename T>
-__device__ __forceinline__ Vec4<T>* warp_pair_stage() {
-  extern __shared__ __align__(16) unsigned char stage_raw[];
-  return reinterpret_cast<Vec4<T>*>(stage_raw +
-                                    (threadIdx.x >> 5) * PairCap<T>::bytes);
-}
+struct ForceCap {
+  static constexpr int n = sizeof(T) == 4 ? 192 : 128;
+  static constexpr size_t bytes = n * (sizeof(Vec4<T>) + 8);
+};
+constexpr int FORCE_STEP = 1;
 
+// Survivors a warp of kernel C's GRAV mode stages before its walk, in which
+// every lane visits every survivor: the entry and the three vectors of its
+// further fields, 96 in fp32 and 48 in fp64 (6 KB a warp).
 template <typename T>
-size_t pair_stage_bytes(int tile) {
-  return size_t(tile / 32) * PairCap<T>::bytes;
-}
+struct GravCap {
+  static constexpr int n = 384 / int(sizeof(T));
+  static constexpr size_t bytes = n * 4 * sizeof(Vec4<T>);
+};
+
+// Kernel C's staging: its GRAV walk's or its pair walk's.
+template <typename T, bool GRAV>
+using ForceStage = std::conditional_t<GRAV, GravCap<T>, ForceCap<T>>;
 
 // One walk of a warp over its candidates. `entry(k, e)` reads candidate
-// row k's entry, `near(e, k)` says whether the warp keeps it, `fill(k, r)`
-// reads a kept candidate's NV further vectors (staged only `with_rest`, at
-// rest[slot * NV + v]), and `walk(n)` walks the n entries staged at `ent`.
-// The lanes cull 32 candidates a step and append the survivors in
-// candidate order; whenever another step might not fit in `cap` entries,
-// the warp walks what it staged and goes on. All control flow here is
-// warp-uniform; `walk` may diverge inside.
-template <typename T, int NSEG, int NV, typename Read, typename Near,
-          typename Fill, typename Walk>
+// row k's entry, `near(e, k)` says whether the warp keeps it, `stage(k,
+// slot)` stages what else the walk reads of a kept candidate, and
+// `walk(n)` walks the n entries staged at `ent`. The lanes cull 32
+// candidates a step and append the survivors in candidate order; whenever
+// another step might not fit in `cap` entries, the warp walks what it
+// staged and goes on. All control flow here is warp-uniform; `walk` may
+// diverge inside.
+template <typename T, int NSEG, typename Read, typename Near, typename Stage,
+          typename Walk>
 __device__ __forceinline__ void cull_and_stage(const Ranges& rg, int lane,
-                                               Vec4<T>* ent, Vec4<T>* rest,
-                                               int cap, bool with_rest,
+                                               Vec4<T>* ent, int cap,
                                                Read&& entry, Near&& near,
-                                               Fill&& fill, Walk&& walk) {
+                                               Stage&& stage, Walk&& walk) {
   int s = 0;
   int k0 = __shfl_sync(FULL, rg.lo, 0);
   int kend = __shfl_sync(FULL, rg.hi, 0);
@@ -436,15 +453,7 @@ __device__ __forceinline__ void cull_and_stage(const Ranges& rg, int lane,
       if (keep) {
         const int slot = n + __popc(kept & ((1u << lane) - 1u));
         store_vec(ent + slot, Vec4<T>{e.p[0], e.p[1], e.p[2], e.w});
-        if constexpr (NV > 0) {
-          if (with_rest) {
-            Vec4<T> r[NV];
-            fill(k, r);
-#pragma unroll
-            for (int v = 0; v < NV; ++v)
-              store_vec(rest + slot * NV + v, r[v]);
-          }
-        }
+        stage(k, slot);
       }
       n += __popc(kept);
       k0 += 32;
@@ -456,51 +465,34 @@ __device__ __forceinline__ void cull_and_stage(const Ranges& rg, int lane,
   }
 }
 
-// The walk in which every lane visits every staged survivor, in slot
-// order: `pair(e, slot)` is one lane's work on one survivor.
-template <typename T, int NSEG, int NV, typename Read, typename Near,
-          typename Fill, typename Pair>
-__device__ __forceinline__ void cull_and_walk(const Ranges& rg, int lane,
-                                              const Stage<T, NV>& stage,
-                                              bool with_rest, Read&& entry,
-                                              Near&& near, Fill&& fill,
-                                              Pair&& pair) {
-  cull_and_stage<T, NSEG, NV>(
-      rg, lane, stage.ent, stage.rest, CAP<T>, with_rest, entry, near,
-      fill, [&](int n) {
-        for (int slot = 0; slot < n; ++slot) {
-          const Vec4<T> v = load_vec(stage.ent + slot);
-          pair(Entry<T>{{v.a, v.b, v.c}, v.d}, slot);
-        }
-      });
-}
-
 // The pairs a lane of kernel A's pair walk takes a step.
 constexpr int PAIR_STEP = 2;
 
-// Kernel A's pair walk over a staged batch of n survivors at `ent`.
+// The pair walk of kernels A and C over a staged batch of n survivors at
+// `ent`.
 // 1. Test: each lane applies its own row's first test, `takes(c)`, to
 //    every staged survivor, one broadcast 16-byte load each, and keeps one
 //    bit a survivor in its own words of `mask` (mask[32 w + lane], bit b
-//    for slot 32 w + b). Entries that no row takes pad the last word, so
-//    the test runs 32 slots at a time with no bounds. A lane whose row
-//    carries no mass takes nothing.
+//    for slot 32 w + b). Sentinel entries, far from every row and with
+//    the largest 1/h_j, pad the last word, so the test runs 32 slots at a
+//    time with no bounds and no row takes them. A lane whose row carries
+//    no mass takes nothing.
 // 2. Walk: each lane walks the set bits of its own words in slot order,
-//    PAIR_STEP a step, so every step gives every lane that still has pairs
+//    STEP a step, so every step gives every lane that still has pairs
 //    that many that passed the test: `pair(e, slot, live)` on each, with
 //    `live` false (and slot 0's entry) where the lane has no pair left.
 //    The steps of a batch are the most pairs any of its rows takes, over
-//    PAIR_STEP, rounded up.
+//    STEP, rounded up.
 // A lane sums its own row's pairs in candidate order, as the walk in which
 // every lane visits every survivor does: no reduction across lanes.
-template <typename T, typename Takes, typename Pair>
+template <int STEP, typename T, typename Takes, typename Pair>
 __device__ __forceinline__ void test_and_walk(int n, int lane, Vec4<T>* ent,
                                               unsigned* mask, bool mine,
                                               Takes&& takes, Pair&& pair) {
   const int words = (n + 31) >> 5;
   if (n + lane < 32 * words)
-    store_vec(ent + n + lane,
-              Vec4<T>{Num<T>::big, Num<T>::big, Num<T>::big, T(0)});
+    store_vec(ent + n + lane, Vec4<T>{Num<T>::big, Num<T>::big,
+                                      Num<T>::big, Num<T>::big});
   __syncwarp();
   for (int w = 0; w < words; ++w) {
     unsigned bits = 0;
@@ -524,18 +516,29 @@ __device__ __forceinline__ void test_and_walk(int n, int lane, Vec4<T>* ent,
     return slot;
   };
   for (;;) {
-    int slot[PAIR_STEP];
+    int slot[STEP];
     slot[0] = next();
     if (!__any_sync(FULL, slot[0] >= 0)) break;
-    each_axis(Axes<PAIR_STEP - 1>{}, [&](int j) { slot[j + 1] = next(); });
-    Vec4<T> v[PAIR_STEP];
-    each_axis(Axes<PAIR_STEP>{}, [&](int j) {
+    each_axis(Axes<STEP - 1>{}, [&](int j) { slot[j + 1] = next(); });
+    Vec4<T> v[STEP];
+    each_axis(Axes<STEP>{}, [&](int j) {
       v[j] = load_vec(ent + (slot[j] < 0 ? 0 : slot[j]));
     });
-    each_axis(Axes<PAIR_STEP>{}, [&](int j) {
+    each_axis(Axes<STEP>{}, [&](int j) {
       pair(Entry<T>{{v[j].a, v[j].b, v[j].c}, v[j].d},
            slot[j] < 0 ? 0 : slot[j], slot[j] >= 0);
     });
+  }
+}
+
+// The walk in which every lane visits every staged survivor, in slot
+// order: `pair(e, slot)` is one lane's work on one survivor.
+template <typename T, typename Pair>
+__device__ __forceinline__ void every_lane_walk(int n, const Vec4<T>* ent,
+                                                Pair&& pair) {
+  for (int slot = 0; slot < n; ++slot) {
+    const Vec4<T> v = load_vec(ent + slot);
+    pair(Entry<T>{{v.a, v.b, v.c}, v.d}, slot);
   }
 }
 
@@ -615,7 +618,7 @@ __device__ __forceinline__ void solve_h_density_row(
   const T m_safe = mi > T(1e-30) ? mi : T(1e-30);
   const bool has_mass = mi > T(0);
   const Box<T, DIM> box = Box<T, DIM>::of(xi, has_mass);
-  Vec4<T>* const ent = warp_pair_stage<T>();
+  Vec4<T>* const ent = warp_stage<T>(PairCap<T>::bytes);
   auto velocity = [&](int k) {
     T v[3] = {T(0), T(0), T(0)};
     each_axis(Axes<DIM>{}, [&](int d) { v[d] = V[d][k]; });
@@ -643,7 +646,6 @@ __device__ __forceinline__ void solve_h_density_row(
     auto near = [&](const Entry<T>& e, int) {
       return e.w > T(0) && box.gap2(e.p) < reach2;
     };
-    auto fill = [&](int k, Vec4<T> (&r)[1]) { r[0] = velocity(k); };
     // the walk's first test: r^2 / h^2 against the support's margin
     auto takes = [&](const Entry<T>& c) {
       T dx[DIM];
@@ -688,13 +690,18 @@ __device__ __forceinline__ void solve_h_density_row(
       }
     };
     auto walk = [&](auto rest_c) {
-      cull_and_stage<T, NSEG, 1>(
-          rg, lane, ent, rest, cap, decltype(rest_c)::value, entry, near,
-          fill, [&](int n) {
-            test_and_walk<T>(n, lane, ent, mask, has_mass, takes,
-                             [&](const Entry<T>& c, int slot, bool live) {
-                               pair(c, slot, live, rest_c);
-                             });
+      cull_and_stage<T, NSEG>(
+          rg, lane, ent, cap, entry, near,
+          [&](int k, int slot) {
+            if constexpr (decltype(rest_c)::value)
+              store_vec(rest + slot, velocity(k));
+          },
+          [&](int n) {
+            test_and_walk<PAIR_STEP, T>(
+                n, lane, ent, mask, has_mass, takes,
+                [&](const Entry<T>& c, int slot, bool live) {
+                  pair(c, slot, live, rest_c);
+                });
           });
     };
     if (with_rest)
@@ -807,7 +814,7 @@ __device__ __forceinline__ T grav_coef(T r2, T r, const Grav<T>& g) {
 // One sorted row of kernel C; the tables as in solve_h_density_row. A pair
 // counts when r < 2 h_i or r < 2 h_j (or, GRAV, 0 < r <= cutoff), so the
 // cull keeps candidate j within 2 max(h_max, h_j) of the warp's box (at
-// least the cutoff, GRAV), and stages 1/h_j for the walk's first test.
+// least the cutoff, GRAV), and stages 1/h_j for the pair walk's first test.
 template <typename T, int DIM, bool BF, bool FAST, bool GRAV, bool COMPACT>
 __device__ __forceinline__ void forces_row(
     const T* __restrict__ win, const int* __restrict__ tab_lo,
@@ -844,7 +851,13 @@ __device__ __forceinline__ void forces_row(
     }
     const T invh2 = o.invh * o.invh;
     constexpr int NV = 3;  // DIM + 8 <= 12 further fields of a candidate
-    const Stage<T, NV> stage = warp_stage<T, NV>();
+    constexpr int cap = ForceStage<T, GRAV>::n;
+    Vec4<T>* const ent = warp_stage<T>(ForceStage<T, GRAV>::bytes);
+    // the pair walk stages each survivor's row index, and its lanes' mask
+    // words; the GRAV walk its further fields
+    int* const row = reinterpret_cast<int*>(ent + cap);
+    unsigned* const mask = reinterpret_cast<unsigned*>(row + cap);
+    Vec4<T>* const rest = ent + cap;
     // vector v of candidate row k's further fields, from the SoA rows
     auto gather = [&](int k, int v) {
       T t[4];
@@ -854,41 +867,29 @@ __device__ __forceinline__ void forces_row(
       });
       return Vec4<T>{t[0], t[1], t[2], t[3]};
     };
-    // the same of the survivor staged at `slot`
-    auto rest = [&](int slot, int v) {
-      return load_vec(stage.rest + slot * NV + v);
-    };
     auto entry = [&](int k, Entry<T>& e) {
       each_axis(Axes<DIM>{}, [&](int d) { e.p[d] = F(R::X + d, k); });
       e.w = F(R::INVH, k);
     };
-    auto pair = [&](const Entry<T>& c, int slot) {
+    // the walk's first test: r^2 / h_i^2 or r^2 / h_j^2 against the
+    // support's margin, or (GRAV) r^2 inside the cutoff
+    auto takes = [&](const Entry<T>& c) {
       T dx[DIM];
       each_axis(Axes<DIM>{}, [&](int d) { dx[d] = o.x[d] - c.p[d]; });
       const T r2 = dot(dx, dx);
-      const T invhj = c.w;
-      if (r2 * invh2 >= Margin<T>::support2 &&
-          r2 * invhj * invhj >= Margin<T>::support2 &&
-          !(GRAV && r2 <= g.rcut2))
-        return;
-      const T invr = Num<T>::rsqrt(r2 + Num<T>::tiny);
-      const T r = r2 * invr;
-      const T gco = GRAV ? grav_coef(r2, r, g) : T(0);
-      const T qi = r * o.invh;
-      const T qj = r * invhj;
-      if (qi >= T(2) && qj >= T(2)) {  // both gradients vanish
-        if (GRAV) {
-          // m_j: further field DIM of j, and GRAV is 3D
-          const T fcoef = rest(slot, 0).d * gco;
-          each_axis(Axes<DIM>{}, [&](int d) { acc.a[d] -= fcoef * dx[d]; });
-        }
-        return;
-      }
-      const Vec4<T> j0 = rest(slot, 0), j1 = rest(slot, 1),
-                    j2 = rest(slot, 2);
-      const T j[12] = {j0.a, j0.b, j0.c, j0.d, j1.a, j1.b,
-                       j1.c, j1.d, j2.a, j2.b, j2.c, j2.d};
-      const T mj = j[DIM], hj = j[DIM + 1], rhoj = j[DIM + 2],
+      bool in = r2 * invh2 < Margin<T>::support2 ||
+                r2 * c.w * c.w < Margin<T>::support2;
+      if (GRAV) in = in || r2 <= g.rcut2;
+      return in;
+    };
+    // The SPH terms of one pair (with GRAV, plus its gravity gco), j's
+    // further fields in `jv`; `on` false takes m_j = 0 and adds exact
+    // zeros, which leaves the sums as they were.
+    auto terms = [&](const T (&dx)[DIM], T r2, T invr, T qi, T qj, T gco,
+                     const Vec4<T> (&jv)[NV], bool on) {
+      const T j[12] = {jv[0].a, jv[0].b, jv[0].c, jv[0].d, jv[1].a, jv[1].b,
+                       jv[1].c, jv[1].d, jv[2].a, jv[2].b, jv[2].c, jv[2].d};
+      const T mj = on ? j[DIM] : T(0), hj = j[DIM + 1], rhoj = j[DIM + 2],
               csj = j[DIM + 3], cij = j[DIM + 4], gc1j = j[DIM + 5],
               gc2j = j[DIM + 6], bfj = j[DIM + 7];
       const T ti = T(2) - qi, tj = T(2) - qj;
@@ -921,13 +922,54 @@ __device__ __forceinline__ void forces_row(
       each_axis(Axes<DIM>{}, [&](int d) { acc.a[d] -= fcoef * dx[d]; });
       acc.du += mj * (cigi + T(0.5) * pigb) * vdotr;
     };
+    // One pair of the pair walk, in straight-line code: j's further fields
+    // from the window by row index, and m_j = 0 where the pair is not live
+    // (the lane has none left) or lies outside both supports (q_i >= 2 and
+    // q_j >= 2).
+    auto pair = [&](const Entry<T>& c, int slot, bool live) {
+      T dx[DIM];
+      each_axis(Axes<DIM>{}, [&](int d) { dx[d] = o.x[d] - c.p[d]; });
+      const T r2 = dot(dx, dx);
+      const T invr = Num<T>::rsqrt(r2 + Num<T>::tiny);
+      const T r = r2 * invr;
+      const T qi = r * o.invh;
+      const T qj = r * c.w;
+      Vec4<T> jv[NV];
+      each_axis(Axes<NV>{}, [&](int v) { jv[v] = gather(row[slot], v); });
+      terms(dx, r2, invr, qi, qj, T(0), jv, live && (qi < T(2) || qj < T(2)));
+    };
+    // One pair of the GRAV walk, in which every lane visits every survivor:
+    // a lane whose row does not take it leaves at once, a pair outside both
+    // supports adds its gravity alone, and j's further fields come from
+    // their staged vectors.
+    auto grav_pair = [&](const Entry<T>& c, int slot) {
+      T dx[DIM];
+      each_axis(Axes<DIM>{}, [&](int d) { dx[d] = o.x[d] - c.p[d]; });
+      const T r2 = dot(dx, dx);
+      if (!takes(c)) return;
+      const T invr = Num<T>::rsqrt(r2 + Num<T>::tiny);
+      const T r = r2 * invr;
+      const T gco = grav_coef(r2, r, g);
+      const T qi = r * o.invh;
+      const T qj = r * c.w;
+      if (qi >= T(2) && qj >= T(2)) {  // both gradients vanish
+        // m_j: further field DIM of j, and GRAV is 3D
+        const T fcoef = load_vec(rest + slot * NV).d * gco;
+        each_axis(Axes<DIM>{}, [&](int d) { acc.a[d] -= fcoef * dx[d]; });
+        return;
+      }
+      Vec4<T> jv[NV];
+      each_axis(Axes<NV>{},
+                [&](int v) { jv[v] = load_vec(rest + slot * NV + v); });
+      terms(dx, r2, invr, qi, qj, gco, jv, true);
+    };
     const bool has_mass = F(R::M, i) > T(0);
     const Box<T, DIM> box = Box<T, DIM>::of(o.x, has_mass);
     const T reach = Margin<T>::reach * warp_max(has_mass ? o.h : T(0));
     const T reach2 = reach * reach;
     const T gcut2 = rcut2 * Margin<T>::rcut2;
-    cull_and_walk<T, NSEG, NV>(
-        rg, lane, stage, /*with_rest=*/true, entry,
+    cull_and_stage<T, NSEG>(
+        rg, lane, ent, cap, entry,
         [&](const Entry<T>& e, int k) {
           if (!(F(R::M, k) > T(0))) return false;
           const T g2 = box.gap2(e.p);
@@ -935,14 +977,52 @@ __device__ __forceinline__ void forces_row(
           if (GRAV) in = in || g2 <= gcut2;
           return in;
         },
-        [&](int k, Vec4<T> (&r)[NV]) {
-          each_axis(Axes<NV>{}, [&](int v) { r[v] = gather(k, v); });
+        [&](int k, int slot) {
+          if constexpr (GRAV)
+            each_axis(Axes<NV>{}, [&](int v) {
+              store_vec(rest + slot * NV + v, gather(k, v));
+            });
+          else
+            row[slot] = k;
         },
-        pair);
+        [&](int n) {
+          if constexpr (GRAV)
+            every_lane_walk<T>(n, ent, grav_pair);
+          else
+            test_and_walk<FORCE_STEP, T>(n, lane, ent, mask, has_mass, takes,
+                                         pair);
+        });
   }
   each_axis(Axes<DIM>{},
             [&](int d) { acc_out[DIM * (size_t)i + d] = acc.a[d]; });
   du_out[i] = acc.du;
+}
+
+// Kernel C's kernels: the pair walk's, named for it, so that a trace tells
+// it from the GRAV mode's walk in which every lane visits every survivor
+// (`forces_kernel`, below).
+template <typename T, int DIM, bool BF, bool FAST, bool GRAV>
+__global__ void __maxnreg__(sizeof(T) == 4 ? 64 : 128)
+forces_pairs_kernel(const T* __restrict__ win, const int* __restrict__ w_lo,
+                    const int* __restrict__ w_nact, int Ns, int group,
+                    T alpha, T beta, T epsv, const T* __restrict__ gsc, T G,
+                    T rcut2, T* __restrict__ acc_out,
+                    T* __restrict__ du_out) {
+  forces_row<T, DIM, BF, FAST, GRAV, false>(win, w_lo, w_nact, Ns, group, 0,
+                                            alpha, beta, epsv, gsc, G, rcut2,
+                                            acc_out, du_out);
+}
+
+template <typename T, int DIM, bool BF, bool FAST, bool GRAV>
+__global__ void __maxnreg__(sizeof(T) == 4 ? 64 : 128)
+forces_pairs_compact_kernel(
+    const T* __restrict__ win, const int* __restrict__ c_lo,
+    const int* __restrict__ c_len, int Ns, int group, int cwidth, T alpha,
+    T beta, T epsv, const T* __restrict__ gsc, T G, T rcut2,
+    T* __restrict__ acc_out, T* __restrict__ du_out) {
+  forces_row<T, DIM, BF, FAST, GRAV, true>(win, c_lo, c_len, Ns, group,
+                                           cwidth, alpha, beta, epsv, gsc, G,
+                                           rcut2, acc_out, du_out);
 }
 
 template <typename T, int DIM, bool BF, bool FAST, bool GRAV>
@@ -1008,7 +1088,7 @@ cudaError_t launch_solve_h_density(const void* win, const void* h0,
   cudaError_t err = cudaSuccess;
   auto run = [&](auto kernel, auto... cw) {
     err = launch_tiles(
-        kernel, Ns, tile, pair_stage_bytes<T>(tile), stream,
+        kernel, Ns, tile, stage_bytes(tile, PairCap<T>::bytes), stream,
         static_cast<const T*>(win), static_cast<const T*>(h0),
         static_cast<const int*>(tab_lo), static_cast<const int*>(tab_n), Ns,
         group, cw..., T(sig), T(eta_d), T(hcap), iters, static_cast<T*>(h),
@@ -1039,7 +1119,8 @@ cudaError_t launch_forces(const void* win, const void* tab_lo,
   cudaError_t err = cudaSuccess;
   auto run = [&](auto kernel, auto... cw) {
     err = launch_tiles(
-        kernel, Ns, tile, stage_bytes<T, 3>(tile), stream,
+        kernel, Ns, tile, stage_bytes(tile, ForceStage<T, GRAV>::bytes),
+        stream,
         static_cast<const T*>(win),
         static_cast<const int*>(tab_lo), static_cast<const int*>(tab_n), Ns,
         group, cw..., T(alpha), T(beta), T(epsv),
@@ -1048,10 +1129,14 @@ cudaError_t launch_forces(const void* win, const void* tab_lo,
   };
   auto args = [&](auto bf_c, auto fast_c) {
     constexpr bool B = decltype(bf_c)::value, F = decltype(fast_c)::value;
-    if constexpr (COMPACT)
+    if constexpr (COMPACT && GRAV)
       run(forces_compact_kernel<T, DIM, B, F, GRAV>, cwidth);
-    else
+    else if constexpr (COMPACT)
+      run(forces_pairs_compact_kernel<T, DIM, B, F, GRAV>, cwidth);
+    else if constexpr (GRAV)
       run(forces_kernel<T, DIM, B, F, GRAV>);
+    else
+      run(forces_pairs_kernel<T, DIM, B, F, GRAV>);
   };
   constexpr bool F32 = sizeof(T) == 4;
   using Yes = std::true_type;

@@ -113,9 +113,9 @@ def profile_trace(dirname: str):
     and, where a card is visible, CUDA activity) and write it to
     ``dirname/trace.json`` (Chrome trace format; open in Perfetto or
     chrome://tracing). The CUDA kernels appear under their template names,
-    e.g. ``solve_h_density_pairs_kernel`` (kernel A's 3D pair walk),
-    ``solve_h_density_kernel`` (its 2D and 1D walk) and ``forces_kernel``,
-    and the host timeline under the program's ``SPANS``."""
+    e.g. ``solve_h_density_pairs_kernel`` (kernel A),
+    ``forces_pairs_kernel`` (kernel C) and ``forces_kernel`` (kernel C's
+    gravity mode), and the host timeline under the program's ``SPANS``."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)

@@ -38,11 +38,13 @@ The CUDA kernels do not give every row every candidate: a warp of 32 sorted
 rows first culls its group's candidates against the box of its own rows,
 then walks the survivors. ``cull_plain`` states that rule in plain torch
 (the same box, mass rule, reach and margins), ``cull_stats`` counts what it
-keeps; the tests hold that it drops no pair inside the support. Kernel A
-then tests every (row, survivor) pair of a staged batch and each lane
-walks only its own row's pairs (the pair walk); kernel C's lanes walk
-every survivor. ``walk_stats`` counts the steps and the lane fill of both
-walks from the same rule.
+keeps; the tests hold that it drops no pair inside the support. Kernels
+A and C then test every (row, survivor) pair of a staged batch and each
+lane walks only its own row's pairs (the pair walk); kernel C's gravity
+mode, where nearly every survivor lies within the cutoff of every row,
+keeps the walk in which every lane visits every survivor. ``walk_stats``
+counts the steps and the lane fill of both walks from either kernel's
+rule.
 """
 from __future__ import annotations
 
@@ -181,12 +183,22 @@ CULL_REACH, CULL_REACH2_J, CULL_RCUT2 = 2.002, 4.008004, 1.002001
 # with the Balsara sums, and a lane walks PAIR_STEP of its pairs a step.
 PAIR_CAP_BYTES = (1280, 768)
 PAIR_STEP = 2
+# Kernel C's pair walk (``ForceCap`` and ``FORCE_STEP``): its warp stages at
+# most FORCE_CAP[0] survivors at once in fp32, FORCE_CAP[1] in fp64, and a
+# lane walks FORCE_STEP of its pairs a step.
+FORCE_CAP = (192, 128)
+FORCE_STEP = 1
 
 
 def pair_cap(dtype, with_rest: bool = False) -> int:
     """The survivors kernel A's pair walk stages at once in ``dtype``."""
     size = torch.empty((), dtype=dtype).element_size()
     return PAIR_CAP_BYTES[int(with_rest)] // size
+
+
+def force_cap(dtype) -> int:
+    """The survivors kernel C's pair walk stages at once in ``dtype``."""
+    return FORCE_CAP[int(dtype == torch.float64)]
 
 
 def candidate_table(wd: WindowData, spec: WindowSpec, groups):
@@ -344,16 +356,19 @@ def _batches(kept_per_step, cap: int):
 
 
 def walk_counts(wd: WindowData, spec: WindowSpec, pos_s, mass_s, h_s,
-                cap: int, every: int = 1):
+                cap: int, every: int = 1, pair_h: bool = False, rcut=None,
+                step: int = PAIR_STEP):
     """Yield, over blocks of every ``every``-th row-group with candidates,
     per warp [n, group // 32] int64 tensors: ``real`` rows, the
     ``candidates`` and ``survivors`` of each summed over its real rows,
     ``pairs`` inside the support of its real rows, ``useful`` pairs (inside
     the support of its rows that carry mass), ``live`` (1 where a row
-    carries mass), and the steps in which kernel A's two walks run the
+    carries mass), and the steps in which a kernel's two walks run the
     pair arithmetic at the h ``h_s``: ``steps_warp``, the walk in which
     every lane visits every survivor, and ``steps_pairs``, the pair walk
-    (see ``walk_stats``)."""
+    (see ``walk_stats``). Kernel A's rule by default; kernel C's with
+    ``pair_h`` (``rcut``: its gravity mode), as in ``cull_plain``, with
+    C's batch ``force_cap`` and ``step`` ``FORCE_STEP``."""
     T = spec.group
     nw = T // 32
     width = spec.cwidth if spec.cwidth > 0 else spec.n_seg * spec.wseg
@@ -367,16 +382,27 @@ def walk_counts(wd: WindowData, spec: WindowSpec, pos_s, mass_s, h_s,
         g = gids[b0:b0 + TB]
         n = g.numel()
         idx, valid = candidate_table(wd, spec, g)
-        keep = _cull_keep(spec, pos_s, mass_s, h_s, g, idx, valid)
+        keep = _cull_keep(spec, pos_s, mass_s, h_s, g, idx, valid, pair_h,
+                          rcut)
         rows = (g[:, None] * T + ar_t).reshape(n, nw, 32)
         real = wd.is_real[rows]                            # [n, nw, 32]
         has = mass_s[rows] > 0
         d = pos_s[rows][..., None, :] - pos_s[idx][:, None, None]
         r2 = torch.sum(d * d, dim=-1)                      # [n, nw, 32, W]
         hi = h_s[rows][..., None]
-        # the kernels' first test r^2 (1/h)^2 < 4.0001, and r < 2 h
-        first = (r2 * (1.0 / hi) ** 2 < 4.0001) & keep[:, :, None]
-        inside = (r2 < 4.0 * hi * hi) & keep[:, :, None]
+        # the kernels' first test r^2 (1/h)^2 < 4.0001, and r < 2 h; C's
+        # with either h, or inside the cutoff
+        first = r2 * (1.0 / hi) ** 2 < 4.0001
+        inside = r2 < 4.0 * hi * hi
+        if pair_h:
+            hj = h_s[idx][:, None, None]
+            first |= r2 * (1.0 / hj) ** 2 < 4.0001
+            inside |= r2 < 4.0 * hj * hj
+        if rcut is not None:
+            first |= r2 <= float(rcut) ** 2
+            inside |= (r2 > 0) & (r2 <= float(rcut) ** 2)
+        first &= keep[:, :, None]
+        inside &= keep[:, :, None]
         n_real = real.sum(2)
         out = dict(real=n_real,
                    candidates=valid.sum(1)[:, None] * n_real,
@@ -386,52 +412,60 @@ def walk_counts(wd: WindowData, spec: WindowSpec, pos_s, mass_s, h_s,
                    live=has.any(2).long(),
                    steps_warp=first.any(2).sum(2))
         # the pair walk: batches of staged survivors, per lane with mass
-        step = _steps(wd, spec, g, valid)                  # [n, W]
-        n_steps = int(step.max()) + 1
+        cstep = _steps(wd, spec, g, valid)                 # [n, W]
+        n_steps = int(cstep.max()) + 1
         per_step = torch.zeros((n, nw, n_steps + 1), dtype=torch.int64,
                                device=keep.device)
-        per_step.scatter_add_(2, step[:, None].expand(n, nw, -1),
+        per_step.scatter_add_(2, cstep[:, None].expand(n, nw, -1),
                               keep.long())
         batch = _batches(per_step[..., :n_steps].reshape(n * nw, n_steps),
                          cap).reshape(n, nw, n_steps)
         batch = torch.cat([batch, batch[..., -1:]], 2)     # invalid entries
-        col_b = batch.gather(2, step[:, None].expand(n, nw, -1))
+        col_b = batch.gather(2, cstep[:, None].expand(n, nw, -1))
         takes = (first & has[..., None]).long()            # [n, nw, 32, W]
         per_b = torch.zeros((n, nw, 32, int(batch.max()) + 1),
                             dtype=torch.int64, device=keep.device)
         per_b.scatter_add_(3, col_b[:, :, None].expand_as(takes), takes)
-        # PAIR_STEP pairs a lane a step
+        # ``step`` pairs a lane a step
         most = per_b.amax(2)
-        out["steps_pairs"] = (PAIR_STEP * -(-most // PAIR_STEP)).sum(2)
+        out["steps_pairs"] = (step * -(-most // step)).sum(2)
         yield out
 
 
 def walk_stats(wd: WindowData, spec: WindowSpec, pos_s, mass_s, h_s,
-               cap: int, every: int = 1) -> dict:
-    """Kernel A's walks at the h ``h_s``, counted from its plain rule over
-    every ``every``-th row-group with candidates.
+               cap: int, every: int = 1, pair_h: bool = False, rcut=None,
+               step: int = PAIR_STEP) -> dict:
+    """A kernel's walks at the h ``h_s``, counted from its plain rule over
+    every ``every``-th row-group with candidates: kernel A's by default,
+    kernel C's with ``pair_h`` (and ``rcut`` in its gravity mode; the
+    arguments of ``walk_counts``).
 
     Per real row (means over the rows that are real particles):
     ``candidates`` and ``survivors`` as ``cull_stats`` counts them, and
-    ``pairs``, the survivors inside the row's support (r < 2 h_i). And the
-    lane fill of two walks over the warps with a row that carries mass,
-    useful pairs (inside the support of such a row) over 32 lanes times
-    the steps in which a walk runs the pair arithmetic:
+    ``pairs``, the survivors inside the row's support (r < 2 h_i; C: r < 2
+    max(h_i, h_j), or 0 < r <= rcut). And the lane fill of two walks over
+    the warps with a row that carries mass, useful pairs (inside the
+    support of such a row) over 32 lanes times the steps in which a walk
+    runs the pair arithmetic:
 
     - ``fill_warp``, the walk in which every lane visits every survivor:
       one step for each survivor that any of the warp's 32 rows takes
-      (passes the first test r^2 / h_i^2 < 4.0001);
+      (passes the first test r^2 / h_i^2 < 4.0001; C: or r^2 / h_j^2 <
+      4.0001, or r^2 <= rcut^2);
     - ``fill_pairs``, the pair walk: the warp stages at most ``cap``
       survivors (it walks when more than ``cap`` - 32 are staged before a
       cull step), tests every (row, survivor) pair of the batch, and each
-      lane walks the survivors its own row takes, ``PAIR_STEP`` a step;
-      the pair steps of a batch are the most any row of the warp with mass
-      takes, rounded up to a multiple of ``PAIR_STEP``.
+      lane walks the survivors its own row takes, ``step`` a step; the
+      pair steps of a batch are the most any row of the warp with mass
+      takes, rounded up to a multiple of ``step``.
 
     ``steps_warp`` and ``steps_pairs`` are those steps a warp, and
-    ``pairs_warp`` the useful pairs a warp."""
+    ``pairs_warp`` the useful pairs a warp. Kernel C's gravity mode walks
+    as ``fill_warp`` counts: with ``rcut`` the pair walk is what it would
+    take."""
     tot = collections.Counter()
-    for c in walk_counts(wd, spec, pos_s, mass_s, h_s, cap, every):
+    for c in walk_counts(wd, spec, pos_s, mass_s, h_s, cap, every, pair_h,
+                         rcut, step):
         tot.update({k: int(v.sum()) for k, v in c.items()})
     warps = max(tot["live"], 1)
     real = max(tot["real"], 1)

@@ -20,7 +20,13 @@ float64, on inputs made from a numpy seed:
     culls before every walk;
 (e) the margins of the rule here are the ones in the kernels' source, and
     the in-place ranges of every structure rise with the segment, which is
-    what lets the kernels dedup by clipping a segment's start.
+    what lets the kernels dedup by clipping a segment's start;
+(f) the pair walks of kernels A and C (``walk_counts`` at each kernel's
+    rule, batch and step): their lane fill never passes 1, they never run
+    the pair arithmetic more often than the walk in which every lane
+    visits every survivor, their steps equal those of a loop that follows
+    the kernels' batches, and their batches and steps are the ones in the
+    kernels' source.
 """
 import dataclasses
 import re
@@ -416,13 +422,17 @@ def test_walk_fill_never_exceeds_one(name, compact, masked):
         s["fill_pairs"] * 32 * s["steps_pairs"])
 
 
-def _pair_steps_by_loop(wd, spec, f, group, cap):
-    """The steps of kernel A's pair walk for each warp of ``group``, by a
-    loop that follows ``cull_and_stage`` and ``test_and_walk`` in
+def _pair_steps_by_loop(wd, spec, f, group, cap, kind="A", rcut=None):
+    """The steps of kernel A's pair walk (``kind`` "C": kernel C's, with
+    ``rcut`` its gravity mode's) for each warp of ``group``, by a loop that
+    follows ``cull_and_stage`` and ``test_and_walk`` in
     csrc/window_kernels.cu: 32 candidates a step from each segment's
     range, a batch walked whenever more than ``cap`` - 32 survivors are
     staged before a step, and for each batch the most survivors that one
-    of the warp's rows with mass takes, walked ``PAIR_STEP`` a step."""
+    of the warp's rows with mass takes, walked ``PAIR_STEP`` (C:
+    ``FORCE_STEP``) a step."""
+    c_rule = kind == "C"
+    step = wk.FORCE_STEP if c_rule else wk.PAIR_STEP
     T = spec.group
     pos, m, h = f["pos_s"], f["mass_s"], f["h_s"]
     lo_t, n_t = (wd.c_lo, wd.c_len) if spec.cwidth else (wd.w_lo, wd.w_nact)
@@ -456,7 +466,13 @@ def _pair_steps_by_loop(wd, spec, f, group, cap):
                 for k in range(k0, min(k0 + 32, hi)):
                     gap = torch.clamp_min(torch.maximum(
                         x.amin(0) - pos[k], pos[k] - x.amax(0)), 0.0)
-                    if m[k] > 0 and float((gap * gap).sum()) < reach ** 2:
+                    g2 = float((gap * gap).sum())
+                    near = g2 < reach ** 2
+                    if c_rule:
+                        near |= g2 / float(h[k]) ** 2 < wk.CULL_REACH2_J
+                        if rcut is not None:
+                            near |= g2 <= rcut ** 2 * wk.CULL_RCUT2
+                    if m[k] > 0 and near:
                         batches[-1].append(k)
                         held += 1
         total = 0
@@ -464,9 +480,13 @@ def _pair_steps_by_loop(wd, spec, f, group, cap):
             if not b:
                 continue
             r2 = ((pos[rows][:, None] - pos[b][None]) ** 2).sum(-1)
-            takes = (r2 * (1.0 / h[rows][:, None]) ** 2 < 4.0001) & has[:, None]
-            most = int(takes.sum(1).max())
-            total += wk.PAIR_STEP * -(-most // wk.PAIR_STEP)
+            takes = r2 * (1.0 / h[rows][:, None]) ** 2 < 4.0001
+            if c_rule:
+                takes |= r2 * (1.0 / h[b][None]) ** 2 < 4.0001
+                if rcut is not None:
+                    takes |= r2 <= rcut ** 2
+            most = int((takes & has[:, None]).sum(1).max())
+            total += step * -(-most // step)
         steps.append(total)
     return steps
 
@@ -512,3 +532,102 @@ def test_pair_walk_constants_equal_the_kernel_source():
     launched = set(re.findall(r"run\((solve_h_density\w*)<", src))
     assert launched == {"solve_h_density_pairs_kernel",
                         "solve_h_density_pairs_compact_kernel"}
+
+
+# ---------------------------------------------------------------------------
+# kernel C's two walks (``walk_counts`` with C's rule)
+# ---------------------------------------------------------------------------
+
+
+def _c_walk(spec, kind):
+    """``walk_counts``' arguments for kernel C's rule (``kind`` "grav": its
+    gravity mode) beside the table and fields."""
+    return dict(pair_h=True, rcut=_rcut(spec, kind), step=wk.FORCE_STEP)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("name,compact,kind", [
+    ("turb", False, "C"), ("turb", True, "C"), ("turb", False, "grav"),
+    ("kh", False, "C"), ("kh", True, "C"), ("sedov", False, "C"),
+    ("sedov_open", False, "C"), ("line", True, "C"),
+])
+def test_force_walk_fill_never_exceeds_one(name, compact, kind, masked):
+    """Kernel C's rule on built and ``mask_structure``d tables: every
+    warp's useful pairs (inside 2 max(h_i, h_j) of a row with mass, or
+    the cutoff) fit in 32 lanes times the steps of either walk, the pair
+    walk never runs the pair arithmetic more often than the walk in which
+    every lane visits every survivor, and at C's fp32 batch it fills more
+    of the lanes."""
+    spec, wd, f, _ = _inputs(name, compact)
+    if masked:
+        wd = rungs.mask_structure(wd, spec,
+                                  (f["pos_s"] - 0.5).norm(dim=-1) < 0.3)
+    args = (wd, spec, f["pos_s"], f["mass_s"], f["h_s"],
+            wk.force_cap(torch.float32))
+    walk = _c_walk(spec, kind)
+    warps = 0
+    for c in wk.walk_counts(*args, **walk):
+        assert bool((c["useful"] <= 32 * c["steps_pairs"]).all())
+        assert bool((c["steps_pairs"] <= c["steps_warp"]).all())
+        assert bool((c["pairs"] <= c["survivors"]).all())
+        assert bool((c["survivors"] <= c["candidates"]).all())
+        warps += int(c["live"].sum())
+    s = wk.walk_stats(*args, **walk)
+    a = wk.walk_stats(*args)
+    assert warps > 0 and s["pairs"] >= a["pairs"] > 0
+    assert 0.0 < s["fill_warp"] < s["fill_pairs"] <= 1.0, s
+    assert s["pairs_warp"] == pytest.approx(
+        s["fill_pairs"] * 32 * s["steps_pairs"])
+
+
+@pytest.mark.parametrize("name,compact,kind,cap", [
+    ("turb", False, "C", 64), ("turb", True, "grav", 64),
+    ("kh", False, "C", 64), ("sedov_open", False, "C", 128),
+    ("line", False, "C", 32),
+])
+def test_force_walk_steps_follow_the_kernels_loop(name, compact, kind, cap):
+    """``walk_counts``' steps of kernel C's pair walk, per warp, equal those
+    of a loop over C's cull (reach 2 max(h_max, h_j), at least the cutoff
+    in its gravity mode), batches and per-row tests (r^2 / h_i^2 or r^2 /
+    h_j^2 against 4.0001, or inside the cutoff), on groups at the start,
+    the middle and the end of the active ones."""
+    spec, wd, f, _ = _inputs(name, compact)
+    rcut = _rcut(spec, kind)
+    gids = torch.nonzero(wk._group_active(wd, spec)).reshape(-1)
+    want, got = [], []
+    blocks = list(wk.walk_counts(wd, spec, f["pos_s"], f["mass_s"],
+                                 f["h_s"], cap, **_c_walk(spec, kind)))
+    per_warp = torch.cat([b["steps_pairs"] for b in blocks])
+    for j in (0, gids.numel() // 2, gids.numel() - 1):
+        want.append(_pair_steps_by_loop(wd, spec, f, int(gids[j]), cap, "C",
+                                        rcut))
+        got.append(per_warp[j].tolist())
+    assert got == want
+    assert max(max(w) for w in want) > 0
+
+
+def test_force_walk_constants_equal_the_kernel_source():
+    """``FORCE_CAP`` and ``FORCE_STEP`` are ``ForceCap`` and ``FORCE_STEP``
+    in csrc/window_kernels.cu, so what ``walk_stats`` counts at
+    ``force_cap`` is kernel C's batch and step; a batch is whole words of
+    the mask; and kernel C launches its pair walk outside the GRAV mode
+    and the walk in which every lane visits every survivor in it."""
+    src = (Path(wk.__file__).resolve().parent.parent / "csrc"
+           / "window_kernels.cu").read_text()
+    cap = re.search(r"static constexpr int n = sizeof\(T\) == 4 \? (\d+) : "
+                    r"(\d+);", src)
+    assert cap and (int(cap.group(1)), int(cap.group(2))) == wk.FORCE_CAP
+    step = re.search(r"constexpr int FORCE_STEP = (\d+);", src)
+    assert step and int(step.group(1)) == wk.FORCE_STEP
+    for dtype in (torch.float32, torch.float64):
+        assert wk.force_cap(dtype) % 32 == 0
+    launched = set(re.findall(r"run\((forces\w*)<", src))
+    assert launched == {"forces_pairs_kernel", "forces_pairs_compact_kernel",
+                        "forces_kernel", "forces_compact_kernel"}
+    grav = re.search(r"if constexpr \(COMPACT && GRAV\)\s+run\((\w+)<.*?"
+                     r"else if constexpr \(COMPACT\)\s+run\((\w+)<.*?"
+                     r"else if constexpr \(GRAV\)\s+run\((\w+)<.*?"
+                     r"else\s+run\((\w+)<", src, re.S)
+    assert grav and grav.groups() == (
+        "forces_compact_kernel", "forces_pairs_compact_kernel",
+        "forces_kernel", "forces_pairs_kernel")

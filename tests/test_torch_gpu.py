@@ -1,6 +1,9 @@
 """The CUDA kernels A, C (with and without its P3M gravity mode; A and C
 in 3D, 2D and 1D, in place and compact, on the masked tables of the
-block-timestep path and on a slab shard's masked structure) and G against
+block-timestep path and on a slab shard's masked structure; on clustered
+states whose h varies about 6x inside a warp, with more survivors than a
+batch; one launch a call under their pair walks' names, bitwise
+repeatable) and G against
 their plain torch versions, on a card; a block-timestep tick's pass
 through the row-packing kernels against the same pass through their plain
 versions; block timesteps with one rung
@@ -527,6 +530,115 @@ def test_solve_h_density_is_bitwise_repeatable(cuda, dtype, compact):
     args = (f["pos_s"], f["mass_s"], f["h0_s"])
     a = wk.solve_h_density(wd, spec, *args, cfg, vel_s=f["vel_s"])
     b = wk.solve_h_density(wd, spec, *args, cfg, vel_s=f["vel_s"])
+    torch.cuda.synchronize()
+    for k, (x, y) in enumerate(zip(a, b)):
+        assert torch.equal(x, y), f"output {k}"
+
+
+C_ARGS = ("pos_s", "vel_s", "mass_s", "h_s", "rho_s", "P_s", "cs_s", "om_s",
+          "bf_s")
+
+
+def _fields_c(f, seed):
+    """``f`` (``_fields_a``'s) with kernel C's further inputs: h_s = h0_s,
+    and seeded rho, P, cs, Omega and viscosity factor on the rows with
+    mass, ``_inputs``' fills on the others."""
+    m = f["mass_s"] > 0
+    g = torch.Generator(device=m.device).manual_seed(seed)
+
+    def rnd(lo, hi, fill):
+        x = lo + (hi - lo) * torch.rand(m.shape, generator=g,
+                                        dtype=f["h0_s"].dtype, device=m.device)
+        return torch.where(m, x, fill)
+    rho = rnd(0.8, 1.2, 1.0)
+    return dict(f, h_s=f["h0_s"], rho_s=rho, P_s=rho * rnd(0.9, 1.1, 1.0),
+                cs_s=rnd(0.8, 1.2, 1.0), om_s=rnd(0.9, 1.1, 1.0),
+                bf_s=rnd(0.0, 1.0, 0.0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("compact", [False, True])
+def test_forces_clustered_matches_plain(cuda, dtype, compact):
+    """Kernel C against plain where h varies about 5.5x inside one warp, so
+    that some pairs lie inside 2 h_j and outside 2 h_i (the j side of C's
+    first test, which kernel A has not), and a warp stages more survivors
+    than its pair walk holds at once."""
+    cfg = A_CASES["cold_newton2"]
+    spec, wd, f = _clustered(cuda, dtype, compact)
+    f = _fields_c(f, seed=13)
+    assert _warp_h_ratio(f) > 4.0
+    cap = wk.force_cap(dtype)
+    walk = dict(cap=cap, pair_h=True, step=wk.FORCE_STEP)
+    c = wk.walk_stats(wd, spec, f["pos_s"], f["mass_s"], f["h_s"], **walk)
+    a = wk.walk_stats(wd, spec, f["pos_s"], f["mass_s"], f["h_s"], cap)
+    assert c["pairs"] > a["pairs"], (c, a)
+    assert c["survivors"] > cap, c
+    args = [f[k] for k in C_ARGS]
+    got = wk.forces(wd, spec, *args, cfg)
+    want = wk.forces_plain(wd, spec, *args, cfg)
+    _compare(got[0], want[0], wd.is_real, TOL[dtype], "clustered acc")
+    _compare(got[1], want[1], wd.is_real, TOL[dtype], "clustered du")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_forces_rung_masked_sedov_matches_plain(cuda, dtype):
+    """Kernel C (Sedov: grad-h, Balsara) on a rung mask of the Sedov
+    lattice whose core was compressed, h about 6x apart inside the warps at
+    the core's edge: against plain on the real rows of the groups the mask
+    keeps, zeros on the others."""
+    spec, wd, f, close = _sedov_core(cuda, dtype)
+    f = _fields_c(f, seed=23)
+    assert _warp_h_ratio(f) > 5.0
+    wm = rungs.mask_structure(wd, spec, close)
+    act = wk._group_active(wm, spec).repeat_interleave(spec.group)
+    assert 0 < int(act.sum()) < act.numel()
+    args = [f[k] for k in C_ARGS]
+    got = wk.forces(wm, spec, *args, configs.SEDOV)
+    want = wk.forces_plain(wm, spec, *args, configs.SEDOV)
+    rows = act & wd.is_real
+    _compare(got[0], want[0], rows, TOL[dtype], "sedov acc")
+    _compare(got[1], want[1], rows, TOL[dtype], "sedov du")
+    assert not bool(got[0][~act].any()) and not bool(got[1][~act].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim", [3, 2, 1])
+@pytest.mark.parametrize("compact", [False, True])
+def test_forces_is_one_launch_a_call(cuda, dim, compact):
+    """The profiler sees one device kernel of C a call, named for the pair
+    walk (``forces_pairs``), and never with ``solve_h_density``."""
+    cfg = {3: A_CASES["cold_newton2"], 2: configs.KH, 1: CFG_1D}[dim]
+    _, _, spec, wd, f = _inputs(cuda, torch.float32, dim=dim,
+                                compact=compact)
+    args = [f[k] for k in C_ARGS]
+    wk.forces(wd, spec, *args, cfg)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        wk.forces(wd, spec, *args, cfg)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "forces" in e.name]
+    assert len(names) == 1, names
+    assert "forces_pairs" in names[0], names
+    assert "solve_h_density" not in names[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("compact", [False, True])
+def test_forces_is_bitwise_repeatable(cuda, dtype, compact):
+    """Two launches of kernel C on one input give bitwise-equal outputs on
+    every sorted row: each lane sums its own row's pairs in candidate
+    order, with no atomics."""
+    cfg = A_CASES["cold_newton2"]
+    spec, wd, f = _clustered(cuda, dtype, compact)
+    args = [_fields_c(f, seed=13)[k] for k in C_ARGS]
+    a = wk.forces(wd, spec, *args, cfg)
+    b = wk.forces(wd, spec, *args, cfg)
     torch.cuda.synchronize()
     for k, (x, y) in enumerate(zip(a, b)):
         assert torch.equal(x, y), f"output {k}"

@@ -184,6 +184,33 @@ def test_scatter_out_plain_equals_thefrozen_unsort(dim, dtype, visc,
         _same(a, b, f"output {k}")
 
 
+@pytest.mark.parametrize("dim", [1, 2, 3])
+@pytest.mark.parametrize("compact", [False, True])
+def test_scatter_out_reads_no_row_without_mass(dim, compact):
+    """Kernels A and C give a lane whose row carries no mass (a pad row or
+    an unused ghost slot) no pairs, so they write zeros there: what the
+    derived pass keeps of the sorted outputs does not depend on those
+    rows. ``scatter_out`` reads only the rows ``wd.inv`` names, each a
+    particle's own row, which carries its mass; NaN on every row without
+    mass leaves its outputs as they were, bit for bit."""
+    st, _, _, wd = _structure(dim, "f64", compact)
+    mass_s = win.gather_sorted(st.mass, wd)
+    none = mass_s <= 0
+    assert bool(none.any()) and bool((mass_s[wd.inv] > 0).all())
+    Ns = wd.g.shape[0]
+    g = torch.Generator().manual_seed(19)
+    fields = [torch.randn(Ns, generator=g, dtype=torch.float64)
+              for _ in range(7)]
+    acc_s = torch.randn((Ns, dim), generator=g, dtype=torch.float64)
+    nan = float("nan")
+    spoilt = [torch.where(none, nan, x) for x in fields]
+    got = rowpack.scatter_out(wd, *spoilt,
+                              torch.where(none[:, None], nan, acc_s))
+    want = rowpack.scatter_out(wd, *fields, acc_s)
+    for k, (a, b) in enumerate(zip(got, want)):
+        _same(a, b, f"output {k}")
+
+
 @CASES
 def test_derived_with_equals_thefrozen_pass(dim, dtype, visc, compact):
     st, dom, spec, wd = _structure(dim, dtype, compact)
