@@ -9,7 +9,14 @@ Examples:
     python -m sphax_torch kh n=1024 smooth=1 out=runs/kh_mcnally
     python -m sphax_torch turb n=100 t_end=1.0 out=runs/turb
     python -m sphax_torch turb resume=runs/turb/checkpoint.npz
+    python -m sphax_torch cloud n=256 jeans=222 mesh=384 out=runs/cloud
     python -m sphax_torch sod n=8 device=cpu
+
+``cloud`` is a periodic self-gravitating isothermal cloud (Klessen, Burkert
+& Bate 1998) from Gaussian density fluctuations: the box holds ``jeans``
+Jeans masses (M / M_J with M_J = rho0 lambda_J^3, lambda_J = (pi c_s^2 /
+(G rho0))^(1/2), so G = pi jeans^(2/3) in code units), with P3M gravity on
+a ``mesh``^3 FFT mesh and kernel C's gravity mode for the short range.
 
 ``kh smooth=1`` sets up McNally, Lyra & Passy 2012's well-posed
 Kelvin-Helmholtz test (interfaces smoothed over L = 0.025, vy = 0.01
@@ -34,8 +41,12 @@ the dense engine or the cell list there, and ``turb`` is driven);
 ``shards=N`` always runs the window engine, so ``sedov``, ``kh`` and ``sod``
 take rungs there.
 
-A window-engine run with P3M gravity logs ``mesh_fb`` in each record: the
-rows that would fall back from the sorted-order mesh
+A run with P3M gravity on a box periodic on every axis records as
+``e_grav`` the potential that P3M solves (``pm.p3m_energy``: the mesh's
+potential plus the screened pairs within the window's cutoff, in O(N log
+N)), not the direct sum over every pair that other runs with gravity
+record. A window-engine run with P3M gravity logs ``mesh_fb`` in each
+record: the rows that would fall back from the sorted-order mesh
 (``wengine.mesh_fallback_count``), as the JAX CLI does, counted outside
 the record's ``particle_steps_per_sec``. The run itself takes the scatter
 mesh (``pm.mesh_accel``), the cheaper one on a card, which drops no row:
@@ -295,6 +306,10 @@ def main(argv=None):
         checkpoint.save(os.path.join(out, "checkpoint.npz"), state, t, step,
                         drive if driven else None, seed=prob.seed)
 
+    # a periodic P3M run's records take the P3M potential, its short range
+    # within the window's cutoff (conservation.gravitational_energy)
+    record_kw = dict(domain=prob.domain,
+                     cutoff=prob.wspec.cutoff if prob.wspec else None)
     nchunks = 0
     while t < t_end and not (max_steps and step >= max_steps):
         nsteps = min(chunk, max_steps - step) if max_steps else chunk
@@ -331,7 +346,7 @@ def main(argv=None):
             if gated:
                 extra["rebuilds"] = builds
             extra.update(rung_info)
-            rec = log.log(state, prob.cfg, t, step, **extra)
+            rec = log.log(state, prob.cfg, t, step, **record_kw, **extra)
             capmsg = (f" h_capped={extra['h_capped']}"
                       if extra.get("h_capped") else "")
             if gated:
@@ -357,7 +372,7 @@ def main(argv=None):
     save_checkpoint()
     if plot:
         _plot(name, state, prob.cfg, t, out)
-    rec = log.log(state, prob.cfg, t, step)
+    rec = log.log(state, prob.cfg, t, step, **record_kw)
     print(f"done: t={t:.4f} steps={step}; final E={rec['e_total']:.6f}; "
           f"checkpoint + metrics in {out}/")
     return state, t, step

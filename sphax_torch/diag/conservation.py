@@ -7,7 +7,7 @@ import math
 import torch
 
 from sphax_torch.configs import SPHConfig
-from sphax_torch.core.state import ParticleState
+from sphax_torch.core.state import Domain, ParticleState
 
 
 def momentum(state: ParticleState):
@@ -23,12 +23,22 @@ def internal_energy(state: ParticleState):
 
 
 def gravitational_energy(state: ParticleState, cfg: SPHConfig,
-                         block: int = None):
+                         block: int = None, domain: Domain = None,
+                         cutoff: float = None):
     """Direct-sum softened potential energy (matches the Plummer force law):
     -G/2 sum_{i != j} m_i m_j (r_ij^2 + eps^2)^-1/2, summed over row blocks
     of about 2^22 pairs (2^26 on a card, where a block is a round of
     launches: at N = 1e6 small blocks make the sum launch-bound), never the
-    whole N x N matrix."""
+    whole N x N matrix.
+
+    Given the ``domain`` of a P3M run on a box periodic on every axis, it is
+    the potential that P3M solves instead, in O(N log N)
+    (``pm.p3m_energy``, the short range within ``cutoff``, the window's;
+    None: every pair, as the dense engine sums them)."""
+    if (domain is not None and cfg.grav_solver == "p3m"
+            and all(domain.periodic_axes(state.dim))):
+        from sphax_torch.physics import pm
+        return pm.p3m_energy(state.pos, state.mass, cfg, domain, cutoff)
     pos, mass = state.pos, state.mass
     n = pos.shape[0]
     if block is None:
@@ -57,8 +67,10 @@ def mach_rms(state: ParticleState):
     return torch.sqrt(torch.mean(v2 / torch.clamp_min(state.cs, 1e-30) ** 2))
 
 
-def summary(state: ParticleState, cfg: SPHConfig, t: float) -> dict:
-    """JSONL-ready scalar record (one host transfer of the scalars)."""
+def summary(state: ParticleState, cfg: SPHConfig, t: float,
+            domain: Domain = None, cutoff: float = None) -> dict:
+    """JSONL-ready scalar record (one host transfer of the scalars);
+    ``domain`` and ``cutoff`` as ``gravitational_energy`` takes them."""
     p = momentum(state)
     scalars = [kinetic_energy(state), internal_energy(state), p[0], p[1],
                torch.max(torch.sqrt(torch.sum(state.vel ** 2, -1))),
@@ -67,7 +79,8 @@ def summary(state: ParticleState, cfg: SPHConfig, t: float) -> dict:
     if state.dim == 3:
         scalars.append(p[2])
     if cfg.gravity:
-        scalars.append(gravitational_energy(state, cfg))
+        scalars.append(gravitational_energy(state, cfg, domain=domain,
+                                            cutoff=cutoff))
     vals = torch.stack(scalars).double().tolist()
     rec = dict(t=float(t), e_kin=vals[0], e_int=vals[1], px=vals[2],
                py=vals[3], max_v=vals[4], max_rho=vals[5], min_rho=vals[6],

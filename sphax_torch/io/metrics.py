@@ -13,12 +13,18 @@ the same clock as the device's kernels. The program emits the names of
 ``rungs.simulate_rungs``) holds ``sphax_torch.build`` (``window.build``)
 and ``sphax_torch.derived`` (a derived pass), which holds
 ``sphax_torch.kernel_a`` and ``sphax_torch.kernel_c`` (the wrappers of
-kernels A and C, packing and checks included). So ``profile=1``'s Chrome
-trace carries them. A span is a ``torch.profiler.record_function`` range
-only while a profiler records; otherwise it is one shared no-op context,
-whose cost (under a microsecond, a few a step) nothing measures.
+kernels A and C, packing and checks included). A derived pass with P3M
+gravity also holds ``MESH_SPAN``, ``sphax_torch.mesh``, around the FFT
+mesh (``pm.mesh_accel``); it stays out of ``SPANS``, the spans of every
+path, which the benchmark's idle split maps to its phases. So
+``profile=1``'s Chrome trace carries them. A span is a
+``torch.profiler.record_function`` range only while a profiler records;
+otherwise it is one shared no-op context, whose cost (under a
+microsecond, a few a step) nothing measures.
 
-Beside the spans the program keeps one counter, always on:
+Beside the spans the program keeps counters, always on: the host
+integers ``neighbors.window.BUILDS`` (window builds) and
+``physics.pm.SOLVES`` (mesh solves), and
 ``neighbors.window.CANDIDATES["sums"]``, a device tensor [candidate rows,
 rows] summed over the process's window builds. Each build adds the rows
 kernel A's walk offers each row that defines windows (its group's
@@ -46,15 +52,17 @@ from sphax_torch.diag import conservation
 SPANS = ("sphax_torch.step", "sphax_torch.tick", "sphax_torch.build",
          "sphax_torch.derived", "sphax_torch.kernel_a",
          "sphax_torch.kernel_c")
+# the P3M path's span inside ``sphax_torch.derived``, around the FFT mesh
+MESH_SPAN = "sphax_torch.mesh"
 
 _NO_SPAN = contextlib.nullcontext()
 
 
 def span(name: str):
     """A ``torch.profiler.record_function`` range named ``name`` (one of
-    ``SPANS``) while a profiler records, else a shared no-op context: an
-    idle ``record_function`` is itself a dispatcher call, some ten times
-    the cost of this check."""
+    ``SPANS``, or ``MESH_SPAN``) while a profiler records, else a shared
+    no-op context: an idle ``record_function`` is itself a dispatcher
+    call, some ten times the cost of this check."""
     if torch.autograd._profiler_enabled():
         return torch.profiler.record_function(name)
     return _NO_SPAN
@@ -73,8 +81,11 @@ class MetricsLogger:
         self.records = []
 
     def log(self, state: ParticleState, cfg: SPHConfig, t: float, step: int,
-            **extra) -> dict:
-        return self.log_record(conservation.summary(state, cfg, t),
+            domain=None, cutoff=None, **extra) -> dict:
+        """``domain`` and ``cutoff``: a periodic P3M run's, so that its
+        record takes the P3M potential (``conservation.summary``)."""
+        return self.log_record(conservation.summary(state, cfg, t, domain,
+                                                    cutoff),
                                step, state.n, **extra)
 
     def log_record(self, rec: dict, step: int, n: int, **extra) -> dict:

@@ -35,6 +35,10 @@ from sphax_torch.core.state import Domain
 
 _SQRT_PI = math.sqrt(math.pi)
 
+# mesh solves of this process (``mesh_accel`` calls), beside
+# ``neighbors.window.BUILDS``: a host integer, no device read
+SOLVES = {"n": 0}
+
 
 def short_range_factor(r, rs, eps):
     """f(r) with acc_i = -G sum_j m_j f(r_ij) dx_ij (screened, softened)."""
@@ -113,6 +117,37 @@ def rs_traced(cfg: SPHConfig, domain: Domain, dtype, cutoff=None):
     return rs
 
 
+def _periodic_phihat(grid, domain: Domain, G: float, rs, M: int):
+    """The periodic solve in k-space: (phi_hat, (kx, ky, kz), cell volume),
+    with phi_hat = -4 pi G exp(-k^2 rs^2) / k^2 / W^2 times the mass
+    grid's transform (the mean dropped), W the CIC window (clamped at
+    1e-3), so that ifftn(phi_hat) / volume is the Gaussian-filtered
+    potential on the nodes."""
+    dtype, dev = grid.dtype, grid.device
+    cell = domain.extent.to(dtype) / M
+    freq = torch.fft.fftfreq(M, dtype=dtype, device=dev)
+    k1 = [2 * math.pi * freq / cell[d] for d in range(3)]
+    kx = k1[0][:, None, None]
+    ky = k1[1][None, :, None]
+    kz = k1[2][None, None, :]
+    k2 = kx * kx + ky * ky + kz * kz
+    k2 = torch.where(k2 == 0.0, 1.0, k2)
+
+    def sinc(x):
+        return torch.where(x == 0.0, 1.0,
+                           torch.sin(x) / torch.where(x == 0.0, 1.0, x))
+    # W is the CIC kernel transform (per-axis sinc^2); one factor each
+    # is deconvolved for the deposit and the interpolation: W^2 total
+    W = (sinc(0.5 * kx * cell[0]) * sinc(0.5 * ky * cell[1])
+         * sinc(0.5 * kz * cell[2])) ** 2
+    W2 = torch.clamp_min(W, 1e-3) ** 2
+    mhat = torch.fft.fftn(grid)
+    phihat = (-4.0 * math.pi * G * torch.exp(-k2 * rs * rs) / k2
+              / W2) * mhat
+    phihat[0, 0, 0] = 0.0
+    return phihat, (kx, ky, kz), torch.prod(cell)
+
+
 def _solve_grids(grid, domain: Domain, G: float, rs, M: int, periodic: bool):
     """Poisson solve: mass grid -> [3, M, M, M] acceleration node grids
     (periodic: k-space Green's function; open: Hockney zero-padded
@@ -122,30 +157,9 @@ def _solve_grids(grid, domain: Domain, G: float, rs, M: int, periodic: bool):
     ext = domain.extent.to(dtype)
     cell = ext / M
     if periodic:
-        freq = torch.fft.fftfreq(M, dtype=dtype, device=dev)
-        k1 = [2 * math.pi * freq / cell[d] for d in range(3)]
-        kx = k1[0][:, None, None]
-        ky = k1[1][None, :, None]
-        kz = k1[2][None, None, :]
-        k2 = kx * kx + ky * ky + kz * kz
-        k2 = torch.where(k2 == 0.0, 1.0, k2)
-
-        def sinc(x):
-            return torch.where(x == 0.0, 1.0,
-                               torch.sin(x) / torch.where(x == 0.0, 1.0, x))
-        # W is the CIC kernel transform (per-axis sinc^2); one factor each
-        # is deconvolved for the deposit and the interpolation: W^2 total
-        W = (sinc(0.5 * kx * cell[0]) * sinc(0.5 * ky * cell[1])
-             * sinc(0.5 * kz * cell[2])) ** 2
-        W2 = torch.clamp_min(W, 1e-3) ** 2
-        mhat = torch.fft.fftn(grid)
-        phihat = (-4.0 * math.pi * G * torch.exp(-k2 * rs * rs) / k2
-                  / W2) * mhat
-        phihat[0, 0, 0] = 0.0
-        vol = torch.prod(cell)
+        phihat, ks, vol = _periodic_phihat(grid, domain, G, rs, M)
         return torch.stack(
-            [torch.fft.ifftn(-1j * kd * phihat).real / vol
-             for kd in (kx, ky, kz)])
+            [torch.fft.ifftn(-1j * kd * phihat).real / vol for kd in ks])
     P = 2 * M
     gpad = grid.new_zeros((P, P, P))
     gpad[:M, :M, :M] = grid
@@ -200,6 +214,7 @@ def mesh_accel(pos, mass, cfg: SPHConfig, domain: Domain, rs=None,
     lo = domain.lo.to(dtype)
     cell = domain.extent.to(dtype) / M
     pos_dep = domain.wrap(pos)
+    SOLVES["n"] += 1
     grid = _deposit(pos_dep, mass, lo, cell, M, periodic)
     if group is not None:
         grid = group.all_reduce_sum(grid)
@@ -271,3 +286,115 @@ def p3m_accel_dense(pos, mass, cfg: SPHConfig, domain: Domain):
     """Full P3M acceleration with the dense short-range path."""
     return (mesh_accel(pos, mass, cfg, domain)
             + short_accel_dense(pos, mass, cfg, domain))
+
+
+# ---- the P3M potential energy (periodic box) --------------------------------
+
+
+def mesh_potential(pos, mass, cfg: SPHConfig, domain: Domain, rs):
+    """The long-range (Gaussian-filtered) potential at each particle [N] on
+    a periodic box: ``mesh_accel``'s deposit and Green's function, without
+    the gradient, interpolated back by CIC. It holds each particle's own
+    long-range potential, about -G m_i / (r_s sqrt(pi))."""
+    M = int(cfg.grav_mesh)
+    dtype = pos.dtype
+    lo = domain.lo.to(dtype)
+    cell = domain.extent.to(dtype) / M
+    pos_dep = domain.wrap(pos)
+    grid = _deposit(pos_dep, mass, lo, cell, M, True)
+    phihat, _, vol = _periodic_phihat(grid, domain, float(cfg.G), rs, M)
+    phi = torch.fft.ifftn(phihat).real / vol
+    return _interp([phi], pos_dep, lo, cell, M, True)[:, 0]
+
+
+def short_potential(pos, mass, cfg: SPHConfig, domain: Domain, rs,
+                    cutoff=None, chunk: int = 1 << 24):
+    """The screened, Plummer-softened pair potential at each particle [N]
+    on a periodic box: -G sum_j m_j erfc(r / 2 r_s) (r^2 + eps^2)^-1/2 over
+    the minimum images with 0 < r <= ``cutoff``, every pair where
+    ``cutoff`` is None (as ``short_accel_dense`` sums them). With cells at
+    least ``cutoff`` wide, three or more a side, each particle meets the
+    particles of the 27 cells around its own, about ``chunk`` candidate
+    pairs at a time; otherwise every pair, in blocks of rows."""
+    G, eps2 = float(cfg.G), float(cfg.grav_eps) ** 2
+    n, dtype, dev = pos.shape[0], pos.dtype, pos.device
+    x = domain.wrap(pos)
+    ext = domain.extent.to(dtype)
+
+    def terms(dx, m_j):
+        r2 = torch.sum(dx * dx, dim=-1)
+        r = torch.sqrt(r2)
+        ok = r > 0.0
+        if cutoff is not None:
+            ok = ok & (r <= cutoff)
+        t = m_j * torch.special.erfc(r / (2.0 * rs)) * torch.rsqrt(
+            r2 + eps2)
+        return torch.where(ok, t, 0.0)
+
+    nc = (torch.floor(ext / cutoff).long() if cutoff is not None
+          else torch.zeros(3, dtype=torch.long))
+    if int(nc.min()) < 3:
+        phi = pos.new_zeros(n)
+        block = max(1, chunk // max(n, 1))
+        for i0 in range(0, n, block):
+            dx = domain.displacement(x[i0:i0 + block, None, :] - x[None])
+            phi[i0:i0 + block] = torch.sum(terms(dx, mass[None, :]), dim=-1)
+        return -G * phi
+    nc = nc.to(dev)
+    c3 = torch.floor((x - domain.lo.to(dtype)) / ext * nc).long()
+    c3 = torch.minimum(torch.clamp_min(c3, 0), nc - 1)
+    flat = (c3[:, 0] * nc[1] + c3[:, 1]) * nc[2] + c3[:, 2]
+    order = torch.argsort(flat)
+    xs, ms, cs = x[order], mass[order], c3[order]
+    count = torch.bincount(flat, minlength=int(torch.prod(nc)))
+    start = torch.cumsum(count, 0) - count
+    phi_s = pos.new_zeros(n)
+    for off in ((a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1)
+                for c in (-1, 0, 1)):
+        nb = torch.remainder(cs + torch.tensor(off, device=dev), nc)
+        nb = (nb[:, 0] * nc[1] + nb[:, 1]) * nc[2] + nb[:, 2]
+        cnt, st = count[nb], start[nb]
+        ends = torch.cumsum(cnt, 0)
+        # rows [a, b) whose candidates fill about ``chunk`` pairs
+        cuts = torch.searchsorted(
+            ends, torch.arange(chunk, int(ends[-1]) + chunk, chunk,
+                               device=dev), right=True).tolist()
+        a = 0
+        for b in cuts:
+            if a >= n:
+                break
+            # a row with more than ``chunk`` candidates goes alone
+            b = min(max(b, a + 1), n)
+            c = cnt[a:b]
+            rows = torch.repeat_interleave(
+                torch.arange(a, b, device=dev), c)
+            first = torch.cumsum(c, 0) - c
+            j = st[rows] + (torch.arange(len(rows), device=dev)
+                            - torch.repeat_interleave(first, c))
+            dx = domain.displacement(xs[rows] - xs[j])
+            phi_s.index_add_(0, rows, terms(dx, ms[j]))
+            a = b
+    phi = torch.empty_like(phi_s)
+    phi[order] = phi_s
+    return -G * phi
+
+
+def p3m_energy(pos, mass, cfg: SPHConfig, domain: Domain, cutoff=None):
+    """The P3M potential energy of a periodic box, 1/2 sum_i m_i phi_i, in
+    the Ewald sum's convention (a neutralising background, the potential
+    of zero mean): phi_i is the mesh's Gaussian-filtered potential
+    interpolated (``mesh_potential``) plus the screened pair potential
+    within ``cutoff`` (``short_potential``), minus the particle's own
+    long-range potential that the mesh holds, -G m_i / (r_s sqrt(pi)),
+    plus the background's short range, which the mesh drops with the
+    mean, 4 pi G M r_s^2 / V. r_s is the force's: ``rs_traced`` at
+    ``cutoff`` (the window's, or None for the dense engine's short range
+    over every pair)."""
+    G = float(cfg.G)
+    rs = rs_traced(cfg, domain, pos.dtype, cutoff=cutoff)
+    phi = (mesh_potential(pos, mass, cfg, domain, rs)
+           + short_potential(pos, mass, cfg, domain, rs, cutoff=cutoff))
+    vol = torch.prod(domain.extent.to(pos.dtype))
+    phi = phi + G * mass / (rs * _SQRT_PI) + (
+        4.0 * math.pi * G * rs * rs / vol) * torch.sum(mass)
+    return 0.5 * torch.sum(mass * phi)

@@ -29,7 +29,7 @@ from sphax_torch.configs import SPHConfig
 from sphax_torch.core.state import Domain, ParticleState
 from sphax_torch.integrate import leapfrog
 from sphax_torch.integrate.timestep import local_dt
-from sphax_torch.io.metrics import span
+from sphax_torch.io.metrics import MESH_SPAN, span
 from sphax_torch.neighbors import window as win
 from sphax_torch.neighbors.window import WindowData, WindowSpec
 from sphax_torch.physics import clist, direct_gravity, pm
@@ -280,8 +280,9 @@ def derived_with(state: ParticleState, wd, cfg: SPHConfig, domain: Domain,
         if p3m:
             # O(N log N) FFT mesh long range on the unsorted state (Ewald on a
             # periodic box, Hockney free space on an open one)
-            acc = acc + pm.mesh_accel(state.pos, state.mass, cfg, domain,
-                                      rs=rs)
+            with span(MESH_SPAN):
+                acc = acc + pm.mesh_accel(state.pos, state.mass, cfg, domain,
+                                          rs=rs)
         elif cfg.gravity and not any(domain.periodic_axes(state.dim)):
             # direct sum, kernel G (open-boundary convention)
             acc = acc + direct_gravity.gravity(state.pos, state.mass, cfg)

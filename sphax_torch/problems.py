@@ -12,7 +12,8 @@ problem and device:
 - otherwise (on the CPU, or where the planner rejects the box) the cell
   list above 3,000 particles (``choose_grid`` at h_max = h_margin max h)
   and the dense engine at or below it;
-- ``turb`` always takes the window engine and ``evrard`` always dense.
+- ``turb`` and ``cloud`` always take the window engine and ``evrard``
+  always dense.
 
 This is the JAX version's choice on every device. ``Problem.engine_name``
 says which ran, and ``Problem.grid`` holds the cell list's grid. A driven
@@ -254,4 +255,38 @@ def turb(n: int = 48, accel_rms: float = 3.0, tau: float = 0.5, seed: int = 1,
                    noise=noise, seed=int(seed))
 
 
-REGISTRY = dict(sod=sod, sedov=sedov, kh=kh, evrard=evrard, turb=turb)
+def cloud(n: int = 256, jeans: float = 222.0, mesh: int = 384,
+          rs_cells: float = 1.25, eps: float = 0.0018, kmax: float = 16.0,
+          delta: float = 0.1, seed: int = 1, dtype=torch.float32,
+          device=None, **kw) -> Problem:
+    """A periodic self-gravitating isothermal cloud (``ics.cloud``): the
+    unit box holds ``jeans`` Jeans masses, P3M gravity on a ``mesh``^3 FFT
+    mesh with r_s = ``rs_cells`` mesh cells and Plummer softening ``eps``,
+    the Zel'dovich-displaced lattice of a Gaussian field (P(k) ~ k^-2 for
+    1 <= |k| <= ``kmax``, rms ``delta``) drawn from ``seed``. Undriven;
+    always the window engine, planned as ``turb`` plans it at the lattice
+    h (eta / n), so the structural h cap is 1.625 eta / n. Runs to one
+    free-fall time: at n = 256 the collapse outgrows that plan's window
+    structure between 1.2 and 1.6 free-fall times (wider window segments
+    put it off by a few dozen steps), which aborts a run."""
+    from sphax_torch.ics import cloud as ics
+    dev = _device(device)
+    eta = configs.TURB.eta
+    ic = ics.build(int(n), jeans=float(jeans), kmax=float(kmax),
+                   delta_rms=float(delta), seed=int(seed), eta=eta,
+                   device=dev)
+    cfg = _cfg_kw(dataclasses.replace(
+        configs.TURB, newton_iters=2, gravity=True, G=ic["G"],
+        grav_solver="p3m", grav_mesh=int(mesh),
+        grav_rs_cells=float(rs_cells), grav_eps=float(eps)), kw)
+    dom = _box(ic, 3, dtype, dev)
+    st = _state(ic, dtype, dev)
+    plan = st._replace(h=torch.full_like(st.h, eta / int(n)))
+    eng, spec = _window_engine(plan, cfg, dom)
+    return Problem("cloud", eng(st), cfg, dom, eng,
+                   t_end=ics.free_fall_time(cfg.G), wspec=spec,
+                   engine_name="window")
+
+
+REGISTRY = dict(sod=sod, sedov=sedov, kh=kh, evrard=evrard, turb=turb,
+                cloud=cloud)

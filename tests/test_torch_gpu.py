@@ -1383,3 +1383,33 @@ def test_graphed_loop_hands_steps_its_buffer(cuda, monkeypatch):
         assert not torch.equal(seen[0][0].pos, seen[0][1])
         assert torch.equal(seen[-1][0].pos, seen[-1][1])
         assert sn.pos is not buf and st.pos is not buf
+
+
+@pytest.mark.gpu
+def test_cloud_runs_c_grav_and_the_mesh_once_a_step(cuda):
+    """``cloud`` (n = 32, a 48^3 mesh) on the card: each step of the
+    fixed-cadence loop launches kernel C once, in its gravity mode, and
+    solves the mesh once, and a derived pass in fp64 equals the plain P3M
+    path on the CPU (1e-10 of the largest acceleration)."""
+    p = problems.cloud(n=32, mesh=48, dtype=torch.float64, device=cuda,
+                       seed=2**31 + 3)
+    n0, s0 = dict(wk.LAUNCHES), pm.SOLVES["n"]
+    _, _, dts, ovf = wengine.simulate(p.state, p.cfg, p.domain, p.wspec, 4)
+    torch.cuda.synchronize()
+    assert int(ovf) == 0 and len(dts) == 4
+    grown = {k: wk.LAUNCHES[k] - n0[k] for k in n0}
+    assert grown["forces_grav"] == 4 and grown["forces"] == 0
+    assert grown["solve_h_density"] == 4
+    assert pm.SOLVES["n"] == s0 + 4
+    # the same state's pass on the CPU (the generators of the two devices
+    # draw different fields, so the card's state is copied over)
+    st = p.state._replace(**{f: getattr(p.state, f).cpu()
+                             for f in p.state._fields})
+    dom = box(torch.zeros(3, dtype=torch.float64),
+              torch.ones(3, dtype=torch.float64))
+    got = wengine.update_derived(p.state, p.cfg, p.domain, p.wspec)
+    want = wengine.update_derived(st, p.cfg, dom, p.wspec)
+    scale = float(want.acc.abs().max())
+    torch.testing.assert_close(got.acc.cpu(), want.acc, rtol=1e-10,
+                               atol=1e-10 * scale)
+    torch.testing.assert_close(got.rho.cpu(), want.rho, rtol=1e-10, atol=0)
