@@ -334,10 +334,21 @@ Phases, in order; any failed check raises and exits non-zero:
                ms; a derived pass bitwise equal to the plain versions' and
                to the frozen pass of tests/_rowpack_frozen.py, one launch
                of each kernel
+ 46. cic       the P3M mesh's CIC kernels (``csrc/cic.cu``) at
+               cloud256.p3m's shapes (``ics.cloud`` at n = 256, N =
+               16,777,216, M = 384, fp32): the interpolation of the solved
+               grids (3, and 1 as ``mesh_potential`` takes) bitwise equal to
+               ``pm._interp_plain``, the deposit within 1e-6 of the largest
+               cell of ``pm._deposit_plain`` and the total mass within 1e-6;
+               one launch a call; ms a launch, bound (bytes over 3.35 TB/s),
+               plain ms
 Each path runs with every launch count set to 0 just before it, and its
 counts are read just after: those of kernels A, C and G
-(``window_kernels.LAUNCHES``) and of the three row-packing kernels
-(``rowpack.LAUNCHES``). Every derived pass packs through those:
+(``window_kernels.LAUNCHES``), of the three row-packing kernels
+(``rowpack.LAUNCHES``) and of the two CIC kernels (``pm.LAUNCHES``). A
+P3M derived pass launches ``cic_deposit`` and ``cic_interp`` once each, a
+launch of C's gravity mode, and a P3M CLI record's potential once more.
+Every derived pass packs through the row-packing kernels:
 ``rowpack_gather_a`` launches once a launch of A, a shard's pass and the
 block timesteps' seeding pass included, and on one device
 ``rowpack_gather_c`` and ``rowpack_scatter_out`` once a launch of C (a
@@ -572,14 +583,23 @@ def main():
     paths = {}
 
     def zero_counts():
-        """Set the launch counts of kernels A, C and G and of the three
-        row-packing kernels to 0."""
-        for c_ in (wk.LAUNCHES, rowpack.LAUNCHES):
+        """Set the launch counts of kernels A, C and G, of the three
+        row-packing kernels and of the two CIC kernels to 0."""
+        for c_ in (wk.LAUNCHES, rowpack.LAUNCHES, pm.LAUNCHES):
             for k in c_:
                 c_[k] = 0
 
     def counts():
-        return dict(wk.LAUNCHES) | dict(rowpack.LAUNCHES)
+        return dict(wk.LAUNCHES) | dict(rowpack.LAUNCHES) | dict(pm.LAUNCHES)
+
+    def with_cic(want):
+        """``want`` with the CIC kernels' launches, where it does not give
+        them: one of each a launch of C's gravity mode (the P3M mesh of the
+        same derived pass)."""
+        n_g = sum(v for k, v in want.items() if k.startswith("forces_grav"))
+        if n_g == 0 or "cic_deposit" in want:
+            return want
+        return want | {"cic_deposit": n_g, "cic_interp": n_g}
 
     # one derived pass of the window engine: each row-packing kernel once
     one_pass = {k: 1 for k in rowpack.LAUNCHES}
@@ -591,8 +611,8 @@ def main():
     def shard_packing(want):
         """A shard rank's launches: its passes pack A's window through
         ``rowpack_gather_a``, once a launch of A; C's window they pack
-        themselves."""
-        return want | {"rowpack_gather_a": want["solve_h_density"]}
+        themselves; their P3M mesh launches the CIC kernels."""
+        return with_cic(want) | {"rowpack_gather_a": want["solve_h_density"]}
 
     def drive(name, run, want):
         """Run one path with every launch count set to 0 just before it;
@@ -602,13 +622,14 @@ def main():
         through the row-packing kernels: ``rowpack_gather_a`` must launch
         once a launch of A (the rung path's seeding pass of A included),
         ``rowpack_gather_c`` and ``rowpack_scatter_out`` once a launch of
-        C."""
+        C; and the CIC kernels as ``with_cic`` has them."""
         zero_counts()
         out = run()
         torch.cuda.synchronize()
         paths[name] = counts()
         if callable(want):
             want = want(out)
+        want = with_cic(want)
         n_a, n_c = (sum(v for k, v in want.items() if k.startswith(base))
                     for base in ("solve_h_density", "forces"))
         want = want | {"rowpack_gather_a": n_a, "rowpack_gather_c": n_c,
@@ -2601,7 +2622,7 @@ def main():
         wall = time.perf_counter() - t0
         torch.cuda.synchronize()
         setup = {k: v for k, v in counts().items() if v}
-        assert setup == setup_want | one_pass, (tag, setup)
+        assert setup == with_cic(setup_want) | one_pass, (tag, setup)
         recs = records(out)
         assert all(r["finite"] for r in recs), tag
         chunks = [r["chunk"] for r in recs if "chunk" in r]
@@ -2872,11 +2893,15 @@ def main():
     # ---- 45. the derived pass's row gathers and packing at turb256 -------
     rp_rec = rowpack_phase(dev, helpers)
 
+    # ---- 46. the P3M mesh's CIC kernels at cloud256 ----------------------
+    cic_rec = cic_phase(dev, helpers)
+
     def total(kernel):
         return sum(p_[kernel] for p_ in paths.values())
 
-    # each row-packing kernel's launches over every path, as A's and C's
-    for row in rp_rec["kernels"]:
+    # each row-packing and CIC kernel's launches over every path, as A's
+    # and C's
+    for row in rp_rec["kernels"] + cic_rec["kernels"]:
         row["launches"] = total(row["name"])
 
     src = "sphax_torch/csrc/window_kernels.cu"
@@ -3123,7 +3148,7 @@ def main():
                              for k, v in g_by_n.items()},
          "slices": {k: v["slices"] for k, v in g_by_n.items()},
          "runtime_at_64_cubed": g_launch},
-        *entry_rows,
+        *entry_rows, *cic_rec["kernels"],
     ], "launches_by_path": paths, "mesh_accel_ms": mesh_ms,
         "mesh_accel_device_ms": mesh_dev_ms,
         "p3m_step_ms": step_g * 1e3, "rs_mesh_cells": rs_cells,
@@ -3170,11 +3195,11 @@ def main():
         "h_predict": hp,
         "entry": entry_rec, "slow_gates": gates, "sanitize": san,
         "clist": clist_rec, "eq_slab": eq_rec, "sorted_mesh": sm_rec,
-        "phases_42_44_s": new_s, "rowpack": rp_rec,
+        "phases_42_44_s": new_s, "rowpack": rp_rec, "cic": cic_rec,
         "script_wall_s": time.perf_counter() - t_script,
         "build_s": _build.BUILD_INFO["seconds"],
         "card": card}
-    log(f"[done] phases 1-45 in {kernels['script_wall_s']:.1f} s")
+    log(f"[done] phases 1-46 in {kernels['script_wall_s']:.1f} s")
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -3718,7 +3743,10 @@ def sorted_mesh_phase(dev, h):
     h.drive("p3m CLI mesh_fb", lambda: cli(
         ["turb", "n=100", "gravity=1", "grav_solver=p3m", "grav_mesh=128",
          "max_steps=4", "chunk=4", f"out={out}"]),
-        {"solve_h_density": 5, "forces_grav": 5})
+        # 5 derived passes, and the P3M potential of the start's energy
+        # and of the record
+        {"solve_h_density": 5, "forces_grav": 5, "cic_deposit": 7,
+         "cic_interp": 7})
     wall = time.perf_counter() - t0
     recs = h.records(out)
     assert all(r["finite"] for r in recs), recs
@@ -4362,6 +4390,74 @@ def rowpack_phase(dev, h, n_side=256):
         f"the plain versions")
     return {"n": n, "n_sorted": Ns, "kernels": rows, "derived_ms": d_ms,
             "derived_plain_ms": dp_ms,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def cic_phase(dev, h, n_side=256, M=384):
+    """Phase 46: the P3M mesh's CIC kernels at cloud256.p3m's shapes
+    (``ab_kernels.cic_inputs``: N = n_side^3, M^3 mesh, fp32). The deposit
+    through ``cic_deposit`` against ``pm._deposit_plain``: every cell within
+    1e-6 of the largest, the total mass within 1e-6; the solved
+    acceleration grids interpolated through ``cic_interp`` (3 grids, and
+    the first alone) bitwise equal to ``pm._interp_plain``; one launch of
+    each kernel a call (a path of ``h.drive``); ms a launch (CUDA events),
+    the bound (``bounds.cic_bound``) and the plain version's ms. Returns
+    its record, with a row of the kernels' record for each kernel."""
+    from sphax_torch.ab_kernels import cic_inputs
+    from sphax_torch.bounds import cic_bound
+    from sphax_torch.physics import pm
+
+    t_phase = time.perf_counter()
+    pos, mass, lo, cell, cfg, dom = cic_inputs(dev, n_side, M)
+    n, dtype = pos.shape[0], pos.dtype
+    src = "sphax_torch/csrc/cic.cu"
+
+    def deposit():
+        return pm._deposit(pos, mass, lo, cell, M, True)
+
+    grid = h.drive("cic deposit", deposit, {"cic_deposit": 1})
+    want = pm._deposit_plain(pos, mass, lo, cell, M, True)
+    scale = float(want.abs().max())
+    e_dep = float((grid - want).abs().max()) / scale
+    total, m_sum = float(grid.double().sum()), float(mass.double().sum())
+    e_mass = abs(total - m_sum) / m_sum
+    assert e_dep <= 1e-6 and e_mass <= 1e-6, (e_dep, e_mass)
+    grids = pm._solve_grids(grid, dom, float(cfg.G),
+                            pm.rs_traced(cfg, dom, dtype), M, True)
+    del grid, want
+    for g in (3, 1):
+        got = h.drive(f"cic interp {g}", lambda: pm._interp(
+            grids[:g], pos, lo, cell, M, True), {"cic_interp": 1})
+        want = pm._interp_plain(grids[:g], pos, lo, cell, M, True)
+        assert got.shape == want.shape and torch.equal(got, want), (
+            f"cic_interp of {g} grids: {int((got != want).sum())} entries "
+            f"differ")
+    del got, want
+    cases = {
+        "cic_deposit": (deposit, lambda: pm._deposit_plain(
+            pos, mass, lo, cell, M, True), cic_bound(n, M, 0, dtype),
+            e_dep),
+        "cic_interp": (lambda: pm._interp(grids, pos, lo, cell, M, True),
+                       lambda: pm._interp_plain(grids, pos, lo, cell, M,
+                                                True),
+                       cic_bound(n, M, 3, dtype), 0.0)}
+    rows = []
+    for name, (kern, plain, (b_ms, by), err) in cases.items():
+        k_ms, _ = h.cuda_ms(kern, 20)
+        p_ms, _ = h.cuda_ms(plain, 3)
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": None, "ms": k_ms, "plain_ms": p_ms,
+                     "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+                     "max_err_over_scale": err, "n": n, "M": M,
+                     "grids": 3 if name == "cic_interp" else 0})
+        log(f"[46 cic] {name:12s} {k_ms:.3f} ms  bound {b_ms:.3f} ms ({by})"
+            f"  plain {p_ms:.3f} ms")
+    log(f"[46 cic] N={n} M={M} fp32: deposit within {e_dep:.3g} of the "
+        f"largest cell (tol 1e-6), total mass within {e_mass:.3g}; the "
+        f"interpolation of 3 and of 1 grid bitwise equal to the plain "
+        f"version; one launch a call")
+    return {"n": n, "M": M, "kernels": rows, "deposit_max_err_over_scale":
+            e_dep, "deposit_mass_err": e_mass,
             "seconds": time.perf_counter() - t_phase}
 
 

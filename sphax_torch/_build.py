@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "window_kernels.cu", CSRC / "gravity_kernel.cu",
-           CSRC / "rowpack.cu")
+           CSRC / "rowpack.cu", CSRC / "cic.cu")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "sphax_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
@@ -69,6 +69,17 @@ _ARGTYPES.update({
     # P, cs, om, du, divv, acc, stream
     "sphax_rowpack_scatter_out": [_P] * 9 + [_I] * 2 + [_P] * 9,
 })
+# the P3M mesh's CIC (csrc/cic.cu)
+_ARGTYPES.update({
+    # pos, mass, lo, cell, n, M, periodic, grid, stream
+    "sphax_cic_deposit": [_P] * 4 + [_I] * 3 + [_P] * 2,
+    # pos, lo, cell, grids, n, M, ngrids, periodic, out, stream
+    "sphax_cic_interp": [_P] * 4 + [_I] * 4 + [_P] * 2,
+})
+# the source of each entry point, by the word after ``sphax_``
+_SOURCE_OF = {"solve": "window_kernels.cu", "forces": "window_kernels.cu",
+              "gravity": "gravity_kernel.cu", "rowpack": "rowpack.cu",
+              "cic": "cic.cu"}
 
 
 def cuda_tool(name: str):
@@ -136,11 +147,14 @@ def build(sources=SOURCES) -> Path:
     return out
 
 
-def open_library(path) -> ctypes.CDLL:
-    """Load a built library and declare the types of its f32 and f64 entry
-    points."""
+def open_library(path, sources=SOURCES) -> ctypes.CDLL:
+    """Load a library built from ``sources`` and declare the types of the
+    f32 and f64 entry points that they define."""
+    names = {src.name for src in sources}
     lib = ctypes.CDLL(str(path))
     for base in _ARGTYPES:
+        if _SOURCE_OF[base.split("_")[1]] not in names:
+            continue
         for suffix in ("f32", "f64"):
             fn = getattr(lib, f"{base}_{suffix}")
             fn.argtypes = _ARGTYPES[base]

@@ -1,7 +1,9 @@
 """Kernels A, C and G built from two source trees, timed in one process on
-one card.
+one card; and the P3M mesh's CIC kernels against the torch CIC they
+replaced.
 
     python -m sphax_torch.ab_kernels OTHER_CSRC [ROUNDS]
+    python -m sphax_torch.ab_kernels --cic [ROUNDS]
 
 OTHER_CSRC is another version's ``sphax_torch/csrc`` (for example a parent
 commit unpacked with ``git archive`` into a directory that ``.gitignore``
@@ -42,6 +44,14 @@ computed time, not a measured one; and the SM clock and board power that
 record with each version's median ms per case. The machine's counters
 (scheduler slots, stall reasons, achieved occupancy) need Nsight Compute,
 which this script does not drive.
+
+``--cic`` times the CIC deposit and interpolation (``csrc/cic.cu``) at
+``cloud256.p3m``'s shapes (``cic_turns``: the cloud's particles at n = 256
+in the state's order, fp32, M = 384, the three acceleration grids) against
+``pm._deposit_plain`` and ``pm._interp_plain`` on the same card, and the
+whole of ``pm.mesh_accel`` through each, in turns (plain, kernel, kernel,
+plain; CUDA events over 5 calls); each kernel's bound is
+``bounds.cic_bound``. A source tree without ``cic.cu`` builds without it.
 """
 from __future__ import annotations
 
@@ -59,7 +69,7 @@ from pathlib import Path
 import torch
 
 from sphax_torch import _build, bench, configs, make_state, problems
-from sphax_torch.bounds import gravity_bound
+from sphax_torch.bounds import cic_bound, gravity_bound
 from sphax_torch.core.state import box
 from sphax_torch.ics import lattice
 from sphax_torch.integrate import rungs
@@ -493,6 +503,72 @@ def g_sweep(dev, rounds=2) -> dict:
     return times
 
 
+def _plain_cic(fn):
+    """``fn`` run with ``pm``'s CIC wrappers swapped for the plain
+    versions: the mesh as it ran before the CIC kernels."""
+    def run():
+        saved = pm._deposit, pm._interp
+        pm._deposit, pm._interp = pm._deposit_plain, pm._interp_plain
+        try:
+            return fn()
+        finally:
+            pm._deposit, pm._interp = saved
+    return run
+
+
+def cic_inputs(dev, n_side=256, M=384, dtype=torch.float32):
+    """The CIC's inputs at ``cloud256.p3m``'s shapes: the cloud's particles
+    at ``n_side`` in the state's order, wrapped into the unit box, their
+    masses, the mesh's lo and cell at M, the P3M configuration and the
+    domain: (pos, mass, lo, cell, cfg, dom)."""
+    from sphax_torch.ics import cloud as ics
+
+    ic = ics.build(n_side, jeans=222.0, kmax=16.0, delta_rms=0.1, seed=1,
+                   eta=configs.TURB.eta, device=dev)
+    dom = box(torch.zeros(3, dtype=dtype, device=dev),
+              torch.ones(3, dtype=dtype, device=dev))
+    pos = dom.wrap(ic["pos"].to(dtype))
+    mass = ic["mass"].to(dtype)
+    cfg = dataclasses.replace(configs.TURB, gravity=True, G=ic.pop("G"),
+                              grav_solver="p3m", grav_mesh=M,
+                              grav_rs_cells=1.25, grav_eps=0.0018)
+    return pos, mass, dom.lo, dom.extent / M, cfg, dom
+
+
+def cic_turns(dev, rounds=3, n_side=256, M=384, reps=5) -> dict:
+    """The CIC kernels and ``mesh_accel`` against the plain torch CIC at
+    ``cloud256.p3m``'s shapes, in turns: {case: {"plain": [ms], "kernel":
+    [ms]}}, with each kernel's bound and the first round's launches."""
+    dtype = torch.float32
+    pos, mass, lo, cell, cfg, dom = cic_inputs(dev, n_side, M, dtype)
+    g = torch.Generator(device=dev).manual_seed(5)
+    grids = torch.randn((3, M, M, M), generator=g, device=dev, dtype=dtype)
+    mesh = lambda: pm.mesh_accel(pos, mass, cfg, dom)
+    cases = {
+        "deposit": (lambda: pm._deposit_plain(pos, mass, lo, cell, M, True),
+                    lambda: pm._deposit(pos, mass, lo, cell, M, True)),
+        "interp": (lambda: pm._interp_plain(grids, pos, lo, cell, M, True),
+                   lambda: pm._interp(grids, pos, lo, cell, M, True)),
+        "mesh_accel": (_plain_cic(mesh), mesh),
+    }
+    n0 = dict(pm.LAUNCHES)
+    out = {k: {"plain": [], "kernel": []} for k in cases}
+    for r in range(rounds):
+        for k, (plain, kernel) in cases.items():
+            for tag, fn in (("plain", plain), ("kernel", kernel),
+                            ("kernel", kernel), ("plain", plain)):
+                out[k][tag].append(_ms(fn, reps))
+        if r == 0:
+            launched = {k: pm.LAUNCHES[k] - n0[k] for k in n0}
+    n = pos.shape[0]
+    return {"n": n, "M": M, "ms": out, "launches_first_round": launched,
+            "median_ms": {k: {t: statistics.median(v) for t, v in d.items()}
+                          for k, d in out.items()},
+            "bound_ms": {"deposit": cic_bound(n, M, 0, dtype),
+                         "interp": cic_bound(n, M, 3, dtype)},
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
@@ -500,17 +576,22 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("sphax_torch.ab_kernels needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    other = Path(argv[0])
     rounds = int(argv[1]) if len(argv) > 1 else 3
+    if argv[0] == "--cic":
+        print(json.dumps({"card": bench.card(),
+                          **cic_turns(torch.device("cuda"), rounds)}))
+        return
+    other = Path(argv[0])
     libs, regs, sass = {}, {}, {}
     for tag, sources in (("this", _build.SOURCES),
                          ("other", tuple(other / s.name
-                                         for s in _build.SOURCES))):
+                                         for s in _build.SOURCES
+                                         if (other / s.name).exists()))):
         # built afresh, so that ptxas reports on both
         _build.library_path(sources).unlink(missing_ok=True)
         _build.BUILD_INFO.update(ptxas="")
         path = _build.build(sources)
-        libs[tag] = _build.open_library(path)
+        libs[tag] = _build.open_library(path, sources)
         regs[tag] = registers(_build.BUILD_INFO["ptxas"])
         sass[tag] = sass_per_pair(path)
     for tag in regs:

@@ -32,7 +32,7 @@ from sphax_torch.configs import SPHConfig
 from sphax_torch.core.state import Domain, ParticleState
 from sphax_torch.dist import comm as comm_mod
 from sphax_torch.dist import pencil, prungs, wrungs, wslab
-from sphax_torch.physics import rowpack
+from sphax_torch.physics import pm, rowpack
 from sphax_torch.physics import window_kernels as wk
 
 
@@ -79,7 +79,7 @@ def split_pencil(state: ParticleState, domain: Domain, ns0: int, ns1: int):
 
 def _launches() -> dict:
     """This process's launch counts of every hand-written CUDA kernel."""
-    return dict(wk.LAUNCHES) | dict(rowpack.LAUNCHES)
+    return dict(wk.LAUNCHES) | dict(rowpack.LAUNCHES) | dict(pm.LAUNCHES)
 
 
 class SlabRun:
@@ -91,9 +91,9 @@ class SlabRun:
     is the rank's OU noise source when ``drive_spec`` is given: every rank
     must draw the same stream. After ``run_chunk``, ``stats`` holds this
     rank's share of the chunk: its steps, builds, wall seconds, host-staged
-    bytes, kernel launches (``window_kernels.LAUNCHES`` and
-    ``rowpack.LAUNCHES`` keys), the rebalance's seconds and the
-    migration's passes and seconds.
+    bytes, kernel launches (``window_kernels.LAUNCHES``,
+    ``rowpack.LAUNCHES`` and ``pm.LAUNCHES`` keys), the rebalance's seconds
+    and the migration's passes and seconds.
 
     ``n_rungs = B > 1`` runs block timesteps on B rungs: a chunk is whole
     spans of 2^(B-1) ticks, ``rebuild_every`` falls to 1 where it does not

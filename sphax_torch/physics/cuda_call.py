@@ -1,13 +1,22 @@
 """What the wrappers of the hand-written CUDA kernels share
 (``window_kernels`` for kernels A and C, ``rowpack`` for the derived
-pass's row packing): a tensor's pointer, the checks of what a kernel
-takes, and the launch on the current stream with its count.
+pass's row packing, ``pm`` for the P3M mesh's CIC): the choice between a
+kernel and its plain version, a tensor's pointer, the checks of what a
+kernel takes, and the launch on the current stream with its count.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+
+
+def plain_here(t) -> bool:
+    """True for a CPU tensor, which the plain version takes; False for a
+    CUDA tensor, which the kernel takes; raise on any other device."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {t.device}")
+    return t.device.type == "cpu"
 
 
 def ptr(t):

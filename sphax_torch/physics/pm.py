@@ -16,9 +16,14 @@ the long-range force on a CIC mesh solved by FFT:
 - open box: the Hockney-Eastwood zero-padded convolution with the sampled
   free-space force kernels.
 
-The mesh is plain torch, as it is jnp in the JAX package: the deposit is an
-``index_add_`` on the flattened grid (atomics on a GPU, so its sums are not
-bitwise deterministic there), the solve ``torch.fft``. ``mesh_accel_sorted``
+The solve is ``torch.fft``. The CIC deposit and interpolation choose by the
+device of the positions, as the other kernel wrappers do: a CUDA tensor
+launches the hand-written kernels of ``sphax_torch/csrc/cic.cu`` (one pass
+over the particles each; the deposit's atomics make its sums' order, not
+their terms, vary from run to run), a CPU tensor runs the plain torch
+versions beside them (``_deposit_plain``, an ``index_add_`` a corner on the
+flattened grid, and ``_interp_plain``), which the kernels are held to on
+the card: the interpolation bit for bit. ``mesh_accel_sorted``
 is the JAX package's sorted-order CIC (``pm_sorted``: brick matrix
 products over the window structure's sorted rows), which worked around the
 TPU's serialized scatter; on a card the scatter mesh is the cheaper one,
@@ -32,12 +37,16 @@ import torch
 
 from sphax_torch.configs import SPHConfig
 from sphax_torch.core.state import Domain
+from sphax_torch.physics.cuda_call import (check_fields, launch,
+                                           plain_here, ptr)
 
 _SQRT_PI = math.sqrt(math.pi)
 
 # mesh solves of this process (``mesh_accel`` calls), beside
 # ``neighbors.window.BUILDS``: a host integer, no device read
 SOLVES = {"n": 0}
+# Launches of each CUDA kernel; a wrapper adds one where it launches.
+LAUNCHES = {"cic_deposit": 0, "cic_interp": 0}
 
 
 def short_range_factor(r, rs, eps):
@@ -81,10 +90,8 @@ def _corners(i0, f, M: int, periodic: bool):
                 yield (ix.long() * M + iy) * M + iz, w
 
 
-def _deposit(pos, mass, lo, cell, M: int, periodic: bool):
+def _deposit_plain(pos, mass, lo, cell, M: int, periodic: bool):
     """CIC mass deposit onto an [M, M, M] node grid."""
-    if pos.shape[1] != 3:
-        raise ValueError("the P3M mesh is 3D")
     i0, f = _cic_weights(pos, lo, cell, M, periodic)
     grid = pos.new_zeros(M * M * M)
     for flat, w in _corners(i0, f, M, periodic):
@@ -92,7 +99,7 @@ def _deposit(pos, mass, lo, cell, M: int, periodic: bool):
     return grid.reshape(M, M, M)
 
 
-def _interp(grids, pos, lo, cell, M: int, periodic: bool):
+def _interp_plain(grids, pos, lo, cell, M: int, periodic: bool):
     """CIC interpolation of [D][M, M, M] grids back to particles -> [N, D]."""
     i0, f = _cic_weights(pos, lo, cell, M, periodic)
     corners = list(_corners(i0, f, M, periodic))
@@ -104,6 +111,50 @@ def _interp(grids, pos, lo, cell, M: int, periodic: bool):
             acc = acc + w * flat_g[flat]
         out.append(acc)
     return torch.stack(out, dim=-1)
+
+
+def _check_box(pos, lo, cell):
+    """Contiguous pos [N, 3], lo and cell [3] of pos's device and dtype."""
+    pos, lo, cell = pos.contiguous(), lo.contiguous(), cell.contiguous()
+    check_fields(pos, dict(pos=(pos, (pos.shape[0], 3)), lo=(lo, (3,)),
+                           cell=(cell, (3,))), contiguous=True)
+    return pos, lo, cell
+
+
+def _deposit(pos, mass, lo, cell, M: int, periodic: bool):
+    """CIC mass deposit onto an [M, M, M] node grid: the kernel
+    ``cic_deposit`` on a CUDA tensor, ``_deposit_plain`` on a CPU one."""
+    if pos.shape[1] != 3:
+        raise ValueError("the P3M mesh is 3D")
+    if plain_here(pos):
+        return _deposit_plain(pos, mass, lo, cell, M, periodic)
+    pos, lo, cell = _check_box(pos, lo, cell)
+    mass = mass.contiguous()
+    check_fields(pos, dict(mass=(mass, (pos.shape[0],))), contiguous=True)
+    grid = pos.new_zeros(M * M * M)
+    launch(LAUNCHES, "cic_deposit", pos.dtype, *map(ptr, (pos, mass, lo,
+           cell)), pos.shape[0], M, int(periodic), ptr(grid))
+    return grid.reshape(M, M, M)
+
+
+def _interp(grids, pos, lo, cell, M: int, periodic: bool):
+    """CIC interpolation of a stacked [D, M, M, M] tensor of grids (or a
+    sequence of D [M, M, M] grids; D at most 3 on a card) back to
+    particles -> [N, D]: the kernel ``cic_interp`` on a CUDA tensor,
+    ``_interp_plain`` on a CPU one."""
+    if plain_here(pos):
+        return _interp_plain(grids, pos, lo, cell, M, periodic)
+    pos, lo, cell = _check_box(pos, lo, cell)
+    grids = (grids if torch.is_tensor(grids)
+             else torch.stack(list(grids))).contiguous()
+    G = grids.shape[0]
+    if not 1 <= G <= 3:
+        raise ValueError(f"cic_interp reads 1 to 3 grids, not {G}")
+    check_fields(pos, dict(grids=(grids, (G, M, M, M))), contiguous=True)
+    out = pos.new_empty((pos.shape[0], G))
+    launch(LAUNCHES, "cic_interp", pos.dtype, *map(ptr, (pos, lo, cell,
+           grids)), pos.shape[0], M, G, int(periodic), ptr(out))
+    return out
 
 
 def rs_traced(cfg: SPHConfig, domain: Domain, dtype, cutoff=None):
@@ -187,8 +238,7 @@ def _solve_and_interp(grid, pos_eval, domain: Domain, G: float, rs, M: int,
     dtype = pos_eval.dtype
     cell = domain.extent.to(dtype) / M
     grids = _solve_grids(grid, domain, G, rs, M, periodic)
-    return _interp(list(grids), pos_eval, domain.lo.to(dtype), cell, M,
-                   periodic)
+    return _interp(grids, pos_eval, domain.lo.to(dtype), cell, M, periodic)
 
 
 def mesh_accel(pos, mass, cfg: SPHConfig, domain: Domain, rs=None,
@@ -304,7 +354,7 @@ def mesh_potential(pos, mass, cfg: SPHConfig, domain: Domain, rs):
     grid = _deposit(pos_dep, mass, lo, cell, M, True)
     phihat, _, vol = _periodic_phihat(grid, domain, float(cfg.G), rs, M)
     phi = torch.fft.ifftn(phihat).real / vol
-    return _interp([phi], pos_dep, lo, cell, M, True)[:, 0]
+    return _interp(phi[None], pos_dep, lo, cell, M, True)[:, 0]
 
 
 def short_potential(pos, mass, cfg: SPHConfig, domain: Domain, rs,

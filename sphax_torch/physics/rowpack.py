@@ -43,7 +43,7 @@ from sphax_torch.neighbors import window as win
 from sphax_torch.neighbors.window import WindowData
 from sphax_torch.physics import kernels as K
 from sphax_torch.physics.cuda_call import (check_fields, check_index,
-                                           launch, ptr)
+                                           launch, plain_here, ptr)
 
 # Launches of each CUDA kernel; a wrapper adds one where it launches.
 LAUNCHES = {"rowpack_gather_a": 0, "rowpack_gather_c": 0,
@@ -141,19 +141,11 @@ def scatter_out_plain(wd: WindowData, h_s, rho_s, P_s, cs_s, om_s, du_s,
 # ---------------------------------------------------------------------------
 
 
-def _plain_here(t) -> bool:
-    """True for a CPU tensor, which the plain version takes; False for a
-    CUDA tensor, which the kernel takes; raise on any other device."""
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no kernel for device {t.device}")
-    return t.device.type == "cpu"
-
-
 def gather_a(wd: WindowData, pos, vel, mass, u, h, alpha=None):
     """Kernel A's window from original-order fields ([n, dim] pos and vel,
     [n] the rest; ``alpha`` only with the Morris-Monaghan switch): (win
     [2 dim + 1, Ns], h0_s, u_s, alpha_s or None)."""
-    if _plain_here(pos):
+    if plain_here(pos):
         return gather_a_plain(wd, pos, vel, mass, u, h, alpha)
     (n, dim), Ns = pos.shape, wd.g.shape[0]
     if dim not in (1, 2, 3):
@@ -182,7 +174,7 @@ def gather_c(win_a, wd: WindowData, cfg: SPHConfig, h_s, rho_s, om_s, bf_s,
     ``mirrored`` holds the owner-mirrored (h, rho, P, cs, om, bf) that the
     plain kernel C reads; on a card it is six Nones, since kernel C reads
     the window alone."""
-    if _plain_here(win_a):
+    if plain_here(win_a):
         return gather_c_plain(win_a, wd, cfg, h_s, rho_s, om_s, bf_s, P_s,
                               cs_s)
     dim, Ns = cfg.dim, wd.src.shape[0]
@@ -206,7 +198,7 @@ def scatter_out(wd: WindowData, h_s, rho_s, P_s, cs_s, om_s, du_s, divv_s,
     """The outputs in original order: (h, rho, P, cs, om, du, divv, acc);
     separate contiguous tensors from the kernel, columns of one packed
     array from the plain version."""
-    if _plain_here(acc_s):
+    if plain_here(acc_s):
         return scatter_out_plain(wd, h_s, rho_s, P_s, cs_s, om_s, du_s,
                                  divv_s, acc_s)
     n, (Ns, dim) = wd.inv.shape[0], acc_s.shape

@@ -15,8 +15,9 @@ pencil ranks: A and C (and C's gravity mode) on a pencil shard's
 structure, and a lockstep with one device; the flagship step of
 ``sphax_torch.entry.entry()`` against its plain step; the small
 launches that ``compute-sanitizer`` checks; and the cell-list engine
-against the window engine, the equal-extent slabs against one device and
-the sorted-order P3M mesh against the scatter mesh.
+against the window engine, the equal-extent slabs against one device,
+the sorted-order P3M mesh against the scatter mesh, and the P3M mesh's CIC
+kernels against their plain versions (the interpolation bit for bit).
 
 These tests import no JAX (the machine with the card has none) and skip
 where no CUDA device is visible. Run them on the card without the suite's
@@ -732,10 +733,11 @@ def test_gravity_kernel_is_bitwise_repeatable(cuda, dtype, n):
 def test_cuda_tensor_never_runs_the_plain_version(cuda, monkeypatch):
     """A derived pass on the card launches each kernel of its branch once,
     and each of the three row-packing kernels once, and calls no plain
-    version: no gravity, P3M (kernel C in its gravity
-    mode), direct gravity in an open box (kernel G), the 2D kh
-    configuration (the dim=2 kernels) and the 1D line (the dim=1 kernels);
-    and all but the direct one with a compact spec (the compact walks)."""
+    version: no gravity, P3M (kernel C in its gravity mode, and the mesh's
+    two CIC kernels once each), direct gravity in an open box (kernel G),
+    the 2D kh configuration (the dim=2 kernels) and the 1D line (the dim=1
+    kernels); and all but the direct one with a compact spec (the compact
+    walks)."""
     def refuse(*a, **k):
         raise AssertionError("plain version called on a CUDA tensor")
 
@@ -745,6 +747,8 @@ def test_cuda_tensor_never_runs_the_plain_version(cuda, monkeypatch):
         monkeypatch.setattr(rowpack, name, refuse)
     monkeypatch.setattr(wengine, "gravity_short_pass", refuse)
     monkeypatch.setattr(dg, "gravity_plain", refuse)
+    monkeypatch.setattr(pm, "_deposit_plain", refuse)
+    monkeypatch.setattr(pm, "_interp_plain", refuse)
     direct = dataclasses.replace(P3M, grav_solver="direct")
     base = dataclasses.replace(configs.TURB, newton_iters=1)
     cases = [
@@ -765,12 +769,16 @@ def test_cuda_tensor_never_runs_the_plain_version(cuda, monkeypatch):
         st, dom, spec, _, _ = _inputs(cuda, torch.float32, periodic=periodic,
                                       dim=cfg.dim, compact=compact)
         n0, r0 = dict(wk.LAUNCHES), dict(rowpack.LAUNCHES)
+        c0 = dict(pm.LAUNCHES)
         out = wengine.update_derived(st, cfg, dom, spec)
         torch.cuda.synchronize()
         assert {k: wk.LAUNCHES[k] - n0[k] for k in n0} == {
             k: int(k in kernels) for k in n0}, (cfg, compact)
         assert {k: rowpack.LAUNCHES[k] - r0[k] for k in r0} == {
             k: 1 for k in r0}, (cfg, compact)
+        mesh = int(cfg.gravity and cfg.grav_solver == "p3m")
+        assert {k: pm.LAUNCHES[k] - c0[k] for k in c0} == {
+            k: mesh for k in c0}, (cfg, compact)
         assert bool(torch.isfinite(out.acc).all())
 
 
@@ -1389,11 +1397,13 @@ def test_graphed_loop_hands_steps_its_buffer(cuda, monkeypatch):
 def test_cloud_runs_c_grav_and_the_mesh_once_a_step(cuda):
     """``cloud`` (n = 32, a 48^3 mesh) on the card: each step of the
     fixed-cadence loop launches kernel C once, in its gravity mode, and
-    solves the mesh once, and a derived pass in fp64 equals the plain P3M
-    path on the CPU (1e-10 of the largest acceleration)."""
+    solves the mesh once through the two CIC kernels, and a derived pass
+    in fp64 equals the plain P3M path on the CPU (1e-10 of the largest
+    acceleration)."""
     p = problems.cloud(n=32, mesh=48, dtype=torch.float64, device=cuda,
                        seed=2**31 + 3)
     n0, s0 = dict(wk.LAUNCHES), pm.SOLVES["n"]
+    c0 = dict(pm.LAUNCHES)
     _, _, dts, ovf = wengine.simulate(p.state, p.cfg, p.domain, p.wspec, 4)
     torch.cuda.synchronize()
     assert int(ovf) == 0 and len(dts) == 4
@@ -1401,6 +1411,9 @@ def test_cloud_runs_c_grav_and_the_mesh_once_a_step(cuda):
     assert grown["forces_grav"] == 4 and grown["forces"] == 0
     assert grown["solve_h_density"] == 4
     assert pm.SOLVES["n"] == s0 + 4
+    # each solve deposits and interpolates through the CIC kernels
+    assert {k: pm.LAUNCHES[k] - c0[k] for k in c0} == {"cic_deposit": 4,
+                                                       "cic_interp": 4}
     # the same state's pass on the CPU (the generators of the two devices
     # draw different fields, so the card's state is copied over)
     st = p.state._replace(**{f: getattr(p.state, f).cpu()
@@ -1413,3 +1426,88 @@ def test_cloud_runs_c_grav_and_the_mesh_once_a_step(cuda):
     torch.testing.assert_close(got.acc.cpu(), want.acc, rtol=1e-10,
                                atol=1e-10 * scale)
     torch.testing.assert_close(got.rho.cpu(), want.rho, rtol=1e-10, atol=0)
+
+
+def _cic_case(dev, dtype, periodic, M=24, seed=11):
+    """Positions for the CIC kernels on a box whose cells are not powers of
+    two (so the divides round): 10,007 seeded uniform rows, 257 exactly on
+    cell faces (lo + k cell, rounded), and rows at lo, just below hi and
+    1e-7 of the box below lo (wrapped just below hi on a periodic box);
+    10,267 in all, no multiple of the kernels' 256-thread block. Seeded
+    masses and three seeded [M, M, M] grids."""
+    dom = box(torch.tensor([-0.5, 0.25, 0.0], dtype=dtype, device=dev),
+              torch.tensor([0.5, 1.25, 1.7], dtype=dtype, device=dev),
+              periodic=periodic)
+    lo, cell = dom.lo, dom.extent / M
+    g = torch.Generator().manual_seed(seed)
+    u = torch.rand((10_007, 3), generator=g, dtype=torch.float64)
+    faces = torch.randint(0, M, (257, 3), generator=g)
+    pos = torch.cat([lo + u.to(dev, dtype) * dom.extent,
+                     lo + faces.to(dev, dtype) * cell,
+                     torch.stack([lo, torch.nextafter(dom.hi, dom.lo),
+                                  lo - 1e-7 * dom.extent])])
+    pos = dom.wrap(pos)
+    n = pos.shape[0]
+    mass = ((torch.rand(n, generator=g, dtype=torch.float64) + 0.5)
+            / n).to(dev, dtype)
+    grids = torch.randn((3, M, M, M), generator=g,
+                        dtype=torch.float64).to(dev, dtype)
+    return dom, pos, mass, lo, cell, M, grids
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("periodic", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cic_interp_is_the_plain_interp_bit_for_bit(cuda, dtype, periodic):
+    """``pm._interp`` on the card (kernel ``cic_interp``, one launch a
+    call) equals ``pm._interp_plain`` on the same card bit for bit, on 3
+    stacked grids, on 1 and on a list of 3."""
+    _, pos, _, lo, cell, M, grids = _cic_case(cuda, dtype, periodic)
+    for gs in (grids, grids[:1], list(grids)):
+        n0 = pm.LAUNCHES["cic_interp"]
+        got = pm._interp(gs, pos, lo, cell, M, periodic)
+        assert pm.LAUNCHES["cic_interp"] == n0 + 1
+        want = pm._interp_plain(gs, pos, lo, cell, M, periodic)
+        assert got.shape == (pos.shape[0], len(gs))
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("periodic", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cic_deposit_matches_the_plain_deposit(cuda, dtype, periodic):
+    """``pm._deposit`` on the card (kernel ``cic_deposit``, one launch a
+    call) against ``pm._deposit_plain`` on the same card: within 1e-12
+    (fp64) or 1e-6 (fp32) of the largest cell, since both add in the order
+    their atomics land; the total mass within the same share of it."""
+    _, pos, mass, lo, cell, M, _ = _cic_case(cuda, dtype, periodic)
+    tol = 1e-12 if dtype == torch.float64 else 1e-6
+    n0 = pm.LAUNCHES["cic_deposit"]
+    got = pm._deposit(pos, mass, lo, cell, M, periodic)
+    assert pm.LAUNCHES["cic_deposit"] == n0 + 1
+    want = pm._deposit_plain(pos, mass, lo, cell, M, periodic)
+    assert got.shape == (M, M, M) and got.dtype == dtype
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol * scale
+    total = float(mass.double().sum())
+    assert abs(float(got.double().sum()) - total) <= tol * total
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("periodic", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mesh_accel_on_the_card_matches_the_cpu(cuda, dtype, periodic):
+    """``pm.mesh_accel`` on the card (one deposit and one interpolation
+    kernel a solve) against the plain path on the CPU: fp32 3e-5, fp64
+    1e-10 of the largest acceleration (the FFTs and the deposit's sums
+    differ in order)."""
+    dom, pos, mass, _, _, M, _ = _cic_case(cuda, dtype, periodic)
+    cfg = dataclasses.replace(P3M, grav_mesh=M)
+    n0 = dict(pm.LAUNCHES)
+    got = pm.mesh_accel(pos, mass, cfg, dom)
+    assert {k: pm.LAUNCHES[k] - n0[k] for k in n0} == {"cic_deposit": 1,
+                                                       "cic_interp": 1}
+    cpu = box(dom.lo.cpu(), dom.hi.cpu(), periodic=periodic)
+    want = pm.mesh_accel(pos.cpu(), mass.cpu(), cfg, cpu)
+    every = torch.ones(pos.shape[0], dtype=torch.bool)
+    _compare(got.cpu(), want, every, TOL[dtype], "mesh_accel")
