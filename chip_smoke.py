@@ -342,10 +342,21 @@ Phases, in order; any failed check raises and exits non-zero:
                cell of ``pm._deposit_plain`` and the total mass within 1e-6;
                one launch a call; ms a launch, bound (bytes over 3.35 TB/s),
                plain ms
+ 47. limiter   the timestep limiter's kernels (``csrc/rung_limit.cu``) on
+               ``sedov n=256 limiter=4``'s structure after one span of
+               ``rung_chunk`` on 8 rungs, fp32: the tick's pass (the
+               neighbours' lowest rungs, the wake targets, the lowered
+               closers) and the sync point's pass ``torch.equal`` to their
+               plain versions at ticks with few closers and with all; one
+               ``rung_limit_tick`` launch a tick and ``sync_passes``
+               launches of ``rung_limit_sync`` a span on the limiter's
+               path; ms a launch, bound, plain ms
 Each path runs with every launch count set to 0 just before it, and its
 counts are read just after: those of kernels A, C and G
 (``window_kernels.LAUNCHES``), of the three row-packing kernels
-(``rowpack.LAUNCHES``) and of the two CIC kernels (``pm.LAUNCHES``). A
+(``rowpack.LAUNCHES``), of the two CIC kernels (``pm.LAUNCHES``) and of
+the timestep limiter's two kernels (``rung_limit.LAUNCHES``, 0 on every
+path but phase 47's). A
 P3M derived pass launches ``cic_deposit`` and ``cic_interp`` once each, a
 launch of C's gravity mode, and a P3M CLI record's potential once more.
 Every derived pass packs through the row-packing kernels:
@@ -413,6 +424,7 @@ def main():
     from sphax_torch.neighbors import window as win
     from sphax_torch.physics import direct_gravity as dg
     from sphax_torch.physics import driving, pm, rowpack, wengine
+    from sphax_torch.physics import rung_limit as rl
     from sphax_torch.physics import window_kernels as wk
 
     dev = torch.device("cuda")
@@ -584,13 +596,15 @@ def main():
 
     def zero_counts():
         """Set the launch counts of kernels A, C and G, of the three
-        row-packing kernels and of the two CIC kernels to 0."""
-        for c_ in (wk.LAUNCHES, rowpack.LAUNCHES, pm.LAUNCHES):
+        row-packing kernels, of the two CIC kernels and of the timestep
+        limiter's two kernels to 0."""
+        for c_ in (wk.LAUNCHES, rowpack.LAUNCHES, pm.LAUNCHES, rl.LAUNCHES):
             for k in c_:
                 c_[k] = 0
 
     def counts():
-        return dict(wk.LAUNCHES) | dict(rowpack.LAUNCHES) | dict(pm.LAUNCHES)
+        return (dict(wk.LAUNCHES) | dict(rowpack.LAUNCHES)
+                | dict(pm.LAUNCHES) | dict(rl.LAUNCHES))
 
     def with_cic(want):
         """``want`` with the CIC kernels' launches, where it does not give
@@ -2896,12 +2910,15 @@ def main():
     # ---- 46. the P3M mesh's CIC kernels at cloud256 ----------------------
     cic_rec = cic_phase(dev, helpers)
 
+    # ---- 47. the timestep limiter's kernels on sedov n=256 ---------------
+    lim_rec = limiter_phase(dev, helpers)
+
     def total(kernel):
         return sum(p_[kernel] for p_ in paths.values())
 
-    # each row-packing and CIC kernel's launches over every path, as A's
-    # and C's
-    for row in rp_rec["kernels"] + cic_rec["kernels"]:
+    # each row-packing, CIC and limiter kernel's launches over every path,
+    # as A's and C's
+    for row in rp_rec["kernels"] + cic_rec["kernels"] + lim_rec["kernels"]:
         row["launches"] = total(row["name"])
 
     src = "sphax_torch/csrc/window_kernels.cu"
@@ -3148,7 +3165,7 @@ def main():
                              for k, v in g_by_n.items()},
          "slices": {k: v["slices"] for k, v in g_by_n.items()},
          "runtime_at_64_cubed": g_launch},
-        *entry_rows, *cic_rec["kernels"],
+        *entry_rows, *cic_rec["kernels"], *lim_rec["kernels"],
     ], "launches_by_path": paths, "mesh_accel_ms": mesh_ms,
         "mesh_accel_device_ms": mesh_dev_ms,
         "p3m_step_ms": step_g * 1e3, "rs_mesh_cells": rs_cells,
@@ -3196,10 +3213,10 @@ def main():
         "entry": entry_rec, "slow_gates": gates, "sanitize": san,
         "clist": clist_rec, "eq_slab": eq_rec, "sorted_mesh": sm_rec,
         "phases_42_44_s": new_s, "rowpack": rp_rec, "cic": cic_rec,
-        "script_wall_s": time.perf_counter() - t_script,
+        "limiter": lim_rec, "script_wall_s": time.perf_counter() - t_script,
         "build_s": _build.BUILD_INFO["seconds"],
         "card": card}
-    log(f"[done] phases 1-46 in {kernels['script_wall_s']:.1f} s")
+    log(f"[done] phases 1-47 in {kernels['script_wall_s']:.1f} s")
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -3645,6 +3662,8 @@ def eq_slab_phase(dev, h):
         ref, dt = leapfrog.step(ref, cfg, dom, engine, wrap=False)
         dts.append(float(dt))
     t0 = time.perf_counter()
+    # the two ranks share the card with this process
+    torch.cuda.empty_cache()
     out = comm.launch(eq_slab_rank, 2, dev, "gloo", timeout=600,
                       deadline=900, args=(jobs,))
     wall = time.perf_counter() - t0
@@ -4458,6 +4477,111 @@ def cic_phase(dev, h, n_side=256, M=384):
         f"version; one launch a call")
     return {"n": n, "M": M, "kernels": rows, "deposit_max_err_over_scale":
             e_dep, "deposit_mass_err": e_mass,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def limiter_phase(dev, h, n_side=256, n_rungs=8):
+    """Phase 47: the timestep limiter's kernels (``csrc/rung_limit.cu``)
+    at the shapes of the cell ``sedov256.sm09r8``. ``sedov n=256
+    limiter=4`` runs one span of ``rung_chunk`` on 8 rungs
+    with the drift gate (a path of ``h.drive``: one ``rung_limit_tick``
+    launch a tick, ``rung_limit.sync_passes`` launches of
+    ``rung_limit_sync`` at its sync point, one A and one C a tick and A's
+    seeding pass). On the state it ends with, the sync point's passes and
+    the tick's pass (seeded wanted rungs, ticks 3, 63 and 127: few closers,
+    a quarter, every row) are ``torch.equal`` to their plain versions; ms a
+    launch (CUDA events), the bound of the closers' inputs read once, one
+    rung written and 12 operations a neighbour pair (``bounds.bound``), and
+    the plain version's ms. Returns its record, with a row of the kernels'
+    record for each kernel."""
+    from sphax_torch import problems
+    from sphax_torch.__main__ import rung_chunk
+    from sphax_torch.bounds import bound
+    from sphax_torch.integrate import rungs
+    from sphax_torch.neighbors import window as win
+    from sphax_torch.physics import rung_limit as rl
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    prob = problems.sedov(n=n_side, limiter=4, device=dev)
+    assert prob.engine_name == "window" and prob.rung_limiter == 4
+    span = 1 << (n_rungs - 1)
+    a = rungs.limiter_exponent(prob.rung_limiter)
+    passes = rl.sync_passes(n_rungs, a)
+    ticks0 = rungs.WOKEN["ticks"]
+    st, dts, ovf, viol, frac, builds = h.drive(
+        "limiter sedov rungs=8", lambda: rung_chunk(
+            prob, prob.state, n_rungs, span, 8),
+        {"solve_h_density": span + 1, "forces": span,
+         "rung_limit_tick": span, "rung_limit_sync": passes})
+    assert int(ovf) == 0 and bool(torch.isfinite(st.u).all())
+    assert rungs.WOKEN["ticks"] - ticks0 == span
+    spec, dom = prob.wspec, prob.domain
+    pos = dom.wrap(st.pos)
+    wd = win.build(pos, dom, spec)
+    dt_des = rungs.particle_dt(st, prob.cfg)
+    start = rungs._rung_of(dt_des, dt_des.amin(), n_rungs)
+    rung, plain = start, start
+    for _ in range(passes):
+        rung = rl.sync(wd, spec, pos, st.h, st.mass, rung, a, n_rungs)
+        plain = rl.sync_plain(wd, spec, pos, st.h, st.mass, plain, a,
+                              n_rungs)
+        assert torch.equal(rung, plain), int((rung != plain).sum())
+    lowered_sync = int((rung < start).sum())
+    gen = torch.Generator(device=dev).manual_seed(47)
+    r_des = torch.randint(0, n_rungs, rung.shape, generator=gen,
+                          device=dev, dtype=torch.int32)
+    ticks = {}
+    for k in (3, span // 2 - 1, span - 1):
+        args = (wd, spec, pos, st.h, st.mass, rung, r_des, k, a,
+                rungs._alignment(k + 1, n_rungs), n_rungs)
+        got, want = rl.tick(*args), rl.tick_plain(*args)
+        for name, x, y in zip(("m", "target", "limited"), got, want):
+            assert torch.equal(x, y), (k, name, int((x != y).sum()))
+        g, x, h_s, m_s, r_s, real = rl._sorted(wd, pos, st.h, st.mass,
+                                              rung)
+        closes = real & (torch.bitwise_and((1 << r_s.long()) - 1, k + 1)
+                         == 0)
+        pairs = sum(i.numel() for i, _ in rl.neighbour_pairs(
+            wd, spec, closes, x, h_s, m_s, g))
+        ticks[k] = dict(closers=int(closes.sum()), pairs=int(pairs),
+                        limited=int(got[2]),
+                        woken=int((got[1] < rung).sum()))
+    size = pos.element_size()
+    rows, src = [], "sphax_torch/csrc/rung_limit.cu"
+    few = ticks[3]
+    cases = {
+        "rung_limit_tick": (
+            lambda: rl.tick(wd, spec, pos, st.h, st.mass, rung, r_des, 3, a,
+                            rungs._alignment(4, n_rungs), n_rungs),
+            lambda: rl.tick_plain(wd, spec, pos, st.h, st.mass, rung, r_des,
+                                  3, a, rungs._alignment(4, n_rungs),
+                                  n_rungs),
+            bound(few["closers"] * (5 * size + 3 * 4), 12 * few["pairs"],
+                  pos.dtype), few["closers"]),
+        "rung_limit_sync": (
+            lambda: rl.sync(wd, spec, pos, st.h, st.mass, rung, a, n_rungs),
+            lambda: rl.sync_plain(wd, spec, pos, st.h, st.mass, rung, a,
+                                  n_rungs),
+            bound(st.n * (5 * size + 2 * 4),
+                  12 * ticks[span - 1]["pairs"], pos.dtype), st.n)}
+    for name, (kern, slow, (b_ms, by), walking) in cases.items():
+        k_ms, _ = h.cuda_ms(kern, 20)
+        p_ms, _ = h.cuda_ms(slow, 2)
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": None, "ms": k_ms, "plain_ms": p_ms,
+                     "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+                     "max_abs_err": 0, "n": st.n, "walking_rows": walking})
+        log(f"[47 limiter] {name:16s} {k_ms:.3f} ms  bound {b_ms:.3g} ms "
+            f"({by}, {walking} walking rows)  plain {p_ms:.3f} ms")
+    log(f"[47 limiter] sedov n={n_side} limiter=4, {span} ticks on "
+        f"{n_rungs} rungs: dt_viol {int(viol)}, active {frac:.4f}, builds "
+        f"{builds}; sync ({passes} passes, {lowered_sync} rungs lowered) "
+        f"and the tick's pass ({ticks}) equal to plain; one tick launch a "
+        f"tick")
+    return {"n": st.n, "n_rungs": n_rungs, "span_dt_viol": int(viol),
+            "span_active_frac": frac, "sync_passes": passes,
+            "sync_lowered": lowered_sync, "ticks": ticks, "kernels": rows,
             "seconds": time.perf_counter() - t_phase}
 
 

@@ -33,7 +33,12 @@ chunk. The dense engine ignores it, as the JAX CLI does.
 ``rungs=B`` (B > 1) integrates with block timesteps on B power-of-two rungs
 (``integrate.rungs.simulate_rungs``): a chunk is ceil(chunk / 2^(B-1))
 whole spans of 2^(B-1) ticks, a tick counts as a step, ``adaptive=K`` is
-passed through, and each record carries ``dt_viol`` and ``active_frac``. It
+passed through, and each record carries ``dt_viol`` and ``active_frac``.
+``sedov ... limiter=A`` (A a power of two, e.g. ``sedov n=256 rungs=8
+adaptive=8 limiter=4``) adds Saitoh & Makino's timestep limiter: every
+particle's step within a factor A of its neighbours', and the wake-up of
+sleeping neighbours of a closing particle; it needs ``rungs=B > 1`` and one
+device (``shards=`` refuses it). It
 needs the window engine without self-gravity or OU driving, and a run
 aborts when more than a quarter of a chunk's closings wanted a dt below the
 span's. On the CPU one device refuses every problem (all but ``turb`` take
@@ -175,20 +180,24 @@ def _parse_shards(kv, profile: int, plot: int, adaptive: int):
 
 def rung_chunk(prob, state, n_rungs: int, chunk: int, adaptive: int = 0):
     """One chunk of the block-timestep loop on the problem ``prob``:
-    ceil(chunk / 2^(n_rungs-1)) whole spans from ``state``. Returns (state,
-    dts, overflow, dt_viol, active_frac, builds): ``dt_viol`` the closings
-    that wanted a dt below their span's dt_min, ``active_frac`` the closing
-    particles per tick over N. The CFL safety factor absorbs a few such
-    closings; a persistent rate means the rung ladder is too deep for the
-    problem, so above 25 % of the closings this raises rather than integrate
-    past the CFL condition, and above 5 % it warns."""
+    ceil(chunk / 2^(n_rungs-1)) whole spans from ``state``, with the
+    timestep limiter the problem carries (``prob.rung_limiter``, A; 0 runs
+    none). Returns (state, dts, overflow, dt_viol, active_frac, builds):
+    ``dt_viol`` the closings that wanted a dt below their span's dt_min,
+    ``active_frac`` the closing particles per tick over N (the limiter's
+    shorter steps and wake-ups count where they close). The CFL safety
+    factor absorbs a few such closings; a persistent rate means the rung
+    ladder is too deep for the problem, so above 25 % of the closings this
+    raises rather than integrate past the CFL condition, and above 5 % it
+    warns."""
     from sphax_torch.integrate import rungs
 
     span = 1 << (n_rungs - 1)
     nspans = max(1, -(-chunk // span))
     state, dts, nacts, ovf, viol, builds = rungs.simulate_rungs(
         state, prob.cfg, prob.domain, prob.wspec, nspans, n_rungs=n_rungs,
-        rebuild_every=2 if span % 2 == 0 else 1, adaptive_rebuild=adaptive)
+        rebuild_every=2 if span % 2 == 0 else 1, adaptive_rebuild=adaptive,
+        limiter=prob.rung_limiter)
     tot, viol = int(nacts.sum()), int(viol)
     if viol > 0.25 * tot:
         raise RuntimeError(
@@ -279,6 +288,9 @@ def main(argv=None):
             "rungs>1 needs the window engine without self-gravity or OU "
             "driving (see sphax_torch/integrate/rungs.py scope); on the CPU "
             "the problems take the dense engine or the cell list")
+    if prob.rung_limiter and n_rungs == 1:
+        raise SystemExit(f"limiter={prob.rung_limiter} limits block "
+                         "timesteps: give rungs=B > 1")
     rung_info = {}
 
     def run_chunk(state, drive, nsteps):

@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "window_kernels.cu", CSRC / "gravity_kernel.cu",
-           CSRC / "rowpack.cu", CSRC / "cic.cu")
+           CSRC / "rowpack.cu", CSRC / "cic.cu", CSRC / "rung_limit.cu")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "sphax_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
@@ -76,10 +76,21 @@ _ARGTYPES.update({
     # pos, lo, cell, grids, n, M, ngrids, periodic, out, stream
     "sphax_cic_interp": [_P] * 4 + [_I] * 4 + [_P] * 2,
 })
+# the block timesteps' limiter (csrc/rung_limit.cu)
+_ARGTYPES.update({
+    # g, is_real, shift, w_lo, w_nact, Ns, group, n, pos, h, mass, rung,
+    # r_des, k, a, align, n_rungs, m_out, target, limited, stream
+    "sphax_rung_limit_tick": [_P] * 5 + [_I] * 3 + [_P] * 5 + [_I] * 4
+    + [_P] * 4,
+    # g, is_real, shift, w_lo, w_nact, Ns, group, n, pos, h, mass, rung, a,
+    # n_rungs, rung_out, stream
+    "sphax_rung_limit_sync": [_P] * 5 + [_I] * 3 + [_P] * 4 + [_I] * 2
+    + [_P] * 2,
+})
 # the source of each entry point, by the word after ``sphax_``
 _SOURCE_OF = {"solve": "window_kernels.cu", "forces": "window_kernels.cu",
               "gravity": "gravity_kernel.cu", "rowpack": "rowpack.cu",
-              "cic": "cic.cu"}
+              "cic": "cic.cu", "rung": "rung_limit.cu"}
 
 
 def cuda_tool(name: str):

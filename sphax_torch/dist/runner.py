@@ -408,6 +408,12 @@ def main_dist(opts: dict):
     n_dev = shards[0] * shards[1] if grid else shards
     prob = REGISTRY[name](device=device, **opts["kv"])
     driven = prob.drive_spec is not None
+    if prob.rung_limiter:
+        loop = "dist/prungs.py" if grid else "dist/wrungs.py"
+        raise SystemExit(
+            f"limiter={prob.rung_limiter} runs on one device only: the "
+            f"{'pencil' if grid else 'slab'} ranks' rung loop ({loop}) "
+            "keeps no timestep limiter; drop shards= or limiter=")
     if opts["n_rungs"] > 1 and (driven or prob.cfg.gravity):
         raise SystemExit(
             "rungs>1 needs the window engine without self-gravity or OU "

@@ -31,6 +31,29 @@ With n_rungs=1 this is the global-dt leapfrog of ``wengine.simulate``, to
 roundoff. A particle whose wanted dt falls below dt_min mid-span cannot be
 honoured until the next sync; the returned ``dt_viol`` counts such closings.
 
+``limiter=A`` (A = 2^a; 0, the default, runs none of it) adds Saitoh &
+Makino's (2009) timestep limiter with the wake-up of sleeping neighbours
+(Durier & Dalla Vecchia 2012), so that a shock never runs into particles
+asleep on long steps. Neighbours are the pairs kernel C walks, |x_i - x_j| <
+2 max(h_i, h_j):
+
+* At a span's sync point each rung is cut to at most a above the lowest
+  rung among its neighbours, repeated to the fixed point.
+* At a closing, the closer's wanted dt is cut to at most A min_j dt_{r_j}
+  over its neighbours' current steps before ``close_rungs`` turns it into
+  a rung (the Hernquist-Katz alignment stays).
+* A row j that does not close and has a closing neighbour i with r_j >
+  r_i' + a (r_i' the closer's new rung) wakes: it takes the rung r' =
+  max(r_i' + a, ceil(log2(k + 2 - k0))), the least over such i, where k0 =
+  k - k mod 2^{r_j} is its opening tick, so its step ends on r''s first
+  boundary after tick k. Its velocity and u lose 1/2 (2^{r_j} - 2^{r'})
+  dt_min times its stored acceleration and du/dt, which makes its opening
+  half-kick the one a step of 2^{r'} opens with; the closing half-kick
+  stays as it is. Its drift stands (an error of order dt^2 a).
+
+``physics.rung_limit`` holds the pair passes (a kernel a tick, and the sync
+point's passes), the counters ``LIMITED`` and ``WOKEN`` below what they did.
+
 Scope: the single-device window engine, no self-gravity (the mesh is a
 global solve with no group skipping), no OU driving.
 
@@ -46,10 +69,24 @@ import torch
 from sphax_torch.configs import SPHConfig
 from sphax_torch.core.state import Domain, ParticleState
 from sphax_torch.integrate.timestep import particle_dt
-from sphax_torch.io.metrics import span
+from sphax_torch.io.metrics import LIMIT_SPAN, span
 from sphax_torch.neighbors import window as win
 from sphax_torch.neighbors.window import WindowData, WindowSpec
-from sphax_torch.physics import pairs, rowpack, wengine
+from sphax_torch.physics import pairs, rowpack, rung_limit, wengine
+
+# What the limiter did in this process, on the device (added to without a
+# host read; read it once, after the work): ``LIMITED["sums"]`` [closers
+# whose rung the limiter lowered, closings of the limiter's ticks],
+# ``WOKEN["sums"]`` [rows the wake-up shortened], ``WOKEN["ticks"]`` the
+# limiter's ticks (a host int). A run on another device starts them afresh.
+LIMITED = {"sums": None}
+WOKEN = {"sums": None, "ticks": 0}
+
+
+def _add(book: dict, sums):
+    prev = book["sums"]
+    book["sums"] = (sums.clone() if prev is None or prev.device != sums.device
+                    else prev + sums)
 
 
 def mask_structure(wd: WindowData, spec: WindowSpec, act_s) -> WindowData:
@@ -109,7 +146,7 @@ def _visc_factor_full(state: ParticleState, cfg: SPHConfig, domain: Domain,
 def simulate_rungs(state: ParticleState, cfg: SPHConfig, domain: Domain,
                    spec: WindowSpec, nspans: int, n_rungs: int = 4,
                    rebuild_every: int = 2, adaptive_rebuild: int = 0,
-                   skin_safety: float = 0.8):
+                   skin_safety: float = 0.8, limiter: int = 0):
     """Block-timestep production loop.
 
     ``state`` must carry current derived quantities (run update_derived
@@ -129,6 +166,11 @@ def simulate_rungs(state: ParticleState, cfg: SPHConfig, domain: Domain,
     bool is read on the host once per tick; a tick whose age cap binds
     skips the read.
 
+    ``limiter=A`` (a power of two; 0 runs no limiter) keeps neighbours'
+    steps within a factor A of each other and wakes sleeping neighbours
+    (the module's notes): one ``rung_limit.tick`` launch a tick, and
+    ``rung_limit.sync_passes`` launches at each span's sync point.
+
     Returns (state, dts, n_active, overflow, dt_viol, n_rebuilds):
       dts        [nspans * 2^{B-1}] base dt of every tick;
       n_active   [nspans * 2^{B-1}] closing particles per tick (int32); the
@@ -145,6 +187,7 @@ def simulate_rungs(state: ParticleState, cfg: SPHConfig, domain: Domain,
     span_ticks = 1 << (n_rungs - 1)
     if not adaptive_rebuild and span_ticks % rebuild_every:
         raise ValueError("rebuild_every must divide 2^(n_rungs-1)")
+    a = limiter_exponent(limiter)
 
     def close_tick(st, bf_prev, rung, wd, k, dt_min, dt_r, period_mask):
         """Derived pass on the closers' groups, closing half-kick, rung
@@ -171,15 +214,27 @@ def simulate_rungs(state: ParticleState, cfg: SPHConfig, domain: Domain,
                                           dt_r, cfg)
             st = st._replace(alpha=torch.where(close_m, a_new, st.alpha))
 
-        rung, viol = close_rungs(rung, particle_dt(st, cfg), dt_min,
-                                 close_m, k, n_rungs)
-        return st, bf_now, rung, close_m.sum(), viol
+        nact = close_m.sum()
+        if a is None:
+            rung, viol = close_rungs(rung, particle_dt(st, cfg), dt_min,
+                                     close_m, k, n_rungs)
+        else:
+            st, rung, viol = limited_close(st, rung, wd, spec, cfg, close_m,
+                                           nact, k, dt_min, n_rungs, a)
+        return st, bf_now, rung, nact, viol
 
-    def start_rungs(st):
-        """Span sync point: every particle closed on the previous tick."""
+    def start_rungs(st, wd):
+        """Span sync point: every particle closed on the previous tick;
+        ``wd`` is a structure valid at the state's positions."""
         dt_des0 = particle_dt(st, cfg)
         dt_min = dt_des0.amin()
-        return dt_min, _rung_of(dt_des0, dt_min, n_rungs)
+        rung = _rung_of(dt_des0, dt_min, n_rungs)
+        if a is not None:
+            with span(LIMIT_SPAN):
+                for _ in range(rung_limit.sync_passes(n_rungs, a)):
+                    rung = rung_limit.sync(wd, spec, st.pos, st.h, st.mass,
+                                           rung, a, n_rungs)
+        return dt_min, rung
 
     def rebuild(st):
         st = st._replace(pos=domain.wrap(st.pos))
@@ -205,7 +260,7 @@ def simulate_rungs(state: ParticleState, cfg: SPHConfig, domain: Domain,
             for k in range(span_ticks):
                 with span("sphax_torch.tick"):
                     if k == 0:
-                        dt_min, rung = start_rungs(state)
+                        dt_min, rung = start_rungs(state, wd)
                     state, dt_r, pm = open_drift(state, rung, dt_min, k, cfg)
                     if (since + 1 >= adaptive_rebuild
                             or wengine.skin_spent(state.pos, ref, state.h,
@@ -220,16 +275,74 @@ def simulate_rungs(state: ParticleState, cfg: SPHConfig, domain: Domain,
         for _ in range(nspans):
             for k in range(span_ticks):
                 with span("sphax_torch.tick"):
-                    if k == 0:
-                        dt_min, rung = start_rungs(state)
                     if k % rebuild_every == 0:
                         state, wd = rebuild(state)
+                    if k == 0:
+                        dt_min, rung = start_rungs(state, wd)
                     state, dt_r, pm = open_drift(state, rung, dt_min, k, cfg)
                     state, bf, rung = tick(state, bf, rung, wd, k, dt_min,
                                            dt_r, pm)
     return (state._replace(pos=domain.wrap(state.pos)), torch.stack(dts),
             torch.stack(nacts).to(torch.int32), torch.stack(ovfs).amax(),
             torch.stack(viols).sum(), len(ovfs))
+
+
+def limiter_exponent(limiter: int):
+    """a with ``limiter`` = 2^a, or None for 0 (no limiter); raise for
+    anything else."""
+    limiter = int(limiter)
+    if limiter == 0:
+        return None
+    if limiter < 2 or limiter & (limiter - 1):
+        raise ValueError(f"limiter={limiter}: expected 0 (off) or a power of "
+                         "two >= 2")
+    return limiter.bit_length() - 1
+
+
+def limited_close(st: ParticleState, rung, wd: WindowData, spec: WindowSpec,
+                  cfg: SPHConfig, close_m, nact, k: int, dt_min, n_rungs: int,
+                  a: int):
+    """The close of tick ``k`` under the limiter, after the closers'
+    derived pass and half-kick: the neighbours' lowest rungs and the wake
+    targets (``rung_limit.tick``), the woken rows' kick correction
+    (``wake``), then the closers' wanted dt cut to 2^a times their
+    neighbours' lowest step before ``close_rungs`` turns it into a rung.
+    The closers' wanted rungs come from ``particle_dt`` before the wake-up
+    and again after it, on the state the tick ends with: it reads h, cs and
+    acc, which the wake-up leaves as they were. Returns (state, rung,
+    dt_viol)."""
+    with span(LIMIT_SPAN):
+        r_des = _rung_of(particle_dt(st, cfg), dt_min, n_rungs)
+        m, target, n_limited = rung_limit.tick(
+            wd, spec, st.pos, st.h, st.mass, rung, r_des, k, a,
+            _alignment(k + 1, n_rungs), n_rungs)
+        st, woken = wake(st, rung, target, dt_min, cfg)
+    cap = dt_min * torch.bitwise_left_shift(
+        torch.ones_like(m, dtype=torch.int64), m + a).to(dt_min.dtype)
+    r_new, viol = close_rungs(rung, torch.minimum(particle_dt(st, cfg), cap),
+                              dt_min, close_m, k, n_rungs)
+    _add(LIMITED, torch.cat([n_limited.to(torch.int64), nact.reshape(1)]))
+    _add(WOKEN, woken.sum().reshape(1))
+    WOKEN["ticks"] += 1
+    return st, torch.where(close_m, r_new, target), viol
+
+
+def wake(st: ParticleState, rung, target, dt_min, cfg: SPHConfig):
+    """The wake-up of the rows whose ``target`` lies below their
+    ``rung`` (none of them closes): velocity and u lose 1/2 (2^rung -
+    2^target) dt_min times the stored acceleration and du/dt, so their
+    opening half-kick is the one a step of 2^target opens with. Returns
+    (state, woken)."""
+    woken = target < rung
+    dt = st.pos.dtype
+    back = torch.where(woken, 0.5 * dt_min * (torch.exp2(rung.to(dt))
+                                              - torch.exp2(target.to(dt))),
+                       0.0)
+    vel = torch.where(woken[:, None], st.vel - back[:, None] * st.acc,
+                      st.vel)
+    u = torch.where(woken, torch.clamp_min(st.u - back * st.du_dt,
+                                           cfg.u_floor), st.u)
+    return st._replace(vel=vel, u=u), woken
 
 
 def open_drift(st: ParticleState, rung, dt_min, k: int, cfg: SPHConfig):
@@ -259,10 +372,15 @@ def close_rungs(rung, dt_des, dt_min, close_m, k: int, n_rungs: int):
     if k + 1 >= span_ticks:
         viol = torch.zeros_like(viol)
     r_des = _rung_of(dt_des, dt_min, n_rungs)
-    kp = k + 1
-    align = sum((kp & ((1 << j) - 1)) == 0 for j in range(1, n_rungs))
+    align = _alignment(k + 1, n_rungs)
     r_new = torch.where(r_des < rung, r_des, torch.clamp_max(r_des, align))
     return torch.where(close_m, r_new, rung), viol
+
+
+def _alignment(kp: int, n_rungs: int) -> int:
+    """The highest rung a closing at tick kp - 1 may rise to: how many of
+    2, 4, ..., 2^(n_rungs - 1) divide kp."""
+    return sum((kp & ((1 << j) - 1)) == 0 for j in range(1, n_rungs))
 
 
 def _rung_of(dt_des, dt_min, n_rungs: int):

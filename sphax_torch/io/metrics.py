@@ -15,9 +15,11 @@ and ``sphax_torch.derived`` (a derived pass), which holds
 ``sphax_torch.kernel_a`` and ``sphax_torch.kernel_c`` (the wrappers of
 kernels A and C, packing and checks included). A derived pass with P3M
 gravity also holds ``MESH_SPAN``, ``sphax_torch.mesh``, around the FFT
-mesh (``pm.mesh_accel``); it stays out of ``SPANS``, the spans of every
-path, which the benchmark's idle split maps to its phases. So
-``profile=1``'s Chrome trace carries them. A span is a
+mesh (``pm.mesh_accel``); a tick with the timestep limiter holds
+``LIMIT_SPAN``, ``sphax_torch.limit``, around its pair passes and the
+wake-up. They stay out of ``SPANS``, the spans of every path, which the
+benchmark's idle split maps to its phases (their idle goes to the span
+around them). So ``profile=1``'s Chrome trace carries them. A span is a
 ``torch.profiler.record_function`` range only while a profiler records;
 otherwise it is one shared no-op context, whose cost (under a
 microsecond, a few a step) nothing measures.
@@ -32,7 +34,9 @@ segments, as ``window.candidate_sums`` reads them off the build's own
 tables) and the count of those rows, in a few small device reductions with
 no host read. Read it once, after the work: candidates over rows is the
 walk's mean candidates a row, which the pairs inside 2 h a row turn into
-the walk's waste.
+the walk's waste. The timestep limiter keeps ``integrate.rungs.LIMITED``
+and ``WOKEN`` the same way (closers whose rung it lowered and closings,
+rows the wake-up shortened and ticks).
 """
 from __future__ import annotations
 
@@ -54,15 +58,18 @@ SPANS = ("sphax_torch.step", "sphax_torch.tick", "sphax_torch.build",
          "sphax_torch.kernel_c")
 # the P3M path's span inside ``sphax_torch.derived``, around the FFT mesh
 MESH_SPAN = "sphax_torch.mesh"
+# the rung path's span inside ``sphax_torch.tick`` around the timestep
+# limiter's passes and the wake-up (``rungs.simulate_rungs(limiter=A)``)
+LIMIT_SPAN = "sphax_torch.limit"
 
 _NO_SPAN = contextlib.nullcontext()
 
 
 def span(name: str):
     """A ``torch.profiler.record_function`` range named ``name`` (one of
-    ``SPANS``, or ``MESH_SPAN``) while a profiler records, else a shared
-    no-op context: an idle ``record_function`` is itself a dispatcher
-    call, some ten times the cost of this check."""
+    ``SPANS``, ``MESH_SPAN`` or ``LIMIT_SPAN``) while a profiler records,
+    else a shared no-op context: an idle ``record_function`` is itself a
+    dispatcher call, some ten times the cost of this check."""
     if torch.autograd._profiler_enabled():
         return torch.profiler.record_function(name)
     return _NO_SPAN

@@ -52,6 +52,7 @@ class Problem(NamedTuple):
     noise: Optional[driving.GaussianNoise] = None  # driven problems only
     seed: int = 0                        # the noise stream's seed
     grid: Optional[Grid] = None          # when the cell list is used
+    rung_limiter: int = 0                # block timesteps' limiter A (0: off)
 
 
 _CFG_FIELDS = {f.name: f.type for f in dataclasses.fields(SPHConfig)}
@@ -163,12 +164,20 @@ def sod(n: int = 32, dtype=torch.float32, device=None, **kw) -> Problem:
                    **_engine_kw(spec, name))
 
 
-def sedov(n: int = 20, visc: str = "balsara", dtype=torch.float32,
-          device=None, **kw) -> Problem:
+def sedov(n: int = 20, visc: str = "balsara", limiter: int = 0,
+          dtype=torch.float32, device=None, **kw) -> Problem:
     """visc: "balsara" (default) or "mm" (Morris-Monaghan time-dependent
-    alpha, through kernel C's viscosity-factor channel)."""
+    alpha, through kernel C's viscosity-factor channel). ``limiter=A`` (a
+    power of two, 0 = off) runs block timesteps (``rungs=B``) with Saitoh &
+    Makino's limiter, neighbours' steps within a factor A, and the wake-up
+    of sleeping neighbours (``integrate.rungs``)."""
     from sphax_torch.ics import sedov as ics
+    from sphax_torch.integrate import rungs
     dev = _device(device)
+    try:
+        rungs.limiter_exponent(limiter)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     ic = ics.build(n_side=int(n))
     cfg = configs.SEDOV
     if visc == "mm":
@@ -183,7 +192,7 @@ def sedov(n: int = 20, visc: str = "balsara", dtype=torch.float32,
     # the blast centre evacuates -> h grows ~1.6x; margin 1.5 covers it
     eng, spec, name = _auto_engine(st, cfg, dom, h_margin=1.5)
     return Problem("sedov", eng(st), cfg, dom, eng, t_end=0.06,
-                   **_engine_kw(spec, name))
+                   rung_limiter=int(limiter), **_engine_kw(spec, name))
 
 
 def kh(n: int = 64, smooth=0, dtype=torch.float32, device=None,

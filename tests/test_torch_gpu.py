@@ -17,7 +17,8 @@ structure, and a lockstep with one device; the flagship step of
 launches that ``compute-sanitizer`` checks; and the cell-list engine
 against the window engine, the equal-extent slabs against one device,
 the sorted-order P3M mesh against the scatter mesh, and the P3M mesh's CIC
-kernels against their plain versions (the interpolation bit for bit).
+kernels against their plain versions (the interpolation bit for bit),
+and the timestep limiter's kernels against theirs (bit for bit).
 
 These tests import no JAX (the machine with the card has none) and skip
 where no CUDA device is visible. Run them on the card without the suite's
@@ -822,6 +823,68 @@ def test_rung_pass_packs_through_rowpack(cuda, dtype, monkeypatch):
         assert torch.equal(a, b), (f, int((a != b).sum()))
     assert torch.equal(bf_got, bf_want)
     assert torch.equal(got.acc[~close], st.acc[~close])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rung_limit_kernels_equal_plain(cuda, dtype):
+    """The timestep limiter's kernels (``physics.rung_limit``) on the Sedov
+    lattice, 24^3, with a seeded drift and seeded rungs and wanted rungs on
+    8 rungs: the tick's pass at ticks with few closers, a half and all
+    (the neighbours' lowest rungs, the wake targets, the lowered closers;
+    rows wake at tick 3, where rungs above 3 sleep mid-step) and the sync
+    point's pass, each ``torch.equal`` to its plain version on the card's
+    tensors, one launch a call."""
+    from sphax_torch.physics import rung_limit as rl
+
+    prob = problems.sedov(n=24, dtype=dtype, device=cuda)
+    st, dom, spec = prob.state, prob.domain, prob.wspec
+    gen = torch.Generator(device=cuda).manual_seed(25)
+    pos = dom.wrap(st.pos + 0.05 * st.h[:, None] * torch.randn(
+        st.pos.shape, generator=gen, dtype=dtype, device=cuda))
+    wd = win.build(pos, dom, spec)
+    assert int(wd.overflow) == 0
+    rung, r_des = (torch.randint(0, 8, (st.n,), generator=gen, device=cuda,
+                                 dtype=torch.int32) for _ in range(2))
+    for k in (0, 3, 63, 127):
+        args = (wd, spec, pos, st.h, st.mass, rung, r_des, k, 2,
+                rungs._alignment(k + 1, 8), 8)
+        n0 = rl.LAUNCHES["rung_limit_tick"]
+        got = rl.tick(*args)
+        assert rl.LAUNCHES["rung_limit_tick"] == n0 + 1
+        want = rl.tick_plain(*args)
+        for name, a, b in zip(("m", "target", "limited"), got, want):
+            assert torch.equal(a, b), (k, name, int((a != b).sum()))
+        assert k != 3 or bool((got[1] < rung).any()), k
+    n0 = rl.LAUNCHES["rung_limit_sync"]
+    got = rl.sync(wd, spec, pos, st.h, st.mass, rung, 2, 8)
+    assert rl.LAUNCHES["rung_limit_sync"] == n0 + 1
+    want = rl.sync_plain(wd, spec, pos, st.h, st.mass, rung, 2, 8)
+    assert torch.equal(got, want) and not torch.equal(got, rung)
+
+
+@pytest.mark.gpu
+def test_limited_span_launches_the_tick_kernel_once_a_tick(cuda,
+                                                           monkeypatch):
+    """One span of ``simulate_rungs(limiter=4)`` on 6 rungs on the card
+    (Sedov, 24^3, fp32, the drift gate at 8): one ``rung_limit_tick``
+    launch a tick, ``sync_passes`` launches of ``rung_limit_sync`` at the
+    sync point, no plain version called, and no window overflow."""
+    from sphax_torch.physics import rung_limit as rl
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called on a CUDA tensor")
+
+    monkeypatch.setattr(rl, "tick_plain", refuse)
+    monkeypatch.setattr(rl, "sync_plain", refuse)
+    prob = problems.sedov(n=24, device=cuda)
+    n0 = dict(rl.LAUNCHES)
+    out = rungs.simulate_rungs(prob.state, prob.cfg, prob.domain, prob.wspec,
+                               1, n_rungs=6, adaptive_rebuild=8, limiter=4)
+    torch.cuda.synchronize()
+    assert {k: rl.LAUNCHES[k] - n0[k] for k in n0} == {
+        "rung_limit_tick": 32, "rung_limit_sync": rl.sync_passes(6, 2)}
+    assert int(out[3]) == 0 and bool(torch.isfinite(out[0].u).all())
 
 
 def _slab_state(dev, dtype, n_side, cfg):
